@@ -1,0 +1,22 @@
+"""tinyllama-1.1b [dense]: 22L d=2048 32H (GQA kv=4) d_ff=5632 vocab=32000.
+llama2-arch small. [arXiv:2401.02385; hf]"""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="tinyllama-1.1b",
+    family="dense",
+    n_layers=22,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=4,
+    head_dim=64,
+    d_ff=5632,
+    vocab=32000,
+)
+
+
+def smoke() -> ArchConfig:
+    return CONFIG.scaled(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=128, vocab=512,
+    )

@@ -1,0 +1,54 @@
+"""Carry weights and index state across from the JAX package.
+
+The port's parameters and IVF state keep the reference's structure, so
+conversion is a structural copy of numpy arrays (what ``jax.device_get``
+returns) into tensors: the converted objects compute the same function as
+their JAX source. This module imports neither ``jax`` nor ``repro``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.mips.ivf import IVFState
+from repro_torch.models import transformer
+from repro_torch.models.config import ArchConfig
+
+__all__ = ["tree_from_numpy", "params_from_jax", "ivf_state_from_jax"]
+
+
+def tree_from_numpy(tree: Any, device=None) -> Any:
+    """dicts / lists / tuples of numpy arrays -> the same structure of
+    tensors on ``device`` (None stays None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_from_numpy(v, device) for v in tree]
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def params_from_jax(np_tree: dict, cfg: ArchConfig, device=None) -> dict:
+    """The JAX param pytree of ``cfg`` (``transformer.init_params``'s
+    structure, as numpy arrays) -> the port's params."""
+    transformer.check_supported(cfg)
+    params = tree_from_numpy(np_tree, device)
+    vp, d = cfg.vocab_padded, cfg.d_model
+    if tuple(params["embed"].shape) != (vp, d) or len(params["blocks"]) != 1:
+        raise ValueError(f"param tree does not match {cfg.name}: embed "
+                         f"{tuple(params['embed'].shape)}, "
+                         f"{len(params['blocks'])} block groups")
+    n = params["blocks"][0]["0"]["norm1"].shape[0]
+    if n != cfg.n_layers:
+        raise ValueError(f"{n} stacked layers, config has {cfg.n_layers}")
+    return params
+
+
+def ivf_state_from_jax(np_state, device=None) -> IVFState:
+    """A JAX ``IVFState`` (NamedTuple of numpy arrays, same field order) ->
+    the port's :class:`IVFState`."""
+    return IVFState(*(torch.from_numpy(np.array(x, copy=True)).to(device)
+                      for x in np_state))

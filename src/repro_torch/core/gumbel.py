@@ -1,0 +1,163 @@
+"""Lazy-Gumbel sampling, Algorithm 2 with the Poissonized tail
+(counterpart of ``repro/core/gumbel.py``; the theory is documented there and
+in DESIGN.md §3).
+
+Where the reference vmaps a per-token function, these functions take a
+leading token dimension t. The random numbers come from the
+counter-based generator of :mod:`repro_torch.core.rng` (``keys``), or are
+injected whole through ``draws`` (:class:`repro_torch.core.rng.Draws`) —
+which is how the parity tests feed the reference's own draws in.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import rng
+from repro_torch.core.complement import complement_map
+
+__all__ = [
+    "TopK",
+    "SampleResult",
+    "TailPlan",
+    "default_kl",
+    "plan_tail",
+    "certificate",
+    "cutoff",
+    "sample_fixed_b",
+    "default_m_cap",
+]
+
+
+class TopK(NamedTuple):
+    """Top-k set S: ids and their unnormalized log-probs (any order)."""
+
+    ids: torch.Tensor  # (..., k) integer
+    values: torch.Tensor  # (..., k) float32
+
+
+class SampleResult(NamedTuple):
+    index: torch.Tensor  # (t,) int64 — the sampled element of [0, n)
+    ok: torch.Tensor  # (t,) bool — True => provably exact (given MIPS gap <= c)
+    m: torch.Tensor  # (t,) int64 — tail candidates materialized
+    max_val: torch.Tensor  # (t,) f32 — winning perturbed value
+    bound: torch.Tensor  # (t,) f32 — S_min + c + B
+    overflow: torch.Tensor  # (t,) bool — static tail buffer overflowed
+
+
+class TailPlan(NamedTuple):
+    """The data-independent part of the Poissonized tail draw: positions,
+    heights and live count, decided before any tail score is computed. The
+    fused tail kernel consumes it directly."""
+
+    pos: torch.Tensor  # (t, m_cap) int64 tail positions (complement of S)
+    heights: torch.Tensor  # (t, m_cap) f32 truncated-Gumbel heights B + Exp(1)
+    m_used: torch.Tensor  # (t,) int64 materialized tail candidates (<= m_cap)
+    overflow: torch.Tensor  # (t,) bool Poisson draw exceeded the buffer
+
+
+def default_kl(n: int, delta: float = 1e-4, c: float = 0.0) -> int:
+    """k = l satisfying Thm 3.3's ``k l >= n e^c ln(1/δ)``, rounded up to 64."""
+    kl = math.sqrt(n * math.exp(c) * math.log(1.0 / delta))
+    return max(64, int(math.ceil(kl / 64.0)) * 64)
+
+
+def default_m_cap(l: int) -> int:
+    """Static tail buffer ``l + 6 sqrt(l) + 8`` (overflow < 1e-8)."""
+    return int(l + 6 * math.sqrt(l) + 8)
+
+
+def _n_excluded(topk_ids: torch.Tensor, k_valid) -> torch.Tensor:
+    t, k = topk_ids.shape
+    if k_valid is None:
+        return torch.full((t,), k, dtype=torch.int64, device=topk_ids.device)
+    return torch.as_tensor(k_valid, device=topk_ids.device).long()
+
+
+def plan_tail(keys, topk_ids: torch.Tensor, n, b: torch.Tensor, lam,
+              m_cap: int, k_valid=None, draws: rng.Draws | None = None
+              ) -> TailPlan:
+    """Draw the Poissonized tail construction for cutoff ``b`` (t,) and atom
+    rate ``lam``: atom count (Poisson), positions (iid uniform over the
+    complement of the sorted S, with replacement), heights (B + Exp(1)).
+
+    ``k_valid`` (t,) counts the live slots of S when the probe underfilled;
+    the complement then has ``n - k_valid`` points. ``draws`` replaces the
+    random numbers ``keys`` would give."""
+    kv = _n_excluded(topk_ids, k_valid)
+    if draws is None:
+        hi = torch.clamp(n - kv, min=1)
+        draws = rng.tail_draws(keys, k=topk_ids.shape[1], m_cap=m_cap, hi=hi,
+                               lam=lam)
+    m = draws.m.long()
+    s_sorted = torch.sort(topk_ids.long(), dim=1).values
+    pos = complement_map(draws.u.long(), s_sorted)
+    heights = b.float()[:, None] + draws.exp.float()
+    return TailPlan(pos, heights, torch.clamp(m, max=m_cap), m > m_cap)
+
+
+def certificate(values: torch.Tensor, b: torch.Tensor, c: float,
+                max_val: torch.Tensor, overflow: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Algorithm-2 exactness certificate per token -> (ok, bound).
+
+    Dead S slots (value -inf) are not top-k members: S_min is the min over
+    live slots only (all dead => +inf bound => ok False). A shard holding no
+    points (s_min = +inf, b = -inf) gives bound -inf, not NaN."""
+    vals = values.float()
+    s_min = torch.where(torch.isneginf(vals), torch.full_like(vals, math.inf),
+                        vals).amin(dim=-1)
+    bound = s_min + c + b
+    bound = torch.where(torch.isnan(bound), torch.full_like(bound, -math.inf),
+                        bound)
+    return (max_val >= bound) & ~overflow, bound
+
+
+def _finish(topk: TopK, score_fn: Callable[[torch.Tensor], torch.Tensor],
+            b: torch.Tensor, m_cap: int, c: float, pert_s: torch.Tensor,
+            plan: TailPlan) -> SampleResult:
+    """Tail scores + perturbed argmax over S ∪ tail given the plan."""
+    y_tail = score_fn(plan.pos).float()  # (t, m_cap)
+    live = (torch.arange(m_cap, device=y_tail.device)[None, :]
+            < plan.m_used[:, None])
+    pert_t = torch.where(live, y_tail + plan.heights,
+                         torch.full_like(y_tail, -math.inf))
+    pert = torch.cat([pert_s, pert_t], dim=1)
+    ids = torch.cat([topk.ids.long(), plan.pos], dim=1)
+    best = torch.argmax(pert, dim=1, keepdim=True)
+    max_val = torch.gather(pert, 1, best)[:, 0]
+    ok, bound = certificate(topk.values, b, c, max_val, plan.overflow)
+    return SampleResult(torch.gather(ids, 1, best)[:, 0], ok, plan.m_used,
+                        max_val, bound, plan.overflow)
+
+
+def cutoff(n, k_valid: torch.Tensor, l: int) -> torch.Tensor:
+    """Algorithm 2's fixed cutoff ``B = ln((n - k_valid) / l)``, float32."""
+    return torch.log((torch.tensor(float(n), dtype=torch.float32,
+                                   device=k_valid.device)
+                      - k_valid.float()) / l)
+
+
+def sample_fixed_b(keys, topk: TopK, n, score_fn, *, l: int,
+                   m_cap: int | None = None, c: float = 0.0, k_valid=None,
+                   draws: rng.Draws | None = None) -> SampleResult:
+    """Algorithm 2 (fixed cutoff) per token: exact w.p. 1-δ for
+    ``k l >= n e^c ln(1/δ)``.
+
+    ``B = ln((n - k_valid)/l)`` so the tail atom count is Poisson(l).
+    ``score_fn`` maps (t, m) ids to their (t, m) unnormalized log-probs.
+    ``k_valid`` (t,) is the live slot count of an underfilled probe (dead
+    slots hold value -inf and sanitized virtual ids >= n)."""
+    k = topk.ids.shape[1]
+    kv = _n_excluded(topk.ids, k_valid)
+    if m_cap is None:
+        m_cap = default_m_cap(l)
+    if draws is None:
+        draws = rng.tail_draws(keys, k=k, m_cap=m_cap,
+                               hi=torch.clamp(n - kv, min=1), lam=l)
+    pert_s = topk.values.float() + draws.g_s
+    b = cutoff(n, kv, l)
+    plan = plan_tail(None, topk.ids, n, b, l, m_cap, k_valid=kv, draws=draws)
+    return _finish(topk, score_fn, b, m_cap, c, pert_s, plan)

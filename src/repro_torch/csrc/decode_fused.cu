@@ -1,0 +1,296 @@
+// The fused decode head: ivf_screen_select and tail_gather_argmax.
+//
+// ---------------------------------------------------------------------------
+// ivf_screen_select replaces the Pallas TPU kernel
+// repro/kernels/decode_fused.py::ivf_screen_select (gather-score of the
+// probed clusters into a VMEM pool, pool ∪ overflow masked, top-k emitted
+// by iterative first-occurrence argmax: descending values, the lower pool
+// index first among ties, id -1 for every -inf pick).
+//
+// What bounds it on an H100: bytes. A query streams n_probe (cap, d) fp32
+// cluster tiles (8 * 544 * 2048 * 4 = 36 MB at tinyllama's vocab) for half
+// a flop per byte; the pool itself never leaves the SM.
+//
+// Design: one block of 1024 threads per query. Warps score the member rows
+// with repro_torch::warp_row_dot — the device function ivf_gather_score.cu
+// uses, so every live score is bitwise the unfused kernel's — and write a
+// 64-bit sort key per pool slot into shared memory: the high word orders
+// the fp32 score descending, the low word is the pool index, so an
+// ascending sort of the keys is exactly the Pallas kernel's emission order.
+// Dead slots (id < 0, or a stage at or past probe_width) are never read from
+// device memory and get a -inf key. The overflow scores come from the
+// caller (one matmul outside the kernel, as in the reference). The pool is
+// padded to a power of two with -inf keys whose indices lie past the pool,
+// bitonic-sorted in shared memory (~64 KB at the default geometry, hence the
+// dynamic shared memory attribute), and the first k keys are emitted; ids
+// are re-read from the member/overflow tables for the k winners only.
+//
+// ---------------------------------------------------------------------------
+// tail_gather_argmax replaces the Pallas TPU kernel
+// repro/kernels/decode_fused.py::tail_gather_argmax (the Algorithm-2 finish:
+// gather the m_cap tail rows, fp32 dot with h, add the truncated-Gumbel
+// heights to the first m_used slots, -inf for the rest, concatenate with the
+// perturbed top-k stratum and take the first-occurrence argmax).
+//
+// What bounds it on an H100: bytes. A token gathers m_used rows of the
+// output embedding (about 576 * 2048 * 4 = 4.7 MB at tinyllama's vocab) for
+// half a flop per byte.
+//
+// Design: one block of 1024 threads per token. h sits in shared memory;
+// warps take the live tail slots only (slots at or past m_used are -inf and
+// never read) and score each gathered row with warp_row_dot; the perturbed
+// tail values stay in shared memory, and a block-wide argmax with the
+// (value, lower index) order picks the winner over [pert_s, pert_t].
+#include <cuda_runtime.h>
+
+#include <math.h>
+#include <stdint.h>
+
+#include "row_dot.cuh"
+
+namespace {
+
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+
+// fp32 -> uint32 whose ascending order is the float's descending order.
+__device__ __forceinline__ uint32_t desc_bits(float v) {
+  const uint32_t u = __float_as_uint(v);
+  const uint32_t ordered = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ~ordered;
+}
+
+__device__ __forceinline__ float from_desc_bits(uint32_t d) {
+  const uint32_t ordered = ~d;
+  const uint32_t u =
+      (ordered & 0x80000000u) ? (ordered & 0x7fffffffu) : ~ordered;
+  return __uint_as_float(u);
+}
+
+__device__ __forceinline__ unsigned long long make_key(float v, int idx) {
+  return (static_cast<unsigned long long>(desc_bits(v)) << 32) |
+         static_cast<uint32_t>(idx);
+}
+
+__global__ void __launch_bounds__(kThreads) ivf_screen_select_kernel(
+    const float* __restrict__ member_vecs, const int* __restrict__ member_ids,
+    const float* __restrict__ overflow_scores,
+    const int* __restrict__ overflow_ids, const int* __restrict__ probe,
+    const int* __restrict__ probe_width, const float* __restrict__ q,
+    float* __restrict__ out_vals, int* __restrict__ out_ids, int n_c, int cap,
+    int d, int n_probe, int o_cap, int k, int d_pad, int pool_pow2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sq = reinterpret_cast<float*>(smem_raw);
+  unsigned long long* keys =
+      reinterpret_cast<unsigned long long*>(sq + d_pad);
+  const int bi = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int width =
+      probe_width ? min(max(probe_width[bi], 0), n_probe) : n_probe;
+  const int n_mem = n_probe * cap;
+  const int pool = n_mem + o_cap;
+  const int* pr = probe + static_cast<size_t>(bi) * n_probe;
+
+  repro_torch::load_query(sq, q + static_cast<size_t>(bi) * d, d);
+  __syncthreads();
+
+  for (int row = warp; row < n_mem; row += kWarps) {
+    const int j = row / cap;
+    const int r = row - j * cap;
+    float s = -INFINITY;
+    if (j < width) {
+      const int cl = min(max(pr[j], 0), n_c - 1);
+      const size_t slot = static_cast<size_t>(cl) * cap + r;
+      if (member_ids[slot] >= 0)  // uniform across the warp
+        s = repro_torch::warp_row_dot(member_vecs + slot * d, sq, d, lane);
+    }
+    if (lane == 0) keys[row] = make_key(s, row);
+  }
+  const float* os = overflow_scores + static_cast<size_t>(bi) * o_cap;
+  for (int o = tid; o < o_cap; o += kThreads)
+    keys[n_mem + o] =
+        make_key(overflow_ids[o] >= 0 ? os[o] : -INFINITY, n_mem + o);
+  for (int p = pool + tid; p < pool_pow2; p += kThreads)
+    keys[p] = make_key(-INFINITY, p);
+  __syncthreads();
+
+  // bitonic sort, ascending, of pool_pow2 keys
+  const int half = pool_pow2 >> 1;
+  for (int size = 2; size <= pool_pow2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < half; i += kThreads) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const bool asc = (lo & size) == 0;
+        const unsigned long long a = keys[lo];
+        const unsigned long long b = keys[hi];
+        if ((a > b) == asc) {
+          keys[lo] = b;
+          keys[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int i = tid; i < k; i += kThreads) {
+    const unsigned long long key = keys[i];
+    const int p = static_cast<int>(key & 0xffffffffu);
+    const float v = from_desc_bits(static_cast<uint32_t>(key >> 32));
+    int id = -1;
+    if (v != -INFINITY) {
+      if (p < n_mem) {
+        const int j = p / cap;
+        const int cl = min(max(pr[j], 0), n_c - 1);
+        id = member_ids[static_cast<size_t>(cl) * cap + (p - j * cap)];
+      } else {
+        id = overflow_ids[p - n_mem];
+      }
+    }
+    out_vals[static_cast<size_t>(bi) * k + i] = v;
+    out_ids[static_cast<size_t>(bi) * k + i] = id;
+  }
+}
+
+// (value, index) order of a first-occurrence argmax: larger value, then
+// lower index.
+__device__ __forceinline__ void argmax_merge(float& bv, int& bi, float v,
+                                             int i) {
+  if (v > bv || (v == bv && i < bi)) {
+    bv = v;
+    bi = i;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) tail_gather_argmax_kernel(
+    const float* __restrict__ emb, const int* __restrict__ pos,
+    const int* __restrict__ m_used, const float* __restrict__ pert_s,
+    const int* __restrict__ s_ids, const float* __restrict__ heights,
+    const float* __restrict__ h, int* __restrict__ out_idx,
+    float* __restrict__ out_max, int n, int d, int m_cap, int k, int d_pad) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sh = reinterpret_cast<float*>(smem_raw);
+  float* spert = sh + d_pad;                       // m_cap
+  float* red_v = spert + m_cap;                    // kWarps
+  int* red_i = reinterpret_cast<int*>(red_v + kWarps);  // kWarps
+  const int ti = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int mu = min(max(m_used[ti], 0), m_cap);
+  const int* tp = pos + static_cast<size_t>(ti) * m_cap;
+  const float* th = heights + static_cast<size_t>(ti) * m_cap;
+
+  repro_torch::load_query(sh, h + static_cast<size_t>(ti) * d, d);
+  __syncthreads();
+
+  for (int j = warp; j < m_cap; j += kWarps) {
+    float pt = -INFINITY;
+    if (j < mu) {
+      const int row = min(max(tp[j], 0), n - 1);
+      const float y = repro_torch::warp_row_dot(
+          emb + static_cast<size_t>(row) * d, sh, d, lane);
+      pt = y + th[j];
+    }
+    if (lane == 0) spert[j] = pt;
+  }
+  __syncthreads();
+
+  const float* ps = pert_s + static_cast<size_t>(ti) * k;
+  float bv = -INFINITY;
+  int bi = 0x7fffffff;
+  for (int e = tid; e < k + m_cap; e += kThreads)
+    argmax_merge(bv, bi, e < k ? ps[e] : spert[e - k], e);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    argmax_merge(bv, bi, ov, oi);
+  }
+  if (lane == 0) {
+    red_v[warp] = bv;
+    red_i[warp] = bi;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    bv = red_v[lane];  // kWarps == 32
+    bi = red_i[lane];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      argmax_merge(bv, bi, ov, oi);
+    }
+    if (lane == 0) {
+      out_idx[ti] = bi < k ? s_ids[static_cast<size_t>(ti) * k + bi]
+                           : tp[bi - k];
+      out_max[ti] = bv;
+    }
+  }
+}
+
+int set_smem(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+int round_up4(int d) { return (d + 3) & ~3; }
+
+}  // namespace
+
+// Shared memory a launch of ivf_screen_select needs, in bytes; the caller
+// checks it against the card's per-block limit before launching.
+extern "C" long long ivf_screen_select_smem(int d, int pool_pow2) {
+  return static_cast<long long>(sizeof(float)) * round_up4(d) +
+         static_cast<long long>(sizeof(unsigned long long)) * pool_pow2;
+}
+
+// Shapes: member_vecs (n_c, cap, d) f32, member_ids (n_c, cap) i32,
+// overflow_scores (b, o_cap) f32, overflow_ids (o_cap,) i32,
+// probe (b, n_probe) i32, probe_width (b,) i32 or NULL (full width),
+// q (b, d) f32 -> out_vals (b, k) f32, out_ids (b, k) i32.
+// pool_pow2 is a power of two >= max(n_probe * cap + o_cap, k).
+// Returns the CUDA error code of the launch (0 = success).
+extern "C" int ivf_screen_select_launch(
+    const float* member_vecs, const int* member_ids,
+    const float* overflow_scores, const int* overflow_ids, const int* probe,
+    const int* probe_width, const float* q, float* out_vals, int* out_ids,
+    int n_c, int cap, int d, int b, int n_probe, int o_cap, int k,
+    int pool_pow2, void* stream) {
+  if (b == 0 || k == 0) return 0;
+  const size_t smem = static_cast<size_t>(ivf_screen_select_smem(d, pool_pow2));
+  const int e = set_smem(reinterpret_cast<const void*>(ivf_screen_select_kernel),
+                         smem);
+  if (e) return e;
+  ivf_screen_select_kernel<<<b, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      member_vecs, member_ids, overflow_scores, overflow_ids, probe,
+      probe_width, q, out_vals, out_ids, n_c, cap, d, n_probe, o_cap, k,
+      round_up4(d), pool_pow2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shapes: emb (n, d) f32, pos (t, m_cap) i32, m_used (t,) i32,
+// pert_s (t, k) f32, s_ids (t, k) i32, heights (t, m_cap) f32, h (t, d) f32
+// -> out_idx (t,) i32, out_max (t,) f32.
+// Returns the CUDA error code of the launch (0 = success).
+extern "C" int tail_gather_argmax_launch(
+    const float* emb, const int* pos, const int* m_used, const float* pert_s,
+    const int* s_ids, const float* heights, const float* h, int* out_idx,
+    float* out_max, int n, int d, int t, int m_cap, int k, void* stream) {
+  if (t == 0) return 0;
+  const size_t smem = sizeof(float) * (round_up4(d) + m_cap + kWarps) +
+                      sizeof(int) * kWarps;
+  const int e = set_smem(
+      reinterpret_cast<const void*>(tail_gather_argmax_kernel), smem);
+  if (e) return e;
+  tail_gather_argmax_kernel<<<t, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      emb, pos, m_used, pert_s, s_ids, heights, h, out_idx, out_max, n, d,
+      m_cap, k, round_up4(d));
+  return static_cast<int>(cudaGetLastError());
+}

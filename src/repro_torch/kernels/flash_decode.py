@@ -1,0 +1,53 @@
+"""flash_decode: one-token GQA decode attention, a CUDA kernel for Hopper
+(``csrc/flash_decode.cu``; counterpart of ``repro/kernels/flash_decode.py``).
+
+Takes q ``(B, Hq, hd)`` and the dense KV ring ``(B, S, Hkv, hd)``, both in
+the compute dtype (float32 or bfloat16), and ``lengths (B,)``; returns the
+fp32 attention output ``(B, Hq, hd)``. Positions at or past ``lengths[b]``
+are masked. The plain version is :func:`repro_torch.kernels.ref
+.flash_decode_ref`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+__all__ = ["flash_decode", "launches"]
+
+launches = {"flash_decode": 0}  # kernel launches; reset by ops.reset_launch_counts
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors; raises on anything it does not take."""
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k_cache.shape)}"
+                         f" v{tuple(v_cache.shape)}")
+    b, hq, hd = q.shape
+    bk, s, hkv, hdk = k_cache.shape
+    if lengths.shape != (b,):
+        raise ValueError(f"lengths {tuple(lengths.shape)} must be ({b},)")
+    if bk != b or hdk != hd or hq % hkv or hq // hkv > 32 or hd > 256:
+        raise ValueError(f"unsupported geometry q{tuple(q.shape)} "
+                         f"k{tuple(k_cache.shape)} (need Hq % Hkv == 0, "
+                         f"Hq/Hkv <= 32, hd <= 256)")
+    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype}: "
+                         "q, k and v must share float32 or bfloat16")
+    for t in (q, k_cache, v_cache, lengths):
+        if not t.is_cuda:
+            raise ValueError("flash_decode kernel needs CUDA tensors")
+    q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty((b, hq, hd), dtype=torch.float32, device=q.device)
+    fn = build.bind("flash_decode", "flash_decode_launch",
+                    [build.P] * 5 + [build.I] * 6 + [build.P])
+    err = fn(build.ptr(q), build.ptr(k_cache), build.ptr(v_cache),
+             build.ptr(lengths), build.ptr(out), b, s, hq, hkv, hd,
+             _DTYPES[q.dtype], build.stream())
+    build.check(err, "flash_decode")
+    launches["flash_decode"] += 1
+    return out

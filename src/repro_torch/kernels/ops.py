@@ -1,0 +1,90 @@
+"""Kernel dispatch by tensor device (counterpart of ``repro/kernels/ops.py``).
+
+A CPU tensor goes to the kernel's plain version in :mod:`.ref`; a CUDA
+tensor goes to the kernel, which launches or raises. There is no fallback
+from one to the other: a build or launch failure on the card propagates.
+Each kernel wrapper keeps a plain integer count of its launches
+(:func:`launch_counts`), so a run can show that the serving path went
+through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import decode_fused as _df
+from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import ivf_gather_score as _igs
+from repro_torch.kernels import ref
+
+__all__ = [
+    "flash_decode",
+    "ivf_gather_score",
+    "ivf_screen_select",
+    "tail_gather_argmax",
+    "launch_counts",
+    "reset_launch_counts",
+    "KERNELS",
+]
+
+_COUNTERS = (_fd.launches, _igs.launches, _df.launches)
+KERNELS = tuple(k for c in _COUNTERS for k in c)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel name -> launches since the last :func:`reset_launch_counts`."""
+    return {k: v for c in _COUNTERS for k, v in c.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS:
+        for k in c:
+            c[k] = 0
+
+
+def _on_cuda(t: torch.Tensor, name: str) -> bool:
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
+
+
+def flash_decode(q, k_cache, v_cache, lengths) -> torch.Tensor:
+    """(B,Hq,hd), (B,S,Hkv,hd) x2, (B,) -> (B,Hq,hd) f32."""
+    if _on_cuda(q, "flash_decode"):
+        return _fd.flash_decode(q, k_cache, v_cache, lengths)
+    return ref.flash_decode_ref(q, k_cache, v_cache, lengths)
+
+
+def ivf_gather_score(member_vecs, member_ids, probe, q
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (scores (b, np*cap), ids (b, np*cap)) for the IVF probe."""
+    b = probe.shape[0]
+    if _on_cuda(q, "ivf_gather_score"):
+        scores, ids = _igs.ivf_gather_score(member_vecs, member_ids, probe, q)
+    else:
+        scores, ids = ref.ivf_gather_score_ref(member_vecs, member_ids, probe, q)
+    return scores.reshape(b, -1), ids.reshape(b, -1)
+
+
+def ivf_screen_select(member_vecs, member_ids, overflow_scores, overflow_ids,
+                      probe, q, *, k: int, probe_width=None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused IVF gather-score + pool top-k -> (values (b,k), ids (b,k))."""
+    if _on_cuda(q, "ivf_screen_select"):
+        return _df.ivf_screen_select(member_vecs, member_ids, overflow_scores,
+                                     overflow_ids, probe, q, k=k,
+                                     probe_width=probe_width)
+    return ref.ivf_screen_select_ref(member_vecs, member_ids, overflow_scores,
+                                     overflow_ids, probe, q, k,
+                                     probe_width=probe_width)
+
+
+def tail_gather_argmax(emb, pos, m_used, pert_s, s_ids, heights, h
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused lazy-Gumbel tail gather + argmax -> (index (t,), max_val (t,))."""
+    if _on_cuda(h, "tail_gather_argmax"):
+        return _df.tail_gather_argmax(emb, pos, m_used, pert_s, s_ids,
+                                      heights, h)
+    return ref.tail_gather_argmax_ref(emb, pos, m_used, pert_s, s_ids,
+                                      heights, h)

@@ -1,0 +1,111 @@
+"""Plain-PyTorch versions of the kernels on the serving path (counterpart
+of ``repro/kernels/ref.py``).
+
+The CPU runs these in place of the kernels (``kernels/ops.py`` dispatches
+by tensor device); on the card ``chip_smoke.py`` holds each kernel against
+its plain version on the same inputs.
+
+Top-k convention shared by every selection here and in the kernels:
+descending values, the lower pool index first among equal values (what
+``jax.lax.top_k`` does), pools narrower than k padded with (-inf, -1), and
+an id of -1 for every -inf pick.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "flash_decode_ref",
+    "ivf_gather_score_ref",
+    "topk_select_ref",
+    "ivf_screen_select_ref",
+    "tail_gather_argmax_ref",
+]
+
+
+def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor
+                     ) -> torch.Tensor:
+    """(B,Hq,hd), (B,S,Hkv,hd) x2, (B,) -> (B,Hq,hd) f32. Positions at or
+    past ``lengths[b]`` are masked with -1e30."""
+    b, hq, hd = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    qf = q.float()
+    kf = k_cache.float().repeat_interleave(g, dim=2)  # (B, S, Hq, hd)
+    vf = v_cache.float().repeat_interleave(g, dim=2)
+    scores = torch.einsum("bhd,bshd->bhs", qf, kf) / (hd ** 0.5)
+    pos = torch.arange(s, device=q.device)
+    mask = pos[None, None, :] < lengths.to(q.device)[:, None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", p, vf)
+
+
+def ivf_gather_score_ref(member_vecs: torch.Tensor, member_ids: torch.Tensor,
+                         probe: torch.Tensor, q: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n_c,cap,d), (n_c,cap), (b,np), (b,d) -> (scores, ids), both
+    (b, np, cap): ``member_vecs[probe] · q`` and ``member_ids[probe]``."""
+    probe = probe.long()
+    gathered = member_vecs[probe].float()  # (b, np, cap, d)
+    scores = torch.einsum("bpcd,bd->bpc", gathered, q.float())
+    return scores, member_ids[probe].int()
+
+
+def topk_select_ref(scores: torch.Tensor, ids: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of a masked (b, pool) score/id pair under the module's
+    convention -> (values (b,k) f32, ids (b,k) i32)."""
+    b, pool = scores.shape
+    if pool < k:
+        pad = k - pool
+        scores = torch.cat([scores, scores.new_full((b, pad), float("-inf"))],
+                           dim=1)
+        ids = torch.cat([ids, ids.new_full((b, pad), -1)], dim=1)
+    vals, pos = torch.sort(scores, dim=1, descending=True, stable=True)
+    vals, pos = vals[:, :k], pos[:, :k]
+    out_ids = torch.gather(ids, 1, pos)
+    out_ids = torch.where(torch.isneginf(vals), torch.full_like(out_ids, -1),
+                          out_ids)
+    return vals, out_ids.int()
+
+
+def ivf_screen_select_ref(member_vecs, member_ids, overflow_scores,
+                          overflow_ids, probe, q, k: int, probe_width=None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n_c,cap,d), (n_c,cap), (b,o_cap), (o_cap,), (b,np), (b,d) -> top-k
+    (values (b,k), ids (b,k)) of the probed pool ∪ overflow. Row i scores
+    only its first ``probe_width[i]`` probes (None: all of them)."""
+    b, n_probe = probe.shape
+    cap = member_ids.shape[1]
+    scores, ids = ivf_gather_score_ref(member_vecs, member_ids, probe, q)
+    if probe_width is not None:
+        stage = torch.arange(n_probe, device=probe.device)
+        live = stage[None, :, None] < probe_width.to(probe.device)[:, None, None]
+        scores = torch.where(live, scores, torch.full_like(scores, float("-inf")))
+        ids = torch.where(live, ids, torch.full_like(ids, -1))
+    scores = torch.cat([scores.reshape(b, n_probe * cap),
+                        overflow_scores.float()], dim=1)
+    o = overflow_ids.int()[None].expand(b, overflow_ids.shape[0])
+    ids = torch.cat([ids.reshape(b, n_probe * cap), o], dim=1)
+    scores = torch.where(ids >= 0, scores, torch.full_like(scores, float("-inf")))
+    return topk_select_ref(scores, ids, k)
+
+
+def tail_gather_argmax_ref(emb, pos, m_used, pert_s, s_ids, heights, h
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Algorithm-2 finish: perturbed argmax over S ∪ tail per token ->
+    (index (t,) i32, max_val (t,) f32). The first maximal slot wins."""
+    m_cap = pos.shape[1]
+    rows = emb[pos.long()].float()  # (t, m_cap, d)
+    y_tail = torch.einsum("tmd,td->tm", rows, h.float())
+    live = (torch.arange(m_cap, device=pos.device)[None, :]
+            < m_used.to(pos.device)[:, None])
+    pert_t = torch.where(live, y_tail + heights.float(),
+                         torch.full_like(y_tail, float("-inf")))
+    pert = torch.cat([pert_s.float(), pert_t], dim=1)
+    ids = torch.cat([s_ids.int(), pos.int()], dim=1)
+    best = torch.argmax(pert, dim=1, keepdim=True)
+    return (torch.gather(ids, 1, best)[:, 0],
+            torch.gather(pert, 1, best)[:, 0])

@@ -1,0 +1,128 @@
+"""Public model API for serving (counterpart of ``repro/models/model.py``):
+init, head index, batched prefill into cache slots, and the decode step.
+
+The LM head is the paper's amortized log-linear head
+(:mod:`repro_torch.core.amortized_head`). Only the attention family is
+ported; other families raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch import precision, resolve_device
+from repro_torch.core import amortized_head as ah
+from repro_torch.models import transformer
+from repro_torch.models.config import ArchConfig
+
+__all__ = ["Model", "head_config"]
+
+
+def head_config(cfg: ArchConfig) -> ah.HeadConfig:
+    return ah.HeadConfig(
+        n=cfg.vocab,
+        k=cfg.head_k,
+        l=cfg.head_l,
+        mode=cfg.head_mode,
+        mips=cfg.head_mips,
+        delta=cfg.head_delta,
+        n_probe=cfg.head_n_probe,
+        adaptive_probe=cfg.head_adaptive_probe,
+        n_probe_init=cfg.head_n_probe_init,
+        n_probe_max=cfg.head_n_probe_max,
+        use_kernel=cfg.head_use_kernel,
+        fused_decode=cfg.head_fused_decode,
+    ).resolved()
+
+
+class Model:
+    """Stateless model bundle: methods take params explicitly.
+
+    ``precision_policy`` (a :class:`repro_torch.precision.Policy` or its
+    name; default ``bf16``) sets the trunk compute / KV-cache dtype; master
+    params stay fp32 and the head computes in fp32. ``device`` defaults to
+    CUDA and raises without it (pass ``device="cpu"`` for the CPU).
+    """
+
+    def __init__(self, cfg: ArchConfig, precision_policy=None, device=None):
+        transformer.check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.policy = precision.get_policy(precision_policy)
+        self.compute_dtype = self.policy.compute_dtype
+        self.head_cfg = head_config(cfg)
+
+    # ---------------------------------------------------------------- init
+    def init(self, seed: "int | torch.Generator" = 0) -> dict:
+        """fp32 master params on the model's device, drawn from a
+        ``torch.Generator`` (given, or seeded with ``seed``)."""
+        gen = seed
+        if not isinstance(gen, torch.Generator):
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(seed))
+        return transformer.init_params(gen, self.cfg, device=self.device)
+
+    def compute_params(self, params: dict) -> dict:
+        """``params`` with the trunk's matmul weights held in the compute
+        dtype (see :func:`transformer.compute_params`); same numerics, no
+        per-step weight casts."""
+        return transformer.compute_params(params, self.compute_dtype)
+
+    def _out_embed(self, params) -> torch.Tensor:
+        return params["embed"] if self.cfg.tie_embeddings else params["out_embed"]
+
+    # ---------------------------------------------------------------- index
+    def make_head_index(self, params, db=None):
+        """The head's MIPS index over the output embedding (or ``db``), or
+        None when the exact path applies. Built once for serving."""
+        emb = self._out_embed(params) if db is None else db
+        return ah.make_index(self.head_cfg, emb, device=self.device)
+
+    # ---------------------------------------------------------------- decode
+    def init_cache(self, batch: int, max_seq: int, dtype=None) -> list:
+        dtype = self.compute_dtype if dtype is None else dtype
+        return transformer.init_cache(self.cfg, batch, max_seq, dtype,
+                                      device=self.device)
+
+    def decode_step(self, params, cache, ids: torch.Tensor, pos: torch.Tensor,
+                    index=None, *, keys: torch.Tensor | None = None,
+                    draws=None) -> tuple[torch.Tensor, torch.Tensor, Any]:
+        """One serving step: (B,) last ids + (B,) positions -> (next ids
+        (B,), ok (B,), cache updated in place).
+
+        ``keys`` ((B, 3) int64, :func:`repro_torch.launch.steps.slot_keys`)
+        makes each slot's sample a function of (request id, position)
+        alone; ``draws`` injects the raw random numbers instead."""
+        x = params["embed"][ids][:, None].to(self.compute_dtype)  # (B, 1, d)
+        h, cache = transformer.apply_trunk_decode(params, self.cfg, x, cache,
+                                                  pos)
+        res = ah.head_sample(self._out_embed(params), h[:, 0], self.head_cfg,
+                             index, keys=keys, draws=draws)
+        return res.index, res.ok, cache
+
+    def prefill_into_cache(self, params, cache, tokens: torch.Tensor,
+                           lengths: torch.Tensor, slots: torch.Tensor,
+                           keys: torch.Tensor | None, max_seq: int,
+                           index=None, *, draws=None
+                           ) -> tuple[torch.Tensor, torch.Tensor, Any]:
+        """Batched prefill written straight into serving-cache slots.
+
+        Runs the prompt forward for a right-padded admission batch
+        ``tokens`` (Bn, Lp), builds each row's KV ring as of its true
+        ``lengths[b]``, writes it into ``cache`` at ``slots[b]`` (rows with
+        slot >= B are admission padding and dropped) and samples the first
+        output token from the last valid hidden state.
+
+        Returns (next ids (Bn,), ok (Bn,), cache)."""
+        x = params["embed"][tokens].to(self.compute_dtype)  # (Bn, Lp, d)
+        b, l, _ = x.shape
+        pos = torch.arange(l, device=x.device)[None].expand(b, l)
+        h, part = transformer.apply_trunk_prefill(
+            params, self.cfg, x, pos, max_seq=max_seq, lengths=lengths)
+        last = (lengths.to(x.device).long() - 1)
+        hq = h[torch.arange(b, device=x.device), last]  # (Bn, d)
+        res = ah.head_sample(self._out_embed(params), hq, self.head_cfg,
+                             index, keys=keys, draws=draws)
+        cache = transformer.insert_cache_slots(cache, part, slots)
+        return res.index, res.ok, cache
