@@ -1,27 +1,47 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA
 GPU: builds the CUDA kernels from ``src/repro_torch/csrc``, holds each one
-against its plain PyTorch version at the serving path's shapes, then serves
-a full-width tinyllama-1.1b (random weights from ``--seed``) with the fused
-IVF head and again with the unfused kernel probe at decode window 1, and
-checks that both give the same tokens.
+against its plain PyTorch version at the shapes of the path that runs it,
+then
+
+* serves a full-width tinyllama-1.1b (random weights from ``--seed``) with
+  the fused IVF head and again with the unfused kernel probe at decode
+  window 1, and checks that both give the same tokens;
+* trains the full-width tinyllama-1.1b for 6 steps (bf16 trunk, fp32
+  masters, amortized IVF head on the kernels, index refresh every 3 steps,
+  a checkpoint at step 3), checks a finite and falling loss, and resumes
+  from the step-3 checkpoint to check that the resumed steps match;
+* runs six more steps with each top-k probe (IVF, exact) reading the
+  amortized loss beside the exact NLL, and profiles one training step.
 
     python3 chip_smoke.py            # from the repository root
 
 Output, in order: the GPU line of nvidia-smi, build and check lines, the
-serve reports, one ``{"kernels": [...]}`` line, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. Any failed phase exits
-non-zero before the last line. Without CUDA, or without the repository
-beside it, the script exits non-zero and prints no result.
+serve and train reports, one ``{"kernels": [...]}`` line, the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``. Any failed
+phase exits non-zero before the last line. Without CUDA, or without the
+repository beside it, the script exits non-zero and prints no result.
 
 Tolerances: ids and indices exact; fp32 values rtol=1e-5, atol=1e-5;
-flash_decode (bf16 inputs, fp32 output) atol=2e-3.
+flash_decode (bf16 inputs, fp32 output) atol=2e-3; fused_estimator and its
+backward at training shapes rtol=1e-4 and an atol of 1e-5 times the largest
+magnitude of the tensor compared (2048-term dot products and sums of up to
+thousands of p·h terms, taken in different orders; the values span many
+orders of magnitude, so a fixed atol would hide whole strata), with the S
+stratum's share of p held on its own, NaN where the plain version has
+NaN; the resumed losses rtol=1e-3 of the
+uninterrupted run's (the trunk's backward on the card is not bitwise run
+to run: the embedding-gather backward and some cuBLAS kernels accumulate in
+a varying order); with the exact top-k probe, the amortized loss within
+0.05 nats of the exact NLL of the same batch.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -42,17 +62,31 @@ FP32_FLOPS = 67e12
 REQUESTS, NEW_TOKENS, SLOTS, MAX_SEQ, WINDOW = 8, 32, 4, 512, 8
 ITERS = 20  # timed launches per kernel
 
+# the training run: batch 2 x seq 1024 = 2048 tokens a step (8 head chunks of
+# 256, two attention query blocks), 6 steps, index refresh every 3, a
+# checkpoint every 3
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_EVERY = 2, 1024, 6, 3
+TRAIN_OPT = dict(lr=1e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+RESUME_RTOL = 1e-3
+EXACT_PROBE_GAP = 0.05  # nats: amortized loss vs exact NLL, exact probe
+HEAD_CHUNK = 256  # HeadConfig.chunk: tokens per fused_estimator launch
+
 TPU_KERNEL = {
     "flash_decode": "src/repro/kernels/flash_decode.py:82",
     "ivf_gather_score": "src/repro/kernels/ivf_gather_score.py:65",
     "ivf_screen_select": "src/repro/kernels/decode_fused.py:190",
     "tail_gather_argmax": "src/repro/kernels/decode_fused.py:471",
+    "fused_estimator": "src/repro/kernels/fused_estimator.py:76",
+    # the backward of fused_estimator's custom VJP (_fused_logz_bwd)
+    "fused_estimator_bwd": "src/repro/core/estimators.py:229",
 }
 SOURCE = {
     "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
     "ivf_gather_score": "src/repro_torch/csrc/ivf_gather_score.cu",
     "ivf_screen_select": "src/repro_torch/csrc/decode_fused.cu",
     "tail_gather_argmax": "src/repro_torch/csrc/decode_fused.cu",
+    "fused_estimator": "src/repro_torch/csrc/fused_estimator.cu",
+    "fused_estimator_bwd": "src/repro_torch/csrc/fused_estimator.cu",
 }
 
 
@@ -110,6 +144,28 @@ def nbytes(*ts) -> int:
 
 
 # ---------------------------------------------------------------- kernels
+def close(torch, got, want, rel: float = 1e-5) -> bool:
+    """allclose at rtol 1e-4 and an atol of ``rel`` times the largest
+    finite magnitude of ``want`` (NaN where ``want`` has NaN)."""
+    fin = want[torch.isfinite(want)]
+    scale = fin.abs().max().item() if fin.numel() else 0.0
+    return torch.allclose(got, want, rtol=1e-4, atol=rel * scale,
+                          equal_nan=True)
+
+
+def make_record(name, err, ms, plain_ms, lib_ms, nb, flops, peak) -> dict:
+    """One entry of the ``{"kernels": [...]}`` line (launches filled in
+    from the main path's run later), printed as a check line."""
+    b_ms, b_by = bound_ms(nb, flops, peak)
+    print(f"[kernel] {name}: ok max_abs_err={err:.3g} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"library_ms={lib_ms}", flush=True)
+    return {"name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": TPU_KERNEL[name], "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
 @dataclasses.dataclass
 class Geometry:
     """The serving path's kernel shapes at tinyllama-1.1b width."""
@@ -141,6 +197,38 @@ def geometry(cfg, scfg) -> Geometry:
                     n_c, cap, o_cap, hc.n_probe, hc.k, default_m_cap(hc.l))
 
 
+def unported_bounds(g: Geometry) -> dict:
+    """Least times of the IVF-PQ kernels still to port (Pallas kernels 4, 6
+    and 7), from the shapes alone: tinyllama-1.1b's IVF geometry with the
+    reference's PQConfig defaults (8 subspaces of 256 codewords, uint8
+    codes, re-rank pool r = 2k), at the serving path's query count. Each
+    input byte read once, each output byte written once; probed cluster
+    tiles counted as distinct across queries."""
+    m_sub, ksub, r = 8, 256, 2 * g.k
+    b = g.slots
+    pool = b * g.n_probe * g.cap
+    codes = pool * m_sub  # uint8 codes of the probed tiles
+    lut = b * m_sub * ksub * 4
+    adds = float(pool * m_sub)  # Σ_m lut[m, code_m] per member
+    out = {
+        # codes, LUT and probe in; (b, np, cap) f32 scores out
+        "pq_lut_score": bound_ms(codes + lut + b * g.n_probe * 4 + pool * 4,
+                                 adds, FP32_FLOPS),
+        # + member ids, coarse scores, overflow scores and ids in; the top-r
+        # (values, ids) out
+        "pq_screen_select": bound_ms(
+            codes + lut + pool * 4 + 2 * b * g.n_probe * 4 + b * g.o_cap * 4
+            + g.o_cap * 4 + b * r * 8, adds, FP32_FLOPS),
+        # r fp32 rows of d per query, candidates, their LUT values and q in;
+        # the top-k (values, ids) out
+        "rerank_select": bound_ms(b * r * g.d * 4 + b * r * 8 + b * g.d * 4
+                                  + b * g.k * 8, 2.0 * b * r * g.d,
+                                  FP32_FLOPS),
+    }
+    return {k: {"bound_ms": v[0], "bound_by": v[1], "queries": b}
+            for k, v in out.items()}
+
+
 def int_valued(torch, gen, shape, lo=-2, hi=3):
     """fp32 tensor of small integers: every dot product over d <= 2^20 is
     exact in fp32 in any summation order, so kernel and plain version must
@@ -159,16 +247,8 @@ def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
     gen.manual_seed(1234)
     out = []
 
-    def record(name, err, ms, plain_ms, lib_ms, nb, flops, peak):
-        b_ms, b_by = bound_ms(nb, flops, peak)
-        rec = {"name": name, "route": "cuda", "source": SOURCE[name],
-               "replaces": TPU_KERNEL[name], "launches": 0,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        print(f"[kernel] {name}: ok max_abs_err={err:.3g} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-              f"library_ms={lib_ms}", flush=True)
-        out.append(rec)
+    def record(*args):
+        out.append(make_record(*args))
 
     # ---- flash_decode: bf16 KV ring of every slot, lengths 1 .. max_seq
     B, S = g.slots, g.max_seq
@@ -298,9 +378,123 @@ def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
     return out
 
 
+def train_kernel_checks(torch, g: Geometry, timer: Timer,
+                        records: list[dict]) -> None:
+    """The training path's kernels at its shapes: ``fused_estimator`` and
+    ``fused_estimator_bwd`` over one head chunk (256 tokens, k + l = 1152
+    candidates, the 32000 x 2048 output embedding), and ``ivf_gather_score``
+    re-timed at the training probe's 256 queries (extra keys ``train_*`` of
+    its record)."""
+    from repro_torch.kernels import fused_estimator as kfe
+    from repro_torch.kernels import ivf_gather_score as kigs
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    t, k = HEAD_CHUNK, g.k
+    m = 2 * k
+    # S: ids from a popular head of the vocabulary, shared across tokens as
+    # top-k sets are; T: uniform tail draws. ~10 % of S slots dead, and one
+    # all-dead token (log_z -inf, expv NaN, as the Pallas kernel gives).
+    emb = torch.randn((g.n, g.d), generator=gen, device="cuda") * 0.02
+    h = torch.randn((t, g.d), generator=gen, device="cuda")
+    ids = torch.cat([
+        torch.randint(0, 2000, (t, k), generator=gen, device="cuda"),
+        torch.randint(0, g.n, (t, k), generator=gen, device="cuda")],
+        dim=1).int()
+    log_w = torch.cat([torch.zeros((t, k), device="cuda"),
+                       torch.full((t, k), math.log((g.n - k) / k),
+                                  device="cuda")], dim=1)
+    log_w[:, :k][torch.rand((t, k), generator=gen, device="cuda") < 0.1] = \
+        float("-inf")
+    log_w[7] = float("-inf")
+    args = (emb, ids, h, log_w)
+    got_z, got_v = kfe.fused_estimator(*args)
+    want_z, want_v = ref.fused_estimator_ref(*args)
+    torch.cuda.synchronize()
+    check(close(torch, got_z, want_z) and close(torch, got_v, want_v),
+          "fused_estimator disagrees with its plain version")
+    check(bool(torch.isneginf(got_z[7])) and bool(torch.isnan(got_v[7]).all()),
+          "fused_estimator: the all-dead token lost the -1e30 sentinel")
+    live = torch.isfinite(log_w)
+    err = max((got_z - want_z)[live.any(1)].abs().max().item(),
+              (got_v - want_v)[live.any(1)].abs().max().item())
+    rows_live = int(torch.unique(ids[live]).numel())
+    n_live = int(live.sum().item())
+    # bytes: each live distinct row once, ids / log_w / h in, log_z / expv
+    # out; operations: a 2d dot and a 2d weighted sum per live candidate
+    records.append(make_record(
+        "fused_estimator", err, timer(lambda: kfe.fused_estimator(*args)),
+        timer(lambda: ref.fused_estimator_ref(*args)), None,
+        rows_live * g.d * 4 + nbytes(ids, log_w, h) + t * 4 + t * g.d * 4,
+        4.0 * g.d * n_live, FP32_FLOPS))
+
+    # an O(1) cotangent, so that p and d_emb are far above rounding
+    gvec = 0.5 + torch.rand((t,), generator=gen, device="cuda")
+    live_tok = torch.ones(t, dtype=torch.bool, device="cuda")
+    live_tok[7] = False  # keep the all-dead token's NaNs out of d_emb
+    bargs = (emb, ids[live_tok], h[live_tok], log_w[live_tok],
+             want_z[live_tok], gvec[live_tok])
+    got_d, got_p = kfe.fused_estimator_bwd(*bargs)
+    again_d, again_p = kfe.fused_estimator_bwd(*bargs)
+    want_d, want_p = ref.fused_estimator_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    check(close(torch, got_d, want_d) and close(torch, got_p, want_p),
+          "fused_estimator_bwd disagrees with its plain version")
+    # the S slots' p is ~50x below the tail's: held at its own scale
+    check(close(torch, got_p[:, :k], want_p[:, :k]),
+          "fused_estimator_bwd: the S stratum's p disagrees")
+    check(torch.equal(got_d, again_d) and torch.equal(got_p, again_p),
+          "fused_estimator_bwd is not bitwise repeatable")
+    err = max((got_d - want_d).abs().max().item(),
+              (got_p - want_p).abs().max().item())
+    bl = torch.isfinite(bargs[3])
+    rows_live = int(torch.unique(bargs[1][bl]).numel())
+    tb = int(live_tok.sum().item())
+    # bytes: each live distinct row and h once, ids / log_w / log_z / g in,
+    # the dense (n, d) d_emb and p out; operations as the forward's
+    records.append(make_record(
+        "fused_estimator_bwd", err,
+        timer(lambda: kfe.fused_estimator_bwd(*bargs)),
+        timer(lambda: ref.fused_estimator_bwd_ref(*bargs)), None,
+        rows_live * g.d * 4 + nbytes(*bargs[1:]) + g.n * g.d * 4 + tb * m * 4,
+        4.0 * g.d * int(bl.sum().item()), FP32_FLOPS))
+    del emb, args, bargs, want_d, got_d, again_d
+
+    # ---- ivf_gather_score at the training probe's 256 queries
+    b = HEAD_CHUNK
+    mv = int_valued(torch, gen, (g.n_c, g.cap, g.d))
+    mids = torch.randint(0, g.n, (g.n_c, g.cap), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    probe = torch.stack([torch.randperm(g.n_c, generator=gen,
+                                        device="cuda")[: g.n_probe]
+                         for _ in range(b)]).int()
+    qv = int_valued(torch, gen, (b, g.d))
+    got_s, got_i = kigs.ivf_gather_score(mv, mids, probe, qv)
+    want_s, want_i = ref.ivf_gather_score_ref(mv, mids, probe, qv)
+    torch.cuda.synchronize()
+    check(torch.equal(got_s, want_s) and torch.equal(got_i, want_i),
+          "ivf_gather_score at b=256 disagrees with its plain version")
+    del want_s, want_i
+    uniq = torch.unique(probe)
+    b_ms, b_by = bound_ms(
+        uniq.numel() * g.cap * (g.d + 1) * 4 + nbytes(probe, qv)
+        + b * g.n_probe * g.cap * 8,
+        2.0 * b * g.n_probe * g.cap * g.d, FP32_FLOPS)
+    rec = next(r for r in records if r["name"] == "ivf_gather_score")
+    rec.update(train_queries=b,
+               train_ms=timer(lambda: kigs.ivf_gather_score(mv, mids, probe,
+                                                            qv)),
+               train_plain_ms=timer(lambda: ref.ivf_gather_score_ref(
+                   mv, mids, probe, qv)),
+               train_bound_ms=b_ms, train_bound_by=b_by)
+    print(f"[kernel] ivf_gather_score b={b}: ok ms={rec['train_ms']:.4f} "
+          f"plain_ms={rec['train_plain_ms']:.4f} bound_ms={b_ms:.4f} "
+          f"({b_by})", flush=True)
+
+
 # ---------------------------------------------------------------- serving
 def serve(torch, seed: int, cfg, scfg_kw):
-    from repro_torch.core.mips.ivf import IVFIndex
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import report
     from repro_torch.models.model import Model
@@ -341,12 +535,9 @@ def serve(torch, seed: int, cfg, scfg_kw):
         check(fused_counts[name] > 0, f"fused serve never launched {name}")
 
     # same weights and the same index state, unfused kernel probe, T=1
-    unfused_cfg = cfg.scaled(head_mips="ivf", head_use_kernel=True)
-    index = IVFIndex(dataclasses.replace(srv.index.config, use_kernel=True),
-                     srv.index.state)
-    srv1 = Server(unfused_cfg, params,
+    srv1 = Server(cfg.scaled(head_mips="ivf"), params,
                   ServeConfig(decode_window=1, **scfg_kw),
-                  precision_policy="bf16", device="cuda", index=index)
+                  precision_policy="bf16", device="cuda", index=srv.index)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     res1 = srv1.run(prompts)
@@ -365,16 +556,18 @@ def serve(torch, seed: int, cfg, scfg_kw):
     counts["ivf_gather_score"] = unfused_counts["ivf_gather_score"]
     steps = {"fused_decode_steps": rep["decode_dispatches"] * WINDOW,
              "unfused_decode_steps": rep1["decode_dispatches"]}
-    profile(torch, srv, prompts[:SLOTS])
+    profile(torch, "serve fused T=8",
+            lambda: sum(len(r.tokens) for r in srv.run(prompts[:SLOTS])))
     return counts, steps
 
 
-def profile(torch, srv, prompts) -> None:
-    """Where a fused serving run's time goes: torch.profiler over one run
-    of ``prompts``; prints wall time, the summed duration of the device's
-    own events (kernels, copies), the device's idle share, and the device
-    events that took the most time. Profiling slows the host, so the
-    idle share is an upper estimate of the unprofiled run's."""
+def profile(torch, label: str, fn) -> None:
+    """Where a run's time goes: torch.profiler over ``fn()`` (which returns
+    the number of tokens it processed); prints wall time, the summed
+    duration of the device's own events (kernels, copies), the device's
+    idle share, and the device events that took the most time. Profiling
+    slows the host, so the idle share is an upper estimate of the
+    unprofiled run's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -382,7 +575,7 @@ def profile(torch, srv, prompts) -> None:
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = srv.run(prompts)
+        tokens = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name: dict[str, list] = {}
@@ -392,12 +585,163 @@ def profile(torch, srv, prompts) -> None:
             acc[0] += 1
             acc[1] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(ms for _, ms in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    print("[profile] " + json.dumps({
-        "tokens": sum(len(r.tokens) for r in res), "wall_ms": wall_ms,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    print(f"[profile] {label} " + json.dumps({
+        "tokens": tokens, "wall_ms": wall_ms,
         "device_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_events": sum(n for n, _ in by_name.values()),
         "top": [[name, n, ms] for name, (n, ms) in top]}), flush=True)
+
+
+# ---------------------------------------------------------------- training
+def train_config(seed: int):
+    from repro_torch.launch.steps import TrainConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.trainer import RunConfig
+
+    return RunConfig(num_steps=TRAIN_STEPS, ckpt_every=TRAIN_EVERY,
+                     log_every=1, keep_ckpts=2, seed=seed, batch=TRAIN_BATCH,
+                     seq=TRAIN_SEQ, index_refresh_every=TRAIN_EVERY,
+                     train=TrainConfig(opt=OptConfig(**TRAIN_OPT),
+                                       precision="bf16"))
+
+
+def train(torch, seed: int, cfg) -> tuple[dict, dict]:
+    """The training phase: 6 full-width steps through ``Trainer`` with the
+    amortized IVF head on the kernels, then a resume from the step-3
+    checkpoint. Returns (launch counts of the 6-step run, stats)."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import Trainer
+
+    tcfg = cfg.scaled(head_mips="ivf")
+    workdir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = Trainer(tcfg, train_config(seed), str(workdir), device="cuda")
+    res = tr.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    log = tr.metrics_log
+    for e in log:
+        print(f"[train] step {e['step']} loss={e['loss']:.5f} "
+              f"nll={e['nll']:.5f} log_z={e['log_z']:.4f} "
+              f"grad_norm={e['grad_norm']:.4f} dt={e['dt'] * 1e3:.1f} ms",
+              flush=True)
+    losses = [e["loss"] for e in log]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = statistics.median(e["dt"] for e in log[1:]) * 1e3
+    stats = {"steps": len(log), "tokens_per_step": tokens,
+             "step_ms_median": step_ms,
+             "tokens_per_s": tokens / (step_ms / 1e3),
+             "first_step_ms": log[0]["dt"] * 1e3 if log else None,
+             "run_wall_s": wall, "index_refreshes": tr.index_refreshes,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "index_mb": tr.head_index.memory_bytes() / 1e6}
+    print(f"[train] {json.dumps(stats)}", flush=True)
+    print(f"[train] launches {json.dumps(counts)}", flush=True)
+    check(res["status"] == "done" and len(losses) == TRAIN_STEPS,
+          "train: the run did not take its 6 steps")
+    check(all(math.isfinite(x) for x in losses), "train: a non-finite loss")
+    check(losses[-1] < losses[0],
+          f"train: loss did not fall ({losses[0]} -> {losses[-1]})")
+    check(tr.index_refreshes == TRAIN_STEPS // TRAIN_EVERY,
+          "train: the head index was not refreshed every 3 steps")
+    for name in ("fused_estimator", "fused_estimator_bwd",
+                 "ivf_gather_score"):
+        check(counts[name] > 0, f"train never launched {name}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # resume: drop the final checkpoint, restart from the step-3 one
+    shutil.rmtree(workdir / f"ckpt_{TRAIN_STEPS:08d}")
+    t0 = time.perf_counter()
+    tr2 = Trainer(tcfg, train_config(seed), str(workdir), device="cuda")
+    tr2.train()
+    torch.cuda.synchronize()
+    resumed = [e["loss"] for e in tr2.metrics_log]
+    want = losses[TRAIN_EVERY:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
+    print(f"[train] resume from step {TRAIN_EVERY}: losses {resumed} vs "
+          f"{want}, max rel diff {rel:.3g}, bitwise {resumed == want}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(len(resumed) == len(want) and rel <= RESUME_RTOL,
+          "train: the resumed run does not match the uninterrupted one")
+    del tr2
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    stats["resume_max_rel_diff"] = rel
+    return counts, stats
+
+
+def probe_diagnostics(torch, seed: int, cfg) -> dict:
+    """Six full-width steps outside the trainer for each top-k probe of the
+    amortized head (the IVF index, refreshed every 3 steps as the trainer
+    does, and the exact dense probe), reading before each update both the
+    amortized loss the step optimizes and the exact NLL of the same batch
+    (a dense logsumexp over all 32000 rows); then torch.profiler over one
+    more step of the IVF run. Returns {probe: {"amortized": [...], "exact":
+    [...]}}."""
+    import numpy as np
+
+    from repro_torch.core import amortized_head as ah
+    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    run = train_config(seed)
+    dcfg = DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed)
+    out = {}
+    for mips in ("exact", "ivf"):
+        tcfg = cfg.scaled(head_mips=mips)
+        model = Model(tcfg, "bf16", device="cuda")
+        exact_head = dataclasses.replace(model.head_cfg, mode="exact")
+        params = model.init(seed)
+        opt = adamw.init(params)
+        index = model.make_head_index(params)
+        step = make_train_step(model, run.train)
+        amortized, exact = [], []
+
+        def one(i: int, diagnose: bool = True) -> int:
+            batch = {k: torch.from_numpy(np.asarray(v)).cuda()
+                     for k, v in make_batch(tcfg, dcfg, i).items()}
+            if diagnose:
+                with torch.no_grad():
+                    x, pos, _ = model._embed_inputs(params, batch)
+                    h, _ = transformer.apply_trunk(params, tcfg, x, pos)
+                    exact.append(ah.head_loss(
+                        params["out_embed"], h.reshape(-1, h.shape[-1]),
+                        batch["labels"].reshape(-1), exact_head
+                    ).loss.mean().item())
+            _, _, m = step(params, opt, batch, (seed, i), index)
+            if diagnose:
+                amortized.append(m["loss"].item())
+            return TRAIN_BATCH * TRAIN_SEQ
+
+        for i in range(TRAIN_STEPS):
+            one(i)
+            if index is not None and (i + 1) % TRAIN_EVERY == 0:
+                index = index.refresh(model.head_index_db(params))
+        gap = max(abs(a - e) for a, e in zip(amortized, exact))
+        print(f"[train] probe={mips}: amortized loss {amortized}, exact NLL "
+              f"{exact}, max gap {gap:.4g}", flush=True)
+        check(all(math.isfinite(x) for x in amortized + exact),
+              f"probe={mips}: a non-finite loss")
+        if mips == "exact":
+            # with the exact top-576 the uniform tail holds little mass, so
+            # the stratified estimate sits within hundredths of log Z
+            check(gap <= EXACT_PROBE_GAP,
+                  f"probe=exact: amortized loss {gap} nats off the exact NLL")
+        out[mips] = {"amortized": amortized, "exact": exact}
+        if mips == "ivf":
+            profile(torch, "train step", lambda: one(TRAIN_STEPS, False))
+        del params, opt, index
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -435,15 +779,34 @@ def main() -> int:
                    max_new_tokens=NEW_TOKENS, seed=args.seed)
     g = geometry(cfg, ServeConfig(**scfg_kw))
     print(f"[setup] geometry {json.dumps(dataclasses.asdict(g))}", flush=True)
+    print(f"[bounds] still to port: {json.dumps(unported_bounds(g))}",
+          flush=True)
     timer = Timer(torch, ITERS)
     records = kernel_checks(torch, g, timer)
+    torch.cuda.empty_cache()
+    train_kernel_checks(torch, g, timer, records)
     del timer
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
     counts, steps = serve(torch, args.seed, cfg, scfg_kw)
+    print(f"[serve] {json.dumps(steps)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_counts, _ = train(torch, args.seed, cfg)
+    probe_diagnostics(torch, args.seed, cfg)
+    print(f"[train] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # launches: each path's count, read just after its own run — serving
+    # (fused T=8 run; ivf_gather_score from the unfused T=1 run) and the
+    # 6-step training run; "launches" is the count on the newest path that
+    # runs the kernel (training where it ran there, else serving)
     for rec in records:
-        rec["launches"] = counts[rec["name"]]
-    print(f"[serve] {json.dumps(steps)}", flush=True)
+        serve_n = counts.get(rec["name"], 0)
+        train_n = train_counts[rec["name"]]
+        rec.update(launches=train_n or serve_n, launches_serve=serve_n,
+                   launches_train=train_n)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,8 @@ from repro_torch.core.mips.ivf import IVFState
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 
-__all__ = ["tree_from_numpy", "params_from_jax", "ivf_state_from_jax"]
+__all__ = ["tree_from_numpy", "params_from_jax", "opt_state_from_jax",
+           "ivf_state_from_jax"]
 
 
 def tree_from_numpy(tree: Any, device=None) -> Any:
@@ -45,6 +46,16 @@ def params_from_jax(np_tree: dict, cfg: ArchConfig, device=None) -> dict:
     if n != cfg.n_layers:
         raise ValueError(f"{n} stacked layers, config has {cfg.n_layers}")
     return params
+
+
+def opt_state_from_jax(np_opt: dict, cfg: ArchConfig, device=None) -> dict:
+    """The JAX AdamW state (``repro.optim.adamw.init``'s ``{"m", "v",
+    "step"}``, as numpy arrays) -> the port's (:mod:`repro_torch.optim
+    .adamw`): fp32 moments in the params' structure, an int32 step."""
+    return {"m": params_from_jax(np_opt["m"], cfg, device),
+            "v": params_from_jax(np_opt["v"], cfg, device),
+            "step": torch.tensor(int(np.asarray(np_opt["step"])),
+                                 dtype=torch.int32, device=device)}
 
 
 def ivf_state_from_jax(np_state, device=None) -> IVFState:

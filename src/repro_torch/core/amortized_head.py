@@ -1,12 +1,16 @@
-"""Amortized log-linear head, sampling side (counterpart of
+"""Amortized log-linear head (counterpart of
 ``repro/core/amortized_head.py``).
 
 The softmax head of a language model is a log-linear model: features are
 the output-embedding rows ``E_i`` and parameters the final hidden state
 ``h``; ``y_i = h · E_i``. Decode samples the next token with the paper's
-lazy-Gumbel sampler (Algorithm 2) behind a MIPS top-k probe, built once over
-the frozen embedding (:func:`make_index`) — the amortization. The head's
-arithmetic is fp32 under every precision policy.
+lazy-Gumbel sampler (Algorithm 2) behind a MIPS top-k probe, built over the
+embedding (:func:`make_index`) — the amortization. Training takes the
+per-token NLL ``log Ẑ - y_target`` (:func:`head_loss`) in one of three modes
+(the paper's Table 2): ``exact`` (dense logsumexp), ``topk_only`` (S alone,
+biased) and ``amortized`` (Algorithm 3 over S ∪ T); autodiff through the
+amortized estimate is Algorithm 4's gradient. The head's arithmetic is fp32
+under every precision policy (only ``score_dtype`` may be bf16).
 
 Padded vocabularies: rows past the logical vocab ``n`` sit at the END of the
 table and are sliced away up front.
@@ -14,7 +18,7 @@ table and are sliced away up front.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -23,7 +27,8 @@ from repro_torch.core import estimators as est
 from repro_torch.core import mips
 from repro_torch.core.gumbel import SampleResult, default_kl
 
-__all__ = ["HeadConfig", "head_sample", "make_index", "uses_index"]
+__all__ = ["HeadConfig", "HeadLossOut", "head_loss", "head_sample",
+           "make_index", "uses_index"]
 
 _MODES = ("exact", "topk_only", "amortized")
 _MIPS = ("exact", "ivf", "ivfpq", "lsh")
@@ -41,11 +46,15 @@ class HeadConfig:
     adaptive_probe: bool = False  # not ported yet
     n_probe_init: int = 0
     n_probe_max: int = 0
-    use_kernel: bool = False  # ivf_gather_score kernel on the IVF probe
+    use_kernel: bool = False  # CPU: the IVF probe and the training loss
+    #   through the kernels' plain versions (on CUDA the kernels always run)
     fused_decode: bool = False  # ivf_screen_select + tail_gather_argmax
+    chunk: int = 256  # token chunk of the training loss
     delta: float = 1e-4
     c: float = 0.0  # assumed approximate-top-k gap (Def 3.1)
     min_amortized_n: int = 4096  # below this, amortization can't win: exact
+    score_dtype: str = "f32"  # "bf16": candidate rows and scores in bf16
+    #   (the logsumexp still accumulates in f32)
 
     def resolved(self) -> "HeadConfig":
         if self.mode not in _MODES:
@@ -72,6 +81,15 @@ class HeadConfig:
         return dataclasses.replace(self, k=k, l=l, mode=mode,
                                    n_probe_init=init, n_probe_max=maxp)
 
+    @property
+    def score_dt(self) -> torch.dtype:
+        return torch.bfloat16 if self.score_dtype == "bf16" else torch.float32
+
+
+class HeadLossOut(NamedTuple):
+    loss: torch.Tensor  # (T,) per-token negative log-likelihood
+    log_z: torch.Tensor  # (T,) partition estimates (diagnostics)
+
 
 def uses_index(cfg: HeadConfig) -> bool:
     """Whether this head builds a MIPS index at all (exact mode or the exact
@@ -80,11 +98,12 @@ def uses_index(cfg: HeadConfig) -> bool:
     return cfg.mode != "exact" and cfg.mips != "exact"
 
 
-def make_index(cfg: HeadConfig, emb: torch.Tensor, device=None
+def make_index(cfg: HeadConfig, emb: torch.Tensor, device=None, **build_kw
                ) -> mips.Index | None:
     """Build the head's MIPS index over the embedding rows on ``device``
     (CUDA unless the caller names another), or None when the exact top-k
-    path applies. ``emb`` must already live on that device."""
+    path applies. ``emb`` must already live on that device; ``build_kw``
+    go to the backend's ``build`` (IVF: ``init_cent``, ``iters``)."""
     cfg = cfg.resolved()
     dev = resolve_device(device)
     if emb.device.type != dev.type or (
@@ -99,7 +118,37 @@ def make_index(cfg: HeadConfig, emb: torch.Tensor, device=None
         raise NotImplementedError("the adaptive probe is not in the port yet")
     mips_cfg = mips.IVFConfig(n_probe=cfg.n_probe, use_kernel=cfg.use_kernel)
     db = emb if cfg.n == emb.shape[0] else emb[: cfg.n]
-    return mips.build_index(mips_cfg, db)
+    return mips.build_index(mips_cfg, db, **build_kw)
+
+
+def head_loss(emb: torch.Tensor, h: torch.Tensor, targets: torch.Tensor,
+              cfg: HeadConfig, index: Any = None, *,
+              keys: torch.Tensor | None = None,
+              draws: torch.Tensor | None = None) -> HeadLossOut:
+    """Per-token NLL ``log Ẑ - y_target``.
+
+    Args:
+      emb: (n_rows, d) output embedding (n_rows >= cfg.n; pads at the end).
+      h: (T, d) final hidden states.
+      targets: (T,) target ids in [0, cfg.n).
+      keys: (T, 3) int64 per-token generator keys of the amortized tail
+        draw; or ``draws`` (T, l), the draws themselves (tests).
+    """
+    cfg = cfg.resolved()
+    embf = emb.float()[: cfg.n]
+    h = h.float()
+
+    def one_chunk(hc, tc, kc, dc):
+        return est.loss_partials(
+            embf, hc, tc, mode=cfg.mode, k=cfg.k, l=cfg.l, index=index,
+            score_dtype=cfg.score_dt, use_kernel=cfg.use_kernel, keys=kc,
+            draws=dc,
+        )
+
+    parts = est.chunked_map(one_chunk, cfg.chunk, h, targets.long(), keys,
+                            draws)
+    loss, log_z = est.combine_loss(parts, cfg.mode)
+    return HeadLossOut(loss, log_z)
 
 
 def head_sample(emb: torch.Tensor, h: torch.Tensor, cfg: HeadConfig,

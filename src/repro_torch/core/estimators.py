@@ -1,20 +1,32 @@
-"""Shard-local estimator core, sampling half (counterpart of
-``repro/core/estimators.py``): the top-k probe, dead-slot sanitizing and
-the batched lazy-Gumbel max, unfused and fused.
+"""Shard-local estimator core (counterpart of ``repro/core/estimators.py``).
+
+* sampling: the top-k probe, dead-slot sanitizing and the batched
+  lazy-Gumbel max (Algorithm 2), unfused and fused;
+* learning: S ∪ T candidates with stratum log-weights, the stratified
+  ``log Ẑ`` (Algorithm 3) whose gradient is Algorithm 4's expectation
+  estimator with f = φ, the loss partials and their one-shard combine, and
+  the token chunking of the head.
 
 Conventions: ``emb`` is the feature table ``(v, d)`` and ids are row
 indices. Every estimator quantity is float32 whatever the trunk's
 precision policy: the Algorithm-2 certificate must fail because the probe
-missed, never because of rounding.
+missed, never because of rounding. The cross-shard (psum / pmax) combines
+come with the sharding slice.
+
+Randomness: the tail draws of a token come from the counter-based
+generator keyed by its ``keys`` row (:mod:`repro_torch.core.rng`), or are
+injected as ``draws`` (the parity tests pass the reference's own numbers).
 """
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import rng
+from repro_torch.core.complement import sample_complement
 from repro_torch.core.gumbel import (
     SampleResult,
     TopK,
@@ -28,11 +40,27 @@ from repro_torch.core.mips.base import top_k
 from repro_torch.kernels import ops
 
 __all__ = [
+    "LossPartials",
     "topk_probe",
     "sanitize_topk",
+    "amortized_candidates",
+    "topk_only_candidates",
+    "stratified_logz",
+    "exact_logz",
+    "target_partial",
+    "loss_partials",
+    "combine_loss",
     "local_gumbel_max",
     "dense_gumbel_max",
+    "chunked_map",
 ]
+
+_NEG_INF = float("-inf")
+
+
+class LossPartials(NamedTuple):
+    log_z: torch.Tensor  # (t,) stratified partial of log Ẑ (Alg 3)
+    y_t: torch.Tensor  # (t,) target logit where locally owned, else 0.0
 
 
 def _mask_probe(tk: TopK, n_valid) -> TopK:
@@ -153,3 +181,191 @@ def dense_gumbel_max(emb: torch.Tensor, h: torch.Tensor, n_valid=None, *,
     pert = scores + rng.gumbel(keys, scores.shape[1], rng.STREAM_DENSE)
     mx, idx = torch.max(pert, dim=-1)
     return idx, mx
+
+
+# --------------------------------------------------------------------------
+# learning: candidates, stratified partials, loss (Algorithms 3 and 4)
+# --------------------------------------------------------------------------
+def amortized_candidates(topk: TopK, n, l: int, *,
+                         keys: torch.Tensor | None = None,
+                         draws: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """S ∪ T with stratum log-weights (Algorithm 3) -> (ids (t, k+l) int64,
+    log_w (t, k+l) f32).
+
+    Dead S slots (value -inf) carry weight -inf, exclude nothing from the
+    complement (:func:`sanitize_topk`), and the tail stratum's support and
+    weight use the per-token count of LIVE exclusions, so the estimator
+    stays unbiased under partial probe fills. An empty tail weighs -inf.
+    ``keys`` ((t, 3) int64) keys each token's tail draw; ``draws`` ((t, l)
+    integers in [0, n - live count)) injects it instead."""
+    t, k = topk.ids.shape
+    ids_clean, k_valid = sanitize_topk(topk, n)
+    s_sorted = torch.sort(ids_clean, dim=1).values
+    tail = sample_complement(keys, n, s_sorted, l, n_excluded=k_valid,
+                             u=draws)  # (t, l)
+    tail_n = float(n) - k_valid.float()
+    log_w_tail = torch.where(tail_n > 0,
+                             torch.log(torch.clamp(tail_n, min=1.0) / l),
+                             torch.full_like(tail_n, _NEG_INF))
+    ids = torch.cat([topk.ids.long(), tail], dim=1)
+    log_w_s = torch.where(torch.isneginf(topk.values),
+                          torch.full_like(topk.values, _NEG_INF),
+                          torch.zeros_like(topk.values))
+    log_w = torch.cat([log_w_s, log_w_tail[:, None].expand(t, l)], dim=1)
+    return ids, log_w
+
+
+def topk_only_candidates(topk: TopK, targets: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Truncated-support candidates: S with the target's duplicate slot
+    masked — the target itself enters via the combine, exactly once."""
+    dead = torch.isneginf(topk.values) | (topk.ids == targets[:, None])
+    log_w = torch.where(dead, torch.full_like(topk.values, _NEG_INF),
+                        torch.zeros_like(topk.values))
+    return topk.ids.long(), log_w
+
+
+class _FusedLogZ(torch.autograd.Function):
+    """``log Σ_j w_j e^{y_j}`` through the ``fused_estimator`` kernel, with
+    the reference's custom VJP (``estimators.py::_fused_logz``): d_h =
+    g · expv (Algorithm 4's estimate); d_emb, the scatter of p · h, and p,
+    the log_w cotangent, from the ``fused_estimator_bwd`` kernel, which
+    recomputes the scores. Only ids, log_w, log_z, expv and references to
+    emb and h are saved — never the (t, m, d) rows."""
+
+    @staticmethod
+    def forward(ctx, emb, h, ids, log_w):
+        log_z, expv = ops.fused_estimator(emb, ids, h, log_w)
+        ctx.save_for_backward(emb, h, ids, log_w, log_z, expv)
+        return log_z
+
+    @staticmethod
+    def backward(ctx, g):
+        emb, h, ids, log_w, log_z, expv = ctx.saved_tensors
+        d_emb, p = ops.fused_estimator_bwd(emb, ids, h, log_w, log_z, g)
+        d_h = (g[:, None] * expv).to(h.dtype)
+        return d_emb.to(emb.dtype), d_h, None, p.to(log_w.dtype)
+
+
+def stratified_logz(emb: torch.Tensor, h: torch.Tensor, ids: torch.Tensor,
+                    log_w: torch.Tensor, *, use_kernel: bool = False
+                    ) -> torch.Tensor:
+    """Per-token ``log Σ_i w_i e^{y_i}`` over candidates (t,), differentiable
+    w.r.t. ``emb`` and ``h`` (∇_h = Algorithm 4's expectation estimate).
+
+    On CUDA tensors the candidates always stream through the
+    ``fused_estimator`` kernel (no (t, m, d) gather in device memory),
+    backed by its backward kernel. On the CPU, ``use_kernel`` takes that
+    route through the kernels' plain versions; without it the rows are
+    gathered and differentiated through a logsumexp. All give the same
+    value and gradients."""
+    ids = torch.clamp(ids.detach(), min=0)  # -1 pads carry weight -inf
+    log_w = log_w.float()  # stratum weights: fp32 always
+    if use_kernel or h.is_cuda:
+        return _FusedLogZ.apply(emb, h, ids, log_w)
+    rows = emb[ids]  # (t, m, d) differentiable gather
+    y = torch.einsum("tmd,td->tm", rows, h).float()
+    return torch.logsumexp(y + log_w, dim=1)
+
+
+def exact_logz(emb: torch.Tensor, h: torch.Tensor, n_valid=None
+               ) -> torch.Tensor:
+    """Dense per-token logsumexp over the valid rows (baseline)."""
+    scores = (h @ emb.T).float()
+    if n_valid is not None:
+        ok = torch.arange(emb.shape[0], device=emb.device) < n_valid
+        scores = torch.where(ok[None, :], scores,
+                             torch.full_like(scores, _NEG_INF))
+    return torch.logsumexp(scores, dim=-1)
+
+
+def target_partial(emb: torch.Tensor, h: torch.Tensor, targets: torch.Tensor,
+                   n_valid=None) -> torch.Tensor:
+    """Target logit for owned targets, 0 elsewhere (t,)."""
+    nv = emb.shape[0] if n_valid is None else n_valid
+    inside = (targets >= 0) & (targets < nv)
+    rows = emb[torch.clamp(targets, 0, emb.shape[0] - 1)]
+    y = torch.einsum("td,td->t", rows, h).float()
+    return torch.where(inside, y, torch.zeros_like(y))
+
+
+def loss_partials(emb: torch.Tensor, h: torch.Tensor, targets: torch.Tensor,
+                  *, mode: str, k: int, l: int, index: Any = None,
+                  n_valid=None, score_dtype=torch.float32,
+                  use_kernel: bool = False, keys: torch.Tensor | None = None,
+                  draws: torch.Tensor | None = None) -> LossPartials:
+    """Loss partials for one (t, d) token block.
+
+    The probe runs on detached queries and outside autograd; the candidate
+    scores are then RECOMPUTED through the differentiable gather (or the
+    kernel), so ∇(emb, h) flows through both strata (the Algorithm-4
+    gradient), robust to stale index values."""
+    emb_s = emb.to(score_dtype)
+    h_s = h.to(score_dtype)
+    targets = targets.long()
+    if mode == "exact":
+        return LossPartials(exact_logz(emb_s, h_s, n_valid),
+                            target_partial(emb_s, h_s, targets, n_valid))
+    with torch.no_grad():
+        topk = topk_probe(emb_s.detach(), h_s.detach(), k, index=index,
+                          n_valid=n_valid)
+        if mode == "topk_only":
+            ids, log_w = topk_only_candidates(topk, targets)
+        else:  # amortized
+            if keys is None and draws is None:
+                raise ValueError("the amortized head needs keys or draws")
+            n = emb.shape[0] if n_valid is None else n_valid
+            ids, log_w = amortized_candidates(topk, n, l, keys=keys,
+                                              draws=draws)
+    log_z = stratified_logz(emb_s, h_s, ids, log_w, use_kernel=use_kernel)
+    return LossPartials(log_z, target_partial(emb_s, h_s, targets, n_valid))
+
+
+def combine_loss(p: LossPartials, mode: str
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-shard combine -> (per-token NLL, log Ẑ diagnostics)."""
+    if mode == "topk_only":
+        log_z = torch.logaddexp(p.log_z, p.y_t)  # target counted exactly once
+    else:
+        log_z = p.log_z
+    return log_z - p.y_t, log_z
+
+
+# --------------------------------------------------------------------------
+# token chunking
+# --------------------------------------------------------------------------
+def chunked_map(fn, chunk: int, *arrays):
+    """``fn`` over token chunks of ``arrays`` (leading dim t; None entries
+    pass through as None), each chunk under non-reentrant
+    ``torch.utils.checkpoint``: the (chunk, k+l, d) candidate work is
+    recomputed in the backward pass, so peak activation memory is
+    O(chunk · (k+l) · d) whatever the sequence length. The last chunk is
+    zero-padded to full size, as the reference pads it, and the padding is
+    stripped from the result. ``fn(*chunk_arrays)`` returns a tuple (or
+    NamedTuple) of (chunk, ...) tensors; the result is the same structure
+    with leading dim t.
+
+    Where the reference splits one key per chunk, the port's randomness is
+    per token (``keys`` / ``draws`` rows chunked like the data), so a
+    token's draws do not depend on the chunk size."""
+    t = next(a for a in arrays if a is not None).shape[0]
+    ch = min(chunk, max(1, t))
+    nck = -(-t // ch)
+    pad = nck * ch - t
+    outs = []
+    for c in range(nck):
+        part = []
+        for a in arrays:
+            if a is None:
+                part.append(None)
+                continue
+            a = a[c * ch:(c + 1) * ch]
+            if a.shape[0] < ch:
+                a = torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+            part.append(a)
+        outs.append(checkpoint(fn, *part, use_reentrant=False,
+                               preserve_rng_state=False))
+    first = outs[0]
+    joined = [torch.cat([o[i] for o in outs])[:t] for i in range(len(first))]
+    return type(first)(*joined) if hasattr(first, "_fields") else tuple(joined)

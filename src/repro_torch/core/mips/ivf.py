@@ -9,8 +9,8 @@ runs on the index's device: Lloyd iterations, then a stable sort packing
 rows into the member tables. ``refresh`` warm-starts Lloyd from the current
 centroids and keeps every shape.
 
-The probe's gather+score runs on the ``ivf_gather_score`` kernel when
-``use_kernel`` is set, and :meth:`IVFIndex.screen_select` runs gather-score
+The probe's gather+score runs on the ``ivf_gather_score`` kernel for CUDA
+queries (on the CPU, ``use_kernel`` takes the kernel's plain version), and :meth:`IVFIndex.screen_select` runs gather-score
 and top-k together on ``ivf_screen_select``; both kernels score members
 with one device function, so ``screen_select`` equals ``topk_batch`` with
 the kernel bit for bit (DESIGN.md §10).
@@ -54,7 +54,8 @@ class IVFConfig:
     refresh_iters: int = 2  # warm-started iterations per refresh
     seed: int = 0  # seeds the cold build's row sample (torch.Generator)
     n_probe: int = 8  # clusters probed per query
-    use_kernel: bool = False  # ivf_gather_score kernel on the probe
+    use_kernel: bool = False  # CPU: the probe through ivf_gather_score's
+    #   plain version (CUDA queries always take the kernel)
 
 
 class IVFState(NamedTuple):
@@ -169,11 +170,17 @@ class IVFIndex:
     # ------------------------------------------------------------ lifecycle
     @classmethod
     def build(cls, db: torch.Tensor, config: IVFConfig | None = None, *,
-              init_cent: torch.Tensor | None = None) -> "IVFIndex":
+              init_cent: torch.Tensor | None = None,
+              iters: int | None = None) -> "IVFIndex":
+        """Build over ``db``: Lloyd from ``init_cent`` (default: a seeded
+        row sample) for ``iters`` iterations (default ``kmeans_iters``),
+        then pack. ``iters=0`` with saved centroids re-packs ``db`` around
+        them — how a resumed run rebuilds the exact index it had."""
         cfg = config or IVFConfig()
         n_c, cap, o_cap = _geometry(db.shape[0], cfg)
         state = _device_build(db, init_cent, n_c=n_c, cap=cap, o_cap=o_cap,
-                              iters=cfg.kmeans_iters, seed=cfg.seed)
+                              iters=cfg.kmeans_iters if iters is None
+                              else iters, seed=cfg.seed)
         return cls(cfg, state)
 
     def refresh(self, db: torch.Tensor, *, iters: int | None = None
@@ -210,7 +217,7 @@ class IVFIndex:
         qf = q.float()
         probe = self._probe(qf, n_probe)
         b = qf.shape[0]
-        if self.config.use_kernel:
+        if self.config.use_kernel or qf.is_cuda:
             scores, ids = ops.ivf_gather_score(st.member_vecs, st.member_ids,
                                                probe, qf)
         else:

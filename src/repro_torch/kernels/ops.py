@@ -4,8 +4,8 @@ A CPU tensor goes to the kernel's plain version in :mod:`.ref`; a CUDA
 tensor goes to the kernel, which launches or raises. There is no fallback
 from one to the other: a build or launch failure on the card propagates.
 Each kernel wrapper keeps a plain integer count of its launches
-(:func:`launch_counts`), so a run can show that the serving path went
-through the kernels.
+(:func:`launch_counts`), so a run can show that the serving and training
+paths went through the kernels.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import decode_fused as _df
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import fused_estimator as _fe
 from repro_torch.kernels import ivf_gather_score as _igs
 from repro_torch.kernels import ref
 
@@ -21,12 +22,14 @@ __all__ = [
     "ivf_gather_score",
     "ivf_screen_select",
     "tail_gather_argmax",
+    "fused_estimator",
+    "fused_estimator_bwd",
     "launch_counts",
     "reset_launch_counts",
     "KERNELS",
 ]
 
-_COUNTERS = (_fd.launches, _igs.launches, _df.launches)
+_COUNTERS = (_fd.launches, _igs.launches, _df.launches, _fe.launches)
 KERNELS = tuple(k for c in _COUNTERS for k in c)
 
 
@@ -88,3 +91,18 @@ def tail_gather_argmax(emb, pos, m_used, pert_s, s_ids, heights, h
                                       heights, h)
     return ref.tail_gather_argmax_ref(emb, pos, m_used, pert_s, s_ids,
                                       heights, h)
+
+
+def fused_estimator(emb, ids, h, log_w) -> tuple[torch.Tensor, torch.Tensor]:
+    """Alg-3/4 stratified estimator -> (log_z (t,), expv (t, d))."""
+    if _on_cuda(h, "fused_estimator"):
+        return _fe.fused_estimator(emb, ids, h, log_w)
+    return ref.fused_estimator_ref(emb, ids, h, log_w)
+
+
+def fused_estimator_bwd(emb, ids, h, log_w, log_z, g
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Its backward for upstream ``g`` (t,) -> (d_emb (n, d), p (t, m))."""
+    if _on_cuda(h, "fused_estimator_bwd"):
+        return _fe.fused_estimator_bwd(emb, ids, h, log_w, log_z, g)
+    return ref.fused_estimator_bwd_ref(emb, ids, h, log_w, log_z, g)

@@ -88,7 +88,9 @@ def main(argv=None) -> None:
     ap.add_argument("--overlength", default="truncate",
                     choices=["truncate", "reject"])
     ap.add_argument("--head-use-kernel", action="store_true",
-                    help="ivf_gather_score kernel on the unfused IVF probe")
+                    help="on the CPU, run the unfused IVF probe through "
+                         "ivf_gather_score's plain version; on CUDA the "
+                         "kernel always runs")
     ap.add_argument("--fused-decode", action="store_true",
                     help="fused decode head: ivf_screen_select + "
                          "tail_gather_argmax kernels")

@@ -1,18 +1,146 @@
-"""Serving step functions (counterpart of ``repro/launch/steps.py``, dense
-layout): per-slot sample keys, the slot-state transition, the decode
-window and batched prefill admission.
+"""Step functions (counterpart of ``repro/launch/steps.py``, dense layout):
+the train step with fp32 gradient accumulation, the fused multi-step train
+loop, per-slot sample keys, the slot-state transition, the decode window
+and batched prefill admission.
 
-Where the reference scans a decode window inside one jitted dispatch, the
-port loops over it in Python; the per-slot state stays on the device and
-the host reads it only through the emitted tokens.
+Where the reference scans a decode window or a train window inside one
+jitted dispatch, the port loops over it in Python; state stays on the
+device and the host reads it only where it needs a value.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.optim import adamw
 
-__all__ = ["slot_keys", "make_decode_loop_step", "make_prefill_into_cache_step"]
+__all__ = ["TrainConfig", "token_keys", "make_train_step",
+           "make_train_loop_step", "slot_keys", "make_decode_loop_step",
+           "make_prefill_into_cache_step"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    opt: adamw.OptConfig = dataclasses.field(default_factory=adamw.OptConfig)
+    accum: int = 1  # microbatch gradient-accumulation factor
+    precision: str = "bf16"  # model precision policy (repro_torch/precision.py):
+    #   "bf16" (default) or "f32" (the numerics reference). Master params,
+    #   gradient accumulators and estimator partials are fp32 either way.
+
+
+def _split_batch(batch: dict, accum: int) -> dict:
+    """(GB, ...) -> (accum, GB/accum, ...) per leaf."""
+    return {k: x.reshape((accum, x.shape[0] // accum) + x.shape[1:])
+            for k, x in batch.items()}
+
+
+def token_keys(seed: int, step: int, start: int, count: int,
+               device=None) -> torch.Tensor:
+    """(count, 3) int64 generator keys (seed, step, token) for the label
+    positions ``start .. start+count`` of a step's global batch (row-major
+    over (batch, position)). Keying a token's head draws by its global
+    step and position makes them independent of how the run is chunked
+    into windows, of the microbatch split and of the head's token chunk:
+    what keeps a fused T-window bitwise T single steps and ``accum`` equal
+    to a host loop of microbatches."""
+    tok = torch.arange(start, start + count, device=device)
+    return torch.stack([torch.full_like(tok, seed), torch.full_like(tok, step),
+                        tok], dim=-1)
+
+
+def make_train_step(model: Model, tcfg: TrainConfig):
+    """Returns ``train_step(params, opt_state, batch, key, index=None, *,
+    draws=None) -> (params, opt_state, metrics)``.
+
+    ``key`` is the (seed, global step) pair the step's randomness derives
+    from (:func:`token_keys`); ``draws`` ((GB·L, l), row-major over the
+    global batch) injects the head's tail draws instead. ``index`` is the
+    head's MIPS index; gradients do not flow into it (the head uses it for
+    the top-k probe only). ``params`` and the moments are updated in place.
+
+    Gradient accumulation (``tcfg.accum > 1``) runs ``accum`` microbatches
+    and sums their gradients in fp32 (``Policy.grad_accum_dtype``) whatever
+    the compute policy, then applies the optimizer ONCE on the mean."""
+
+    def grads_of(params, mb, keys, draws, index):
+        diff = adamw.tree_map(lambda p: p.detach().requires_grad_(True),
+                              params)
+        loss, metrics = model.loss_fn(diff, mb, index, keys=keys,
+                                      draws=draws)
+        grads = torch.autograd.grad(loss, adamw.tree_leaves(diff))
+        it = iter(grads)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                adamw.tree_map(lambda _: next(it), diff))
+
+    def train_step(params, opt_state, batch, key, index=None, *, draws=None):
+        seed, step = key
+        n_tok = batch["labels"].numel()
+        dev = batch["labels"].device
+        if tcfg.accum == 1:
+            keys = token_keys(seed, step, 0, n_tok, dev)
+            loss, metrics, grads = grads_of(params, batch, keys, draws, index)
+        else:
+            mbs = _split_batch(batch, tcfg.accum)
+            mb_tok = n_tok // tcfg.accum
+            grads = adamw.tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            ms = []
+            for i in range(tcfg.accum):
+                mb = {k: v[i] for k, v in mbs.items()}
+                keys = token_keys(seed, step, i * mb_tok, mb_tok, dev)
+                d_i = (None if draws is None
+                       else draws[i * mb_tok:(i + 1) * mb_tok])
+                l_i, m_i, g_i = grads_of(params, mb, keys, d_i, index)
+                # fp32 accumulators: bf16 sums would be order-dependent at
+                # the magnitudes the optimizer cares about
+                for a, b in zip(adamw.tree_leaves(grads),
+                                adamw.tree_leaves(g_i)):
+                    a.add_(b.float())
+                loss = loss + l_i.float()
+                ms.append(m_i)
+            grads = adamw.tree_map(lambda g: g / tcfg.accum, grads)
+            loss = loss / tcfg.accum
+            # per-microbatch aux metrics (nll / aux / log_z): their mean
+            metrics = {k: torch.stack([m[k] for m in ms]).float().mean(0)
+                       for k in ms[0]}
+        params, opt_state, opt_metrics = adamw.update(grads, opt_state,
+                                                      params, tcfg.opt)
+        return params, opt_state, dict(metrics, **opt_metrics, loss=loss)
+
+    return train_step
+
+
+def make_train_loop_step(model: Model, tcfg: TrainConfig):
+    """Fused multi-step training: ``loop_step(state, batches, steps, seed,
+    index=None, *, draws=None) -> (state, metrics)``.
+
+    Runs ``T = len(steps)`` full optimizer steps back to back on the
+    device-resident ``{"params", "opt"}`` state (updated in place), step i
+    on ``batches`` leaves ``[i]`` with randomness keyed by the GLOBAL step
+    ``steps[i]`` — the same derivation a single step uses, so a T-window is
+    bitwise T single steps, whatever the trainer's chunking. ``index`` is
+    held fixed across the window (refreshes land on window boundaries).
+    Per-step metrics come back stacked to (T,) device tensors; the host
+    reads them when it flushes."""
+    step_fn = make_train_step(model, tcfg)
+
+    def loop_step(state, batches, steps, seed: int, index=None, *,
+                  draws=None):
+        ms = []
+        for i, step in enumerate(steps):
+            mb = {k: v[i] for k, v in batches.items()}
+            params, opt, metrics = step_fn(
+                state["params"], state["opt"], mb, (seed, int(step)), index,
+                draws=None if draws is None else draws[i])
+            state = {"params": params, "opt": opt}
+            ms.append(metrics)
+        return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return loop_step
 
 
 def slot_keys(seed: int, rids: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

@@ -3,21 +3,31 @@
 
 Prefill attention is plain PyTorch: fp32 scores with the causal (and
 sliding-window) mask, fp32 softmax, output cast back to the compute dtype
-— the reference computes it outside any Pallas kernel too
-(``blockwise_attention``). Decode attention goes through the
-``flash_decode`` kernel (:mod:`repro_torch.kernels.ops`).
+— the reference computes it outside any Pallas kernel too. The training
+forward (:func:`forward`) uses :func:`blockwise_attention`, the reference's
+online softmax over KV blocks with each query block recomputed in the
+backward pass, so the (L, L) score matrix never exists whole. Decode
+attention goes through the ``flash_decode`` kernel
+(:mod:`repro_torch.kernels.ops`).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dense_init, rope
 
-__all__ = ["init", "attention", "prefill", "init_cache", "decode"]
+__all__ = ["init", "attention", "blockwise_attention", "forward", "prefill",
+           "init_cache", "decode"]
 
 _NEG = -1e30
+
+# Blockwise-attention tile sizes: the K/V stream is re-read once per query
+# block, so traffic scales with L / Q_BLOCK.
+Q_BLOCK = 512
+KV_BLOCK = 512
 
 
 def init(gen: torch.Generator, cfg: ArchConfig, count: int, device=None) -> dict:
@@ -63,6 +73,102 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return out.reshape(b, l, h, hd).to(q.dtype)
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, *, causal: bool,
+          window: int, prefix: int) -> torch.Tensor:
+    """(qb,), (kb,) -> (qb, kb) bool, True = attend."""
+    q = qpos[:, None]
+    k = kpos[None, :]
+    ok = torch.ones((q.shape[0], k.shape[1]), dtype=torch.bool,
+                    device=qpos.device)
+    if causal:
+        ok = k <= q
+        if prefix > 0:  # prefix-LM: bidirectional over the first `prefix`
+            ok = ok | (k < prefix)
+    if window > 0:
+        ok = ok & (k > q - window)
+    return ok
+
+
+def _online_block(carry, k_blk, v_blk, q, qpos, kpos, mask_kw, scale):
+    """One KV block of the online softmax. q: (B, qb, KV, G, hd) fp32."""
+    m, s, acc = carry
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q, k_blk) * scale
+    ok = _mask(qpos, kpos, **mask_kw)
+    scores = torch.where(ok[None, None, None], scores,
+                         torch.full_like(scores, _NEG))
+    m_new = torch.maximum(m, scores.amax(-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(scores - m_new[..., None])
+    s_new = s * corr + p.sum(-1)
+    upd = torch.einsum("bkgqs,bskd->bkgqd", p, v_blk)
+    return m_new, s_new, acc * corr[..., None] + upd
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, window: int = 0, prefix: int = 0,
+                        q_block: int | None = None,
+                        kv_block: int | None = None) -> torch.Tensor:
+    """(B, L, H, hd) queries against (B, L, KV, hd) keys/values -> (B, L, H,
+    hd) in q's dtype: fp32 scores, an online softmax (running max, sum,
+    accumulator) over KV blocks of ``kv_block``, one query block of
+    ``q_block`` at a time, each under non-reentrant ``checkpoint`` so its
+    softmax residuals are recomputed in the backward pass. Sliding-window
+    layers read only the ``window + q_block`` KV span of a query block."""
+    q_block = q_block or Q_BLOCK
+    kv_block = kv_block or KV_BLOCK
+    b, l, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qb = min(q_block, l)
+    kb = min(kv_block, l)
+    if l % qb or l % kb:
+        raise ValueError(f"sequence length {l} is not a multiple of the "
+                         f"attention blocks ({qb}, {kb})")
+    scale = 1.0 / (hd ** 0.5)
+    qg = q.float().reshape(b, l // qb, qb, kvh, g, hd)
+    kf, vf = k.float(), v.float()
+    mask_kw = dict(causal=causal, window=window, prefix=prefix)
+    span = ((window + qb + kb - 1) // kb) * kb if window > 0 else l
+    use_window = 0 < window and span < l
+    dev = q.device
+
+    def per_qblock(qi: int, q_blk: torch.Tensor) -> torch.Tensor:
+        qpos = qi * qb + torch.arange(qb, device=dev)
+        if use_window:
+            start = min(max((qi + 1) * qb - span, 0), l - span)
+            k_loc, v_loc = kf[:, start:start + span], vf[:, start:start + span]
+            kpos0, nkb = start, span // kb
+        else:
+            k_loc, v_loc, kpos0, nkb = kf, vf, 0, l // kb
+        carry = (torch.full((b, kvh, g, qb), _NEG, device=dev),
+                 torch.zeros((b, kvh, g, qb), device=dev),
+                 torch.zeros((b, kvh, g, qb, hd), device=dev))
+        for ki in range(nkb):
+            kpos = kpos0 + ki * kb + torch.arange(kb, device=dev)
+            carry = _online_block(carry, k_loc[:, ki * kb:(ki + 1) * kb],
+                                  v_loc[:, ki * kb:(ki + 1) * kb], q_blk,
+                                  qpos, kpos, mask_kw, scale)
+        _, s, acc = carry
+        out = acc / torch.clamp(s, min=1e-30)[..., None]  # (B, KV, G, qb, hd)
+        return out.permute(0, 3, 1, 2, 4)  # (B, qb, KV, G, hd)
+
+    outs = [checkpoint(per_qblock, qi, qg[:, qi], use_reentrant=False,
+                       preserve_rng_state=False) for qi in range(l // qb)]
+    return torch.cat(outs, dim=1).reshape(b, l, h, hd).to(q.dtype)
+
+
+def forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
+            positions: torch.Tensor, *, window: int | None = None,
+            prefix: int = 0) -> torch.Tensor:
+    """Training attention (no cache): (B, L, d) -> (B, L, d)."""
+    b, l, _ = x.shape
+    win = cfg.window if window is None else window
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = blockwise_attention(q, k, v, causal=cfg.causal and not cfg.encoder_only,
+                              window=win, prefix=prefix)
+    return out.reshape(b, l, cfg.d_attn) @ p["wo"].to(x.dtype)
 
 
 def prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,

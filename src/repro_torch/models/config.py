@@ -59,7 +59,8 @@ class ArchConfig:
     head_delta: float = 1e-4
     head_k: int = 0  # 0 -> default_kl(vocab, head_delta)
     head_l: int = 0
-    head_use_kernel: bool = False  # CUDA probe kernel (ivf_gather_score)
+    head_use_kernel: bool = False  # CPU: the head through the kernels'
+    #   plain versions (on CUDA the kernels always run)
     head_fused_decode: bool = False  # fused screen/select + tail/argmax
     #   kernels (kernels/decode_fused.py); same samples as the unfused
     #   kernel path — see DESIGN.md §10

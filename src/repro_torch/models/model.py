@@ -1,5 +1,6 @@
-"""Public model API for serving (counterpart of ``repro/models/model.py``):
-init, head index, batched prefill into cache slots, and the decode step.
+"""Public model API (counterpart of ``repro/models/model.py``): init, the
+training loss, head index, batched prefill into cache slots, and the decode
+step.
 
 The LM head is the paper's amortized log-linear head
 (:mod:`repro_torch.core.amortized_head`). Only the attention family is
@@ -18,8 +19,11 @@ from repro_torch.models.config import ArchConfig
 
 __all__ = ["Model", "head_config"]
 
+_AUX_WEIGHT = 0.01  # MoE load-balance loss weight (the reference's)
 
-def head_config(cfg: ArchConfig) -> ah.HeadConfig:
+
+def head_config(cfg: ArchConfig, policy: precision.Policy | None = None
+                ) -> ah.HeadConfig:
     return ah.HeadConfig(
         n=cfg.vocab,
         k=cfg.head_k,
@@ -33,6 +37,7 @@ def head_config(cfg: ArchConfig) -> ah.HeadConfig:
         n_probe_max=cfg.head_n_probe_max,
         use_kernel=cfg.head_use_kernel,
         fused_decode=cfg.head_fused_decode,
+        score_dtype=precision.get_policy(policy).score_dtype,
     ).resolved()
 
 
@@ -51,7 +56,7 @@ class Model:
         self.device = resolve_device(device)
         self.policy = precision.get_policy(precision_policy)
         self.compute_dtype = self.policy.compute_dtype
-        self.head_cfg = head_config(cfg)
+        self.head_cfg = head_config(cfg, self.policy)
 
     # ---------------------------------------------------------------- init
     def init(self, seed: "int | torch.Generator" = 0) -> dict:
@@ -72,12 +77,58 @@ class Model:
     def _out_embed(self, params) -> torch.Tensor:
         return params["embed"] if self.cfg.tie_embeddings else params["out_embed"]
 
+    # ---------------------------------------------------------------- embed
+    def _embed_inputs(self, params, batch) -> tuple[torch.Tensor,
+                                                    torch.Tensor, int]:
+        """Token frontend -> (x (B, L, d) compute dtype, positions (B, L),
+        prefix). The audio / vision stubs come with their families."""
+        x = params["embed"][batch["tokens"].long()].to(self.compute_dtype)
+        b, l, _ = x.shape
+        pos = torch.arange(l, device=x.device)[None].expand(b, l)
+        return x, pos, 0
+
     # ---------------------------------------------------------------- index
-    def make_head_index(self, params, db=None):
+    @property
+    def head_uses_index(self) -> bool:
+        """Whether make_head_index returns an index (vs None for the exact
+        mode or backend)."""
+        return ah.uses_index(self.head_cfg)
+
+    def make_head_index(self, params, db=None, **build_kw):
         """The head's MIPS index over the output embedding (or ``db``), or
-        None when the exact path applies. Built once for serving."""
+        None when the exact path applies. Serving builds it once; training
+        refreshes it as the embedding drifts (train/trainer.py).
+        ``build_kw`` go to the index backend's ``build``."""
         emb = self._out_embed(params) if db is None else db
-        return ah.make_index(self.head_cfg, emb, device=self.device)
+        return ah.make_index(self.head_cfg, emb, device=self.device,
+                             **build_kw)
+
+    def head_index_db(self, params) -> torch.Tensor:
+        """The embedding rows backing the head index (refresh and drift
+        tracking): the logical-vocab slice of the output embedding."""
+        emb = self._out_embed(params)
+        return emb if self.head_cfg.n == emb.shape[0] else emb[: self.head_cfg.n]
+
+    # ---------------------------------------------------------------- loss
+    def loss_fn(self, params, batch, index=None, *,
+                keys: torch.Tensor | None = None, draws=None
+                ) -> tuple[torch.Tensor, dict]:
+        """Mean NLL over label positions (+ aux) -> (total, {"nll", "aux",
+        "log_z"}).
+
+        ``keys`` ((B·L, 3) int64, one row per label position in row-major
+        order) keys the amortized head's tail draws; ``draws`` ((B·L, l))
+        injects them instead."""
+        cfg = self.cfg
+        x, pos, prefix = self._embed_inputs(params, batch)
+        h, aux = transformer.apply_trunk(params, cfg, x, pos, prefix=prefix)
+        b, l, d = h.shape
+        out = ah.head_loss(self._out_embed(params), h.reshape(b * l, d),
+                           batch["labels"].reshape(-1).long(), self.head_cfg,
+                           index, keys=keys, draws=draws)
+        nll = out.loss.mean()
+        total = nll + _AUX_WEIGHT * aux
+        return total, {"nll": nll, "aux": aux, "log_z": out.log_z.mean()}
 
     # ---------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_seq: int, dtype=None) -> list:

@@ -5,6 +5,10 @@ Parameters keep the reference's stacked pytree structure: ``blocks`` is a
 list of block groups, each a dict ``{"0": layer}`` whose leaves carry a
 leading layer axis. Where the reference scans that axis with ``lax.scan``,
 the port loops over it in Python and hands each layer a view of its slice.
+The training forward (:func:`apply_trunk`) runs each layer under
+non-reentrant ``torch.utils.checkpoint`` where the reference wraps each scan
+step in ``jax.checkpoint`` (``REMAT``): only layer-boundary activations are
+kept for the backward pass.
 KV caches mirror the same structure, ``(layers, B, s_c, KV, hd)`` per leaf,
 and decode updates them in place.
 """
@@ -13,6 +17,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention
 from repro_torch.models.config import ArchConfig
@@ -22,11 +27,15 @@ __all__ = [
     "check_supported",
     "init_params",
     "compute_params",
+    "apply_trunk",
     "apply_trunk_prefill",
     "insert_cache_slots",
     "init_cache",
     "apply_trunk_decode",
 ]
+
+
+REMAT = True  # recompute each layer in the backward pass (tests may disable)
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -85,6 +94,44 @@ def _layer(tree, i: int):
 def _mlp(p: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     x = rms_norm(h, p["norm2"], cfg.norm_eps)
     return h + swiglu(x, p["mlp"]["w1"], p["mlp"]["w2"], p["mlp"]["w3"])
+
+
+def _unstack(tree) -> list:
+    """Per-layer views of a layer-stacked dict of tensors, via one
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where indexing each layer would build a full-size gradient per layer."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def _block(p: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
+           prefix: int) -> torch.Tensor:
+    """One attention-family layer of the training forward."""
+    mix = attention.forward(p["mix"], cfg, rms_norm(h, p["norm1"], cfg.norm_eps),
+                            positions, window=cfg.window, prefix=prefix)
+    return _mlp(p, cfg, h + mix)
+
+
+def apply_trunk(params: dict, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, prefix: int = 0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training forward: (B, L, d) embedded input -> (final-normed h (B, L,
+    d), aux loss ()). The attention family has no auxiliary loss (the
+    reference's MoE load-balance term), so aux is 0."""
+    check_supported(cfg)
+    (group,) = params["blocks"]
+    h = x
+    for p in _unstack(group["0"]):
+        if REMAT:
+            h = checkpoint(_block, p, cfg, h, positions, prefix,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _block(p, cfg, h, positions, prefix)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
 
 
 def apply_trunk_prefill(params: dict, cfg: ArchConfig, x: torch.Tensor,

@@ -5,9 +5,20 @@ One frozen :class:`Policy` names the dtype of every tensor class. Two ship:
 * ``f32``  — everything float32; the numerics reference the parity tests use.
 * ``bf16`` — bfloat16 trunk activations and KV cache; float32 master params.
 
-Under both, the head and the estimator (top-k values, Gumbel perturbations,
-the Algorithm-2 certificate terms) compute in float32: a failed certificate
-must mean the probe missed, never that bf16 rounded the bound.
+What stays float32 under every policy, and why:
+
+* master params and optimizer moments (``param_dtype``): AdamW's update is
+  a ratio of EMAs of tiny numbers that bf16's 8-bit mantissa loses;
+* gradient accumulators (``grad_accum_dtype``): microbatch gradients summed
+  in bf16 would make the sum order-dependent at magnitudes the optimizer
+  cares about;
+* estimator accumulators (``estimator_dtype``): the Algorithm-3 logsumexp
+  partials and the Algorithm-2 certificate terms — a failed certificate
+  must mean the probe missed, never that bf16 rounded the bound.
+
+The only bf16 the head may see is ``score_dtype``: the candidate rows and
+their scores may be bf16 (``"bf16"``); every reduction over them still
+accumulates in float32.
 """
 from __future__ import annotations
 
@@ -22,12 +33,16 @@ __all__ = ["Policy", "F32", "BF16", "get_policy", "POLICIES"]
 class Policy:
     name: str
     compute_dtype: torch.dtype  # trunk activations + KV cache (weights cast at use)
-    param_dtype: torch.dtype = torch.float32  # master params
+    param_dtype: torch.dtype = torch.float32  # master params + optimizer moments
+    grad_accum_dtype: torch.dtype = torch.float32  # microbatch gradient sums
     estimator_dtype: torch.dtype = torch.float32  # Alg-2/3 partials + certificates
+    score_dtype: str = "f32"  # head candidate-gather dtype ("f32" | "bf16")
 
     def __post_init__(self):
         if self.param_dtype != torch.float32:
             raise ValueError("master params must be float32")
+        if self.grad_accum_dtype != torch.float32:
+            raise ValueError("gradient accumulators must be float32")
         if self.estimator_dtype != torch.float32:
             raise ValueError(
                 "estimator accumulators (Alg-3 partials, certificates) must "

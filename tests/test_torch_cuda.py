@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small shapes with the edge cases the serving path can produce (pools
-narrower than k, dead rows, exact ties, probe widths, empty tails, d not a
-multiple of 4, lengths 0, 1 and full). Marked ``cuda``: they skip without
+small shapes with the edge cases the serving and training paths can produce
+(pools narrower than k, dead rows, exact ties, probe widths, empty tails, d
+not a multiple of 4, lengths 0, 1 and full, dead candidate slots, all-dead
+tokens, row segments longer than a backward tile). Marked ``cuda``: they skip without
 an NVIDIA GPU; run them on one with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -10,12 +11,17 @@ an NVIDIA GPU; run them on one with
 machine with the card need not have.)
 
 Tolerances: ids exact; fp32 values rtol=atol=1e-5 (small-integer inputs
-make the fp32 ones exact); flash_decode atol=2e-3.
+make the fp32 ones exact); flash_decode atol=2e-3; fused_estimator and its
+backward on random fp32 data rtol=atol=1e-5 (the kernel and the plain
+version sum the same terms in different orders), NaN where the plain
+version has NaN (an all-dead token).
 """
 import pytest
 import torch
 
-from repro_torch.kernels import decode_fused, flash_decode, ivf_gather_score
+from repro_torch.core import estimators
+from repro_torch.kernels import decode_fused, flash_decode, fused_estimator
+from repro_torch.kernels import ivf_gather_score
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -141,3 +147,94 @@ def test_kernels_reject_bad_inputs(gen):
     with pytest.raises(ValueError, match="lengths"):
         flash_decode.flash_decode(torch.zeros(2, 2, 8, device="cuda"), kv, kv,
                                   torch.ones(1, device="cuda"))
+
+
+def _estimator_inputs(gen, dtype, n=300, d=64, t=6, m=40, all_dead=True):
+    emb = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+    ids = torch.randint(0, n, (t, m), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    h = torch.randn((t, d), generator=gen, device="cuda") * (0.5 / d ** 0.5)
+    log_w = torch.randn((t, m), generator=gen, device="cuda")
+    log_w[0, ::3] = float("-inf")  # dead slots
+    if all_dead:
+        log_w[2] = float("-inf")  # an all-dead token
+    return emb, ids, h, log_w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 2048, 36])
+def test_fused_estimator_kernel(gen, dtype, d):
+    emb, ids, h, log_w = _estimator_inputs(gen, dtype, d=d)
+    log_z, expv = fused_estimator.fused_estimator(emb, ids, h, log_w)
+    want_z, want_v = ref.fused_estimator_ref(emb, ids, h, log_w)
+    torch.testing.assert_close(log_z, want_z, equal_nan=True, **TOL)
+    torch.testing.assert_close(expv, want_v, equal_nan=True, **TOL)
+    assert torch.isneginf(log_z[2]) and torch.isnan(expv[2]).all()
+    assert torch.isfinite(log_z[[0, 1, 3, 4, 5]]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,t,m", [(300, 64, 6, 40), (3, 2048, 8, 100),
+                                     (1000, 36, 5, 17)])
+def test_fused_estimator_bwd_kernel(gen, dtype, n, d, t, m):
+    """n=3 with 800 candidates gives row segments of ~266 entries, past one
+    256-entry tile; n=1000 leaves most rows untouched (exact zeros)."""
+    emb, ids, h, log_w = _estimator_inputs(gen, dtype, n=n, d=d, t=t, m=m,
+                                           all_dead=n > 3)
+    log_z, _ = ref.fused_estimator_ref(emb, ids, h, log_w)
+    g = torch.randn((t,), generator=gen, device="cuda")
+    d_emb, p = fused_estimator.fused_estimator_bwd(emb, ids, h, log_w, log_z,
+                                                   g)
+    want_d, want_p = ref.fused_estimator_bwd_ref(emb, ids, h, log_w, log_z, g)
+    torch.testing.assert_close(p, want_p, equal_nan=True, **TOL)
+    torch.testing.assert_close(d_emb, want_d, equal_nan=True, **TOL)
+    touched = torch.zeros(n, dtype=torch.bool, device="cuda")
+    touched[ids.long().reshape(-1)] = True
+    assert torch.equal(d_emb[~touched], torch.zeros_like(d_emb[~touched]))
+    # deterministic: no float atomics, so a second run is bitwise the first
+    d2, p2 = fused_estimator.fused_estimator_bwd(emb, ids, h, log_w, log_z, g)
+    assert torch.equal(d_emb.nan_to_num(7.0), d2.nan_to_num(7.0))
+    assert torch.equal(p.nan_to_num(7.0), p2.nan_to_num(7.0))
+
+
+def test_fused_estimator_rejects_bad_inputs(gen):
+    emb, ids, h, log_w = _estimator_inputs(gen, torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_estimator.fused_estimator(emb.half(), ids, h, log_w)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_estimator.fused_estimator(emb.cpu(), ids, h, log_w)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_estimator.fused_estimator(emb[:, :30], ids, h[:, :30], log_w)
+    with pytest.raises(ValueError, match="do not fit"):
+        fused_estimator.fused_estimator(emb, ids, h[:3], log_w)
+    log_z = torch.zeros(ids.shape[0], device="cuda")
+    with pytest.raises(ValueError, match="must be"):
+        fused_estimator.fused_estimator_bwd(emb, ids, h, log_w, log_z[:2],
+                                            log_z)
+
+
+def test_stratified_logz_kernel_path_equals_plain_path(gen):
+    """The autograd Function over both kernels against the gather +
+    logsumexp formulation on the card: value and gradients w.r.t. emb and
+    h. On CUDA tensors ``stratified_logz`` takes the kernels whatever
+    ``use_kernel`` says: ``fused_estimator`` and ``fused_estimator_bwd``
+    launch once per call and backward either way."""
+    emb, ids, h, log_w = _estimator_inputs(gen, torch.float32, all_dead=False)
+    g = torch.randn((ids.shape[0],), generator=gen, device="cuda")
+    te = emb.clone().requires_grad_(True)
+    th = h.clone().requires_grad_(True)
+    y = torch.einsum("tmd,td->tm", te[ids.long()], th)
+    lz = torch.logsumexp(y + log_w, dim=1)
+    (lz * g).sum().backward()
+    want = [lz.detach(), te.grad, th.grad]
+    for use_kernel in (False, True):
+        te = emb.clone().requires_grad_(True)
+        th = h.clone().requires_grad_(True)
+        ops.reset_launch_counts()
+        lz = estimators.stratified_logz(te, th, ids.long(), log_w,
+                                        use_kernel=use_kernel)
+        (lz * g).sum().backward()
+        assert ops.launch_counts()["fused_estimator"] == 1
+        assert ops.launch_counts()["fused_estimator_bwd"] == 1
+        for a, b in zip(want, [lz.detach(), te.grad, th.grad]):
+            torch.testing.assert_close(b, a, **TOL)

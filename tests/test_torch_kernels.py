@@ -181,7 +181,8 @@ def test_ops_dispatch_cpu_uses_plain_versions_and_counts_no_launch():
                                                  torch.tensor([2, 5])))
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
     assert set(ops.KERNELS) == {"flash_decode", "ivf_gather_score",
-                                "ivf_screen_select", "tail_gather_argmax"}
+                                "ivf_screen_select", "tail_gather_argmax",
+                                "fused_estimator", "fused_estimator_bwd"}
 
 
 def test_ops_rejects_devices_without_a_kernel_or_plain_version():
