@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA
 GPU: builds the CUDA kernels from ``src/repro_torch/csrc``, holds each one
-against its plain PyTorch version at the shapes of the path that runs it,
-then
+against its plain PyTorch version at the shapes of the paths that run it,
+then, for each head index (IVF, then IVF-PQ)
 
 * serves a full-width tinyllama-1.1b (random weights from ``--seed``) with
-  the fused IVF head and again with the unfused kernel probe at decode
-  window 1, and checks that both give the same tokens;
+  the fused head and again with the unfused kernel probe at decode window
+  1, over one shared index, and checks that both give the same tokens;
 * trains the full-width tinyllama-1.1b for 6 steps (bf16 trunk, fp32
-  masters, amortized IVF head on the kernels, index refresh every 3 steps,
-  a checkpoint at step 3), checks a finite and falling loss, and resumes
+  masters, amortized head on the kernels, index refresh every 3 steps, a
+  checkpoint at step 3), checks a finite and falling loss, and resumes
   from the step-3 checkpoint to check that the resumed steps match;
-* runs six more steps with each top-k probe (IVF, exact) reading the
-  amortized loss beside the exact NLL, and profiles one training step.
+
+then runs six more steps with each top-k probe (exact, IVF, IVF-PQ)
+reading the amortized loss beside the exact NLL, and profiles one training
+step.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -23,6 +25,10 @@ phase exits non-zero before the last line. Without CUDA, or without the
 repository beside it, the script exits non-zero and prints no result.
 
 Tolerances: ids and indices exact; fp32 values rtol=1e-5, atol=1e-5;
+on small-integer inputs the IVF and IVF-PQ kernels' values bit for bit;
+rerank_select on random fp32 rows rtol=1e-5 and an atol of 1e-5 times
+the largest magnitude (2048-term dot products summed in different orders:
+a score that cancels to near 0 keeps the rounding of its terms);
 flash_decode (bf16 inputs, fp32 output) atol=2e-3; fused_estimator and its
 backward at training shapes rtol=1e-4 and an atol of 1e-5 times the largest
 magnitude of the tensor compared (2048-term dot products and sums of up to
@@ -79,6 +85,9 @@ TPU_KERNEL = {
     "fused_estimator": "src/repro/kernels/fused_estimator.py:76",
     # the backward of fused_estimator's custom VJP (_fused_logz_bwd)
     "fused_estimator_bwd": "src/repro/core/estimators.py:229",
+    "pq_lut_score": "src/repro/kernels/pq_lut_score.py:74",
+    "pq_screen_select": "src/repro/kernels/decode_fused.py:299",
+    "rerank_select": "src/repro/kernels/decode_fused.py:389",
 }
 SOURCE = {
     "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
@@ -87,7 +96,11 @@ SOURCE = {
     "tail_gather_argmax": "src/repro_torch/csrc/decode_fused.cu",
     "fused_estimator": "src/repro_torch/csrc/fused_estimator.cu",
     "fused_estimator_bwd": "src/repro_torch/csrc/fused_estimator.cu",
+    "pq_lut_score": "src/repro_torch/csrc/pq_lut_score.cu",
+    "pq_screen_select": "src/repro_torch/csrc/decode_fused.cu",
+    "rerank_select": "src/repro_torch/csrc/decode_fused.cu",
 }
+MIPS = ("ivf", "ivfpq")  # the head indexes served and trained
 
 
 class Failed(RuntimeError):
@@ -183,50 +196,24 @@ class Geometry:
     n_probe: int
     k: int
     m_cap: int
+    m_sub: int  # IVF-PQ: subspaces, codewords, re-rank pool
+    ksub: int
+    r: int
 
 
 def geometry(cfg, scfg) -> Geometry:
     from repro_torch.core.gumbel import default_m_cap
     from repro_torch.core.mips.ivf import IVFConfig, _geometry
+    from repro_torch.core.mips.pq import PQConfig
     from repro_torch.models.model import head_config
 
     hc = head_config(cfg)
     n_c, cap, o_cap = _geometry(cfg.vocab, IVFConfig(n_probe=hc.n_probe))
+    pq = PQConfig()
     return Geometry(scfg.batch_slots, scfg.max_seq, cfg.n_heads,
                     cfg.n_kv_heads, cfg.head_dim, cfg.vocab, cfg.d_model,
-                    n_c, cap, o_cap, hc.n_probe, hc.k, default_m_cap(hc.l))
-
-
-def unported_bounds(g: Geometry) -> dict:
-    """Least times of the IVF-PQ kernels still to port (Pallas kernels 4, 6
-    and 7), from the shapes alone: tinyllama-1.1b's IVF geometry with the
-    reference's PQConfig defaults (8 subspaces of 256 codewords, uint8
-    codes, re-rank pool r = 2k), at the serving path's query count. Each
-    input byte read once, each output byte written once; probed cluster
-    tiles counted as distinct across queries."""
-    m_sub, ksub, r = 8, 256, 2 * g.k
-    b = g.slots
-    pool = b * g.n_probe * g.cap
-    codes = pool * m_sub  # uint8 codes of the probed tiles
-    lut = b * m_sub * ksub * 4
-    adds = float(pool * m_sub)  # Σ_m lut[m, code_m] per member
-    out = {
-        # codes, LUT and probe in; (b, np, cap) f32 scores out
-        "pq_lut_score": bound_ms(codes + lut + b * g.n_probe * 4 + pool * 4,
-                                 adds, FP32_FLOPS),
-        # + member ids, coarse scores, overflow scores and ids in; the top-r
-        # (values, ids) out
-        "pq_screen_select": bound_ms(
-            codes + lut + pool * 4 + 2 * b * g.n_probe * 4 + b * g.o_cap * 4
-            + g.o_cap * 4 + b * r * 8, adds, FP32_FLOPS),
-        # r fp32 rows of d per query, candidates, their LUT values and q in;
-        # the top-k (values, ids) out
-        "rerank_select": bound_ms(b * r * g.d * 4 + b * r * 8 + b * g.d * 4
-                                  + b * g.k * 8, 2.0 * b * r * g.d,
-                                  FP32_FLOPS),
-    }
-    return {k: {"bound_ms": v[0], "bound_by": v[1], "queries": b}
-            for k, v in out.items()}
+                    n_c, cap, o_cap, hc.n_probe, hc.k, default_m_cap(hc.l),
+                    pq.m_sub, pq.ksub, 2 * max(8, hc.k))
 
 
 def int_valued(torch, gen, shape, lo=-2, hi=3):
@@ -493,17 +480,227 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
           f"({b_by})", flush=True)
 
 
+def pq_inputs(torch, gen, g: Geometry, b: int, ints: bool):
+    """IVF-PQ screen inputs at the index geometry for ``b`` queries: uint8
+    codes, member ids as dense as the real index's (dead slots -1), probes,
+    LUTs, coarse scores, and an overflow half dead. Small integers when
+    ``ints`` (every sum exact), else random fp32."""
+    codes = torch.randint(0, g.ksub, (g.n_c, g.cap, g.m_sub), generator=gen,
+                          device="cuda", dtype=torch.int32).to(torch.uint8)
+    fill = torch.rand((g.n_c, g.cap), generator=gen, device="cuda")
+    mids = torch.randint(0, g.n, (g.n_c, g.cap), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    mids = torch.where(fill < g.n / (g.n_c * g.cap), mids,
+                       torch.full_like(mids, -1))
+    probe = torch.stack([torch.randperm(g.n_c, generator=gen,
+                                        device="cuda")[: g.n_probe]
+                         for _ in range(b)]).int()
+    o_ids = torch.randint(0, g.n, (g.o_cap,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    o_ids[torch.rand((g.o_cap,), generator=gen, device="cuda") < 0.5] = -1
+    if ints:
+        lut = int_valued(torch, gen, (b, g.m_sub, g.ksub), -3, 4)
+        coarse = int_valued(torch, gen, (b, g.n_probe), -8, 9)
+        o_sc = int_valued(torch, gen, (b, g.o_cap), -40, 40)
+    else:
+        lut = torch.randn((b, g.m_sub, g.ksub), generator=gen, device="cuda")
+        coarse = torch.randn((b, g.n_probe), generator=gen, device="cuda") * 2
+        o_sc = torch.randn((b, g.o_cap), generator=gen, device="cuda") * 3
+    return codes, mids, coarse, o_sc, o_ids, probe, lut
+
+
+def values_close(torch, got, want, scaled: bool = False) -> bool:
+    """-inf at the same places, the finite values within rtol=1e-5 and an
+    atol of 1e-5 — or, ``scaled``, of 1e-5 times the largest finite
+    magnitude of ``want`` (for d-term dot products, whose rounding error
+    scales with the terms, not with a sum that may cancel to ~0)."""
+    fin = want[torch.isfinite(want)]
+    atol = 1e-5 * (fin.abs().max().item() if scaled and fin.numel() else 1.0)
+    return (torch.equal(torch.isneginf(got), torch.isneginf(want))
+            and torch.allclose(got.nan_to_num(neginf=0.0),
+                               want.nan_to_num(neginf=0.0), rtol=1e-5,
+                               atol=atol))
+
+
+def max_err(got, want) -> float:
+    return (got - want).abs().nan_to_num(0.0).max().item()
+
+
+def pq_kernel_checks(torch, g: Geometry, timer: Timer,
+                     records: list[dict]) -> None:
+    """The IVF-PQ kernels at the serving path's 4 queries (their records)
+    and at the training probe's 256 (extra keys ``train_*``), with the
+    reference's PQConfig defaults and r = 2k: ``pq_lut_score`` and
+    ``pq_screen_select`` over random codes at the index geometry, bitwise
+    on small-integer LUTs and within rtol 1e-5 on random ones, probe widths
+    below n_probe (0 included) and an all-dead query; ``rerank_select``
+    over the screen's survivors against a 32000 x 2048 table of small
+    integers (and one of random fp32 for the second check)."""
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import pq_lut_score as kpls
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    emb = int_valued(torch, gen, (g.n, g.d))
+    emb_rand = torch.randn((g.n, g.d), generator=gen, device="cuda")
+    for b in (g.slots, HEAD_CHUNK):
+        tag = "" if b == g.slots else "train_"
+        ints = pq_inputs(torch, gen, g, b, True)
+        rand = pq_inputs(torch, gen, g, b, False)
+        codes, mids, coarse, o_sc, o_ids, probe, lut = ints
+        width = torch.full((b,), g.n_probe, dtype=torch.int32, device="cuda")
+        width[1], width[2] = 3, 0  # a narrower probe, and overflow alone
+
+        # ---- pq_lut_score
+        got = kpls.pq_lut_score(codes, probe, lut)
+        want = ref.pq_lut_score_ref(codes, probe, lut)
+        got_r = kpls.pq_lut_score(rand[0], rand[5], rand[6])
+        want_r = ref.pq_lut_score_ref(rand[0], rand[5], rand[6])
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"pq_lut_score b={b}: small-integer "
+              "sums differ from the plain version")
+        check(values_close(torch, got_r, want_r),
+              f"pq_lut_score b={b} disagrees on random LUTs: "
+              f"{max_err(got_r, want_r)}")
+        uniq = torch.unique(probe)
+        pool = b * g.n_probe * g.cap
+        # codes of the distinct probed tiles, probe and LUTs in; the
+        # (b, np, cap) f32 sums out; m_sub adds per member
+        rec = {"max_abs_err": max_err(got_r, want_r),
+               "ms": timer(lambda: kpls.pq_lut_score(codes, probe, lut)),
+               "plain_ms": timer(lambda: ref.pq_lut_score_ref(codes, probe,
+                                                               lut)),
+               "nb": uniq.numel() * g.cap * g.m_sub + nbytes(probe, lut)
+               + pool * 4,
+               "flops": float(pool * g.m_sub),
+               "bitwise_random": torch.equal(got_r, want_r)}
+        pq_record(records, "pq_lut_score", tag, b, rec)
+
+        # ---- pq_screen_select, probe widths (0 included)
+        sargs = (codes, mids, coarse, o_sc, o_ids, probe, lut)
+        got_v, got_i = kdf.pq_screen_select(*sargs, r=g.r, probe_width=width)
+        want_v, want_i = ref.pq_screen_select_ref(*sargs, g.r,
+                                                  probe_width=width)
+        rv, ri = kdf.pq_screen_select(*rand, r=g.r)
+        wrv, wri = ref.pq_screen_select_ref(*rand, g.r)
+        # the fused screen == pq_lut_score + coarse + pool top-r, bit for bit
+        s2 = (kpls.pq_lut_score(rand[0], rand[5], rand[6])
+              + rand[2][..., None]).reshape(b, -1)
+        pool_i = torch.cat([rand[1][rand[5].long()].reshape(b, -1),
+                            rand[4][None].expand(b, -1)], 1)
+        pool_s = torch.where(pool_i >= 0, torch.cat([s2, rand[3]], 1),
+                             float("-inf"))
+        v3, i3 = ref.topk_select_ref(pool_s, pool_i, g.r)
+        # an all-dead query: no probe stage and no live overflow
+        dead_ids = torch.full_like(o_ids, -1)
+        dargs = (codes, mids, coarse, o_sc, dead_ids, probe, lut)
+        dv, di = kdf.pq_screen_select(*dargs, r=g.r, probe_width=width)
+        wdv, wdi = ref.pq_screen_select_ref(*dargs, g.r, probe_width=width)
+        torch.cuda.synchronize()
+        check(torch.equal(got_i, want_i) and torch.equal(got_v, want_v),
+              f"pq_screen_select b={b}: small-integer screen differs")
+        check(values_close(torch, rv, wrv),
+              f"pq_screen_select b={b} disagrees on random LUTs: "
+              f"{max_err(rv, wrv)}")
+        check(torch.equal(rv, v3) and torch.equal(ri, i3),
+              f"pq_screen_select b={b} != pq_lut_score + top-r")
+        check(torch.equal(di, wdi) and torch.equal(dv, wdv)
+              and bool((di[2] == -1).all()),
+              f"pq_screen_select b={b}: the all-dead query differs")
+        live = (mids[probe.long()] >= 0) & (
+            torch.arange(g.n_probe, device="cuda")[None, :, None]
+            < width[:, None, None])
+        live_slots = torch.unique(
+            (probe.long()[:, :, None] * g.cap
+             + torch.arange(g.cap, device="cuda")[None, None, :])[live])
+        tiles = torch.unique(probe[torch.arange(g.n_probe, device="cuda")[None]
+                                   < width[:, None]])
+        # ids of the probed tiles, codes of their live members, LUTs,
+        # coarse, probe, widths, overflow pair in; top-r (values, ids) out
+        rec = {"max_abs_err": max_err(rv, wrv),
+               "ms": timer(lambda: kdf.pq_screen_select(
+                   *sargs, r=g.r, probe_width=width)),
+               "plain_ms": timer(lambda: ref.pq_screen_select_ref(
+                   *sargs, g.r, probe_width=width)),
+               "nb": tiles.numel() * g.cap * 4 + live_slots.numel() * g.m_sub
+               + nbytes(lut, coarse, probe, width, o_sc, o_ids) + b * g.r * 8,
+               "flops": float(int(live.sum().item()) * (g.m_sub + 1)),
+               "bitwise_random": torch.equal(rv, wrv)}
+        pq_record(records, "pq_screen_select", tag, b, rec)
+
+        # ---- rerank_select over the screen's survivors, some dead
+        cand, lut_vals = got_i, got_v.clone()
+        lut_vals[:, 5::17] = float("-inf")  # dead screening values
+        q = int_valued(torch, gen, (b, g.d))
+        rargs = (emb, cand, lut_vals, q)
+        got_v, got_i = kdf.rerank_select(*rargs, k=g.k)
+        want_v, want_i = ref.rerank_select_ref(*rargs, g.k)
+        qr = torch.randn((b, g.d), generator=gen, device="cuda")
+        rv, ri = kdf.rerank_select(emb_rand, cand, lut_vals, qr, k=g.k)
+        wrv, wri = ref.rerank_select_ref(emb_rand, cand, lut_vals, qr, g.k)
+        torch.cuda.synchronize()
+        check(torch.equal(got_i, want_i) and torch.equal(got_v, want_v),
+              f"rerank_select b={b}: small-integer re-rank differs")
+        check(values_close(torch, rv, wrv, scaled=True),
+              f"rerank_select b={b} disagrees on random rows: "
+              f"{max_err(rv, wrv)}")
+        alive = (cand >= 0) & ~torch.isneginf(lut_vals)
+        rows = torch.unique(cand[alive]).numel()
+        # each distinct live survivor row once, candidates, screening values
+        # and q in; the top-k (values, ids) out; a 2d dot per live survivor
+        rec = {"max_abs_err": max_err(rv, wrv),
+               "ms": timer(lambda: kdf.rerank_select(*rargs, k=g.k)),
+               "plain_ms": timer(lambda: ref.rerank_select_ref(*rargs, g.k)),
+               "nb": rows * g.d * 4 + nbytes(cand, lut_vals, q) + b * g.k * 8,
+               "flops": 2.0 * g.d * int(alive.sum().item()),
+               "bitwise_random": torch.equal(rv, wrv)}
+        pq_record(records, "rerank_select", tag, b, rec)
+    del emb, emb_rand
+
+
+def pq_record(records: list[dict], name: str, tag: str, b: int,
+              rec: dict) -> None:
+    """A PQ kernel's record at the serving shape (``tag`` "") or its
+    ``train_*`` keys at the training probe's (``tag`` "train_")."""
+    if not tag:
+        out = make_record(name, rec["max_abs_err"], rec["ms"],
+                          rec["plain_ms"], None, rec["nb"], rec["flops"],
+                          FP32_FLOPS)
+        out.update(queries=b, bitwise_random=rec["bitwise_random"])
+        records.append(out)
+        return
+    b_ms, b_by = bound_ms(rec["nb"], rec["flops"], FP32_FLOPS)
+    out = next(x for x in records if x["name"] == name)
+    out.update(train_queries=b, train_ms=rec["ms"],
+               train_plain_ms=rec["plain_ms"], train_bound_ms=b_ms,
+               train_bound_by=b_by, train_max_abs_err=rec["max_abs_err"],
+               train_bitwise_random=rec["bitwise_random"])
+    print(f"[kernel] {name} b={b}: ok max_abs_err={rec['max_abs_err']:.3g} "
+          f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+
+
 # ---------------------------------------------------------------- serving
-def serve(torch, seed: int, cfg, scfg_kw):
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import report
+# the kernels each serving path must launch, by head index
+FUSED_KERNELS = {
+    "ivf": ("flash_decode", "ivf_screen_select", "tail_gather_argmax"),
+    "ivfpq": ("flash_decode", "pq_screen_select", "rerank_select",
+              "tail_gather_argmax"),
+}
+UNFUSED_KERNELS = {"ivf": ("ivf_gather_score",),
+                   "ivfpq": ("pq_lut_score", "rerank_select")}
+
+
+def serve(torch, seed: int, cfg, scfg_kw) -> tuple[dict, dict]:
+    """The serving phase: one set of weights, served with each head index
+    (:func:`serve_one`). Returns (launch counts: each kernel's count on the
+    first run that launches it, the fused one first; per-index stats)."""
     from repro_torch.models.model import Model
-    from repro_torch.serve.server import ServeConfig, Server
 
     import numpy as np
 
-    fused_cfg = cfg.scaled(head_mips="ivf", head_fused_decode=True)
-    model = Model(fused_cfg, "bf16", device="cuda")
+    model = Model(cfg, "bf16", device="cuda")
     t0 = time.perf_counter()
     params = model.init(seed)
     torch.cuda.synchronize()
@@ -511,32 +708,57 @@ def serve(torch, seed: int, cfg, scfg_kw):
     rng = np.random.default_rng(seed)
     prompts = [list(rng.integers(0, cfg.vocab, size=rng.integers(4, 13)))
                for _ in range(REQUESTS)]
+    counts, stats = {}, {}
+    for mips in MIPS:
+        runs, stats[mips] = serve_one(torch, cfg, mips, params, prompts,
+                                      scfg_kw)
+        for run in runs:
+            for name, n in run.items():
+                if n and name not in counts:
+                    counts[name] = n
+        torch.cuda.empty_cache()
+    print("[serve] index_mb " + json.dumps(
+        {m: stats[m]["index_mb"] for m in MIPS}), flush=True)
+    return counts, stats
 
+
+def serve_one(torch, cfg, mips: str, params, prompts, scfg_kw):
+    """Serve ``prompts`` with the ``mips`` head fused at window T=8, then
+    unfused at T=1 over the same index, and require the same tokens.
+    Returns ((fused counts, unfused counts), stats)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import report
+    from repro_torch.serve.server import ServeConfig, Server
+
+    mcfg = cfg.scaled(head_mips=mips)
     t0 = time.perf_counter()
-    srv = Server(fused_cfg, params,
+    srv = Server(mcfg.scaled(head_fused_decode=True), params,
                  ServeConfig(decode_window=WINDOW, **scfg_kw),
                  precision_policy="bf16", device="cuda")
     torch.cuda.synchronize()
-    print(f"[serve] index build {time.perf_counter() - t0:.2f} s "
+    print(f"[serve] {mips} index build {time.perf_counter() - t0:.2f} s "
           f"({srv.stats['index_bytes'] / 1e6:.1f} MB)", flush=True)
     ops.reset_launch_counts()
     res = srv.run(prompts)
     torch.cuda.synchronize()
     fused_counts = ops.launch_counts()
     rep = report(res, srv)
-    print("[serve] fused T=%d %s" % (WINDOW, json.dumps(rep)), flush=True)
+    print("[serve] %s fused T=%d %s" % (mips, WINDOW, json.dumps(rep)),
+          flush=True)
     print(f"[serve] launches {json.dumps(fused_counts)}", flush=True)
     check(len(res) == len(prompts)
           and all(r.status == "ok" and len(r.tokens) == scfg_kw["max_new_tokens"]
-                  for r in res), "fused serve: a request lost its tokens")
+                  for r in res), f"{mips} fused serve: a request lost tokens")
     check(all(0 <= tok < cfg.vocab for r in res for tok in r.tokens),
-          "fused serve: a token id out of range")
-    for name in ("flash_decode", "ivf_screen_select", "tail_gather_argmax"):
-        check(fused_counts[name] > 0, f"fused serve never launched {name}")
+          f"{mips} fused serve: a token id out of range")
+    check(rep["ok_rate"] >= 0.95,
+          f"{mips} fused serve: ok_rate {rep['ok_rate']}")
+    for name in FUSED_KERNELS[mips]:
+        check(fused_counts[name] > 0, f"{mips} fused serve never launched "
+              f"{name}")
 
     # same weights and the same index state, unfused kernel probe, T=1
-    srv1 = Server(cfg.scaled(head_mips="ivf"), params,
-                  ServeConfig(decode_window=1, **scfg_kw),
+    srv1 = Server(mcfg, params, ServeConfig(decode_window=1, **scfg_kw),
                   precision_policy="bf16", device="cuda", index=srv.index)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -544,21 +766,24 @@ def serve(torch, seed: int, cfg, scfg_kw):
     torch.cuda.synchronize()
     unfused_counts = ops.launch_counts()
     rep1 = report(res1, srv1)
-    print("[serve] unfused T=1 %s" % json.dumps(rep1), flush=True)
+    print("[serve] %s unfused T=1 %s" % (mips, json.dumps(rep1)), flush=True)
     print(f"[serve] launches {json.dumps(unfused_counts)}", flush=True)
-    check(unfused_counts["ivf_gather_score"] > 0,
-          "unfused serve never launched ivf_gather_score")
+    for name in UNFUSED_KERNELS[mips]:
+        check(unfused_counts[name] > 0, f"{mips} unfused serve never "
+              f"launched {name}")
     same = [a.tokens == b.tokens for a, b in zip(res, res1)]
-    print(f"[serve] fused T={WINDOW} == unfused T=1 tokens: "
+    print(f"[serve] {mips} fused T={WINDOW} == unfused T=1 tokens: "
           f"{sum(same)}/{len(same)} requests", flush=True)
-    check(all(same), "fused T=8 and unfused T=1 served different tokens")
-    counts = dict(fused_counts)
-    counts["ivf_gather_score"] = unfused_counts["ivf_gather_score"]
-    steps = {"fused_decode_steps": rep["decode_dispatches"] * WINDOW,
-             "unfused_decode_steps": rep1["decode_dispatches"]}
-    profile(torch, "serve fused T=8",
+    check(all(same), f"{mips}: fused T=8 and unfused T=1 served different "
+          "tokens")
+    stats = {"fused_decode_steps": rep["decode_dispatches"] * WINDOW,
+             "unfused_decode_steps": rep1["decode_dispatches"],
+             "index_mb": rep["index_mb"],
+             "fused_tokens_per_s": rep["tokens_per_s"],
+             "unfused_tokens_per_s": rep1["tokens_per_s"]}
+    profile(torch, f"serve {mips} fused T=8",
             lambda: sum(len(r.tokens) for r in srv.run(prompts[:SLOTS])))
-    return counts, steps
+    return (fused_counts, unfused_counts), stats
 
 
 def profile(torch, label: str, fn) -> None:
@@ -606,14 +831,23 @@ def train_config(seed: int):
                                        precision="bf16"))
 
 
-def train(torch, seed: int, cfg) -> tuple[dict, dict]:
-    """The training phase: 6 full-width steps through ``Trainer`` with the
-    amortized IVF head on the kernels, then a resume from the step-3
-    checkpoint. Returns (launch counts of the 6-step run, stats)."""
+# the kernels each training path must launch, by head index
+TRAIN_KERNELS = {
+    "ivf": ("fused_estimator", "fused_estimator_bwd", "ivf_gather_score"),
+    "ivfpq": ("fused_estimator", "fused_estimator_bwd", "pq_lut_score",
+              "rerank_select"),
+}
+
+
+def train(torch, seed: int, cfg, mips: str) -> tuple[dict, dict]:
+    """The training phase of one head index: 6 full-width steps through
+    ``Trainer`` with the amortized head on the kernels, then a resume from
+    the step-3 checkpoint. Returns (launch counts of the 6-step run,
+    stats)."""
     from repro_torch.kernels import ops
     from repro_torch.train.trainer import Trainer
 
-    tcfg = cfg.scaled(head_mips="ivf")
+    tcfg = cfg.scaled(head_mips=mips)
     workdir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
@@ -626,7 +860,7 @@ def train(torch, seed: int, cfg) -> tuple[dict, dict]:
     counts = ops.launch_counts()
     log = tr.metrics_log
     for e in log:
-        print(f"[train] step {e['step']} loss={e['loss']:.5f} "
+        print(f"[train] {mips} step {e['step']} loss={e['loss']:.5f} "
               f"nll={e['nll']:.5f} log_z={e['log_z']:.4f} "
               f"grad_norm={e['grad_norm']:.4f} dt={e['dt'] * 1e3:.1f} ms",
               flush=True)
@@ -640,18 +874,18 @@ def train(torch, seed: int, cfg) -> tuple[dict, dict]:
              "run_wall_s": wall, "index_refreshes": tr.index_refreshes,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
              "index_mb": tr.head_index.memory_bytes() / 1e6}
-    print(f"[train] {json.dumps(stats)}", flush=True)
+    print(f"[train] {mips} {json.dumps(stats)}", flush=True)
     print(f"[train] launches {json.dumps(counts)}", flush=True)
     check(res["status"] == "done" and len(losses) == TRAIN_STEPS,
-          "train: the run did not take its 6 steps")
-    check(all(math.isfinite(x) for x in losses), "train: a non-finite loss")
+          f"train {mips}: the run did not take its 6 steps")
+    check(all(math.isfinite(x) for x in losses),
+          f"train {mips}: a non-finite loss")
     check(losses[-1] < losses[0],
-          f"train: loss did not fall ({losses[0]} -> {losses[-1]})")
+          f"train {mips}: loss did not fall ({losses[0]} -> {losses[-1]})")
     check(tr.index_refreshes == TRAIN_STEPS // TRAIN_EVERY,
-          "train: the head index was not refreshed every 3 steps")
-    for name in ("fused_estimator", "fused_estimator_bwd",
-                 "ivf_gather_score"):
-        check(counts[name] > 0, f"train never launched {name}")
+          f"train {mips}: the head index was not refreshed every 3 steps")
+    for name in TRAIN_KERNELS[mips]:
+        check(counts[name] > 0, f"train {mips} never launched {name}")
     del tr
     torch.cuda.empty_cache()
 
@@ -664,11 +898,12 @@ def train(torch, seed: int, cfg) -> tuple[dict, dict]:
     resumed = [e["loss"] for e in tr2.metrics_log]
     want = losses[TRAIN_EVERY:]
     rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
-    print(f"[train] resume from step {TRAIN_EVERY}: losses {resumed} vs "
+    print(f"[train] {mips} resume from step {TRAIN_EVERY}: losses {resumed} vs "
           f"{want}, max rel diff {rel:.3g}, bitwise {resumed == want}, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(len(resumed) == len(want) and rel <= RESUME_RTOL,
-          "train: the resumed run does not match the uninterrupted one")
+          f"train {mips}: the resumed run does not match the uninterrupted "
+          "one")
     del tr2
     shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -678,12 +913,12 @@ def train(torch, seed: int, cfg) -> tuple[dict, dict]:
 
 def probe_diagnostics(torch, seed: int, cfg) -> dict:
     """Six full-width steps outside the trainer for each top-k probe of the
-    amortized head (the IVF index, refreshed every 3 steps as the trainer
-    does, and the exact dense probe), reading before each update both the
-    amortized loss the step optimizes and the exact NLL of the same batch
-    (a dense logsumexp over all 32000 rows); then torch.profiler over one
-    more step of the IVF run. Returns {probe: {"amortized": [...], "exact":
-    [...]}}."""
+    amortized head (the exact dense probe, and the IVF and IVF-PQ indexes,
+    built and refreshed every 3 steps over a copy of the rows as the
+    trainer does), reading before each update both the amortized loss the
+    step optimizes and the exact NLL of the same batch (a dense logsumexp
+    over all 32000 rows); then torch.profiler over one more step of the IVF
+    run. Returns {probe: {"amortized": [...], "exact": [...]}}."""
     import numpy as np
 
     from repro_torch.core import amortized_head as ah
@@ -696,13 +931,14 @@ def probe_diagnostics(torch, seed: int, cfg) -> dict:
     run = train_config(seed)
     dcfg = DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed)
     out = {}
-    for mips in ("exact", "ivf"):
+    for mips in ("exact",) + MIPS:
         tcfg = cfg.scaled(head_mips=mips)
         model = Model(tcfg, "bf16", device="cuda")
         exact_head = dataclasses.replace(model.head_cfg, mode="exact")
         params = model.init(seed)
         opt = adamw.init(params)
-        index = model.make_head_index(params)
+        index = model.make_head_index(
+            params, db=model.head_index_db(params).clone())
         step = make_train_step(model, run.train)
         amortized, exact = [], []
 
@@ -725,7 +961,7 @@ def probe_diagnostics(torch, seed: int, cfg) -> dict:
         for i in range(TRAIN_STEPS):
             one(i)
             if index is not None and (i + 1) % TRAIN_EVERY == 0:
-                index = index.refresh(model.head_index_db(params))
+                index = index.refresh(model.head_index_db(params).clone())
         gap = max(abs(a - e) for a, e in zip(amortized, exact))
         print(f"[train] probe={mips}: amortized loss {amortized}, exact NLL "
               f"{exact}, max gap {gap:.4g}", flush=True)
@@ -779,34 +1015,44 @@ def main() -> int:
                    max_new_tokens=NEW_TOKENS, seed=args.seed)
     g = geometry(cfg, ServeConfig(**scfg_kw))
     print(f"[setup] geometry {json.dumps(dataclasses.asdict(g))}", flush=True)
-    print(f"[bounds] still to port: {json.dumps(unported_bounds(g))}",
-          flush=True)
     timer = Timer(torch, ITERS)
     records = kernel_checks(torch, g, timer)
     torch.cuda.empty_cache()
     train_kernel_checks(torch, g, timer, records)
+    torch.cuda.empty_cache()
+    pq_kernel_checks(torch, g, timer, records)
     del timer
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    counts, steps = serve(torch, args.seed, cfg, scfg_kw)
-    print(f"[serve] {json.dumps(steps)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    counts, serve_stats = serve(torch, args.seed, cfg, scfg_kw)
+    print(f"[serve] {json.dumps(serve_stats)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    train_counts, _ = train(torch, args.seed, cfg)
+    train_counts = {}
+    for mips in MIPS:
+        run_counts, _ = train(torch, args.seed, cfg, mips)
+        for name in TRAIN_KERNELS[mips]:
+            train_counts.setdefault(name, run_counts[name])
     probe_diagnostics(torch, args.seed, cfg)
     print(f"[train] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     # launches: each path's count, read just after its own run — serving
-    # (fused T=8 run; ivf_gather_score from the unfused T=1 run) and the
-    # 6-step training run; "launches" is the count on the newest path that
-    # runs the kernel (training where it ran there, else serving)
+    # (each kernel's count on the first serving run that launches it, the
+    # fused run before the unfused one, IVF before IVF-PQ) and the 6-step
+    # training runs (IVF, then IVF-PQ for the PQ kernels); "launches" is
+    # the count on the newest path that runs the kernel (training where it
+    # ran there, else serving)
     for rec in records:
         serve_n = counts.get(rec["name"], 0)
-        train_n = train_counts[rec["name"]]
+        train_n = train_counts.get(rec["name"], 0)
         rec.update(launches=train_n or serve_n, launches_serve=serve_n,
                    launches_train=train_n)
+    check(len(records) == len(TPU_KERNEL)
+          and all(r["launches"] > 0 for r in records),
+          "a kernel was never launched on its path: "
+          + json.dumps({r["name"]: r["launches"] for r in records}))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Carry weights and index state across from the JAX package.
 
-The port's parameters and IVF state keep the reference's structure, so
+The port's parameters and index states keep the reference's structure, so
 conversion is a structural copy of numpy arrays (what ``jax.device_get``
 returns) into tensors: the converted objects compute the same function as
 their JAX source. This module imports neither ``jax`` nor ``repro``.
@@ -13,11 +13,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.mips.ivf import IVFState
+from repro_torch.core.mips.pq import PQState
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 
 __all__ = ["tree_from_numpy", "params_from_jax", "opt_state_from_jax",
-           "ivf_state_from_jax"]
+           "ivf_state_from_jax", "pq_state_from_jax"]
 
 
 def tree_from_numpy(tree: Any, device=None) -> Any:
@@ -63,3 +64,14 @@ def ivf_state_from_jax(np_state, device=None) -> IVFState:
     the port's :class:`IVFState`."""
     return IVFState(*(torch.from_numpy(np.array(x, copy=True)).to(device)
                       for x in np_state))
+
+
+def pq_state_from_jax(np_state, db: torch.Tensor) -> PQState:
+    """A JAX ``PQState`` (NamedTuple of numpy arrays, same field order) ->
+    the port's :class:`PQState` on ``db``'s device. Every field is
+    converted except ``db``: the state takes the caller's ``db`` tensor
+    itself, as an index built over it would, so the re-rank rows stay the
+    caller's (no copy)."""
+    fields = [torch.from_numpy(np.array(x, copy=True)).to(db.device)
+              for x in tuple(np_state)[:-1]]
+    return PQState(*fields, db=db)

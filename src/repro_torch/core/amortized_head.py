@@ -32,7 +32,7 @@ __all__ = ["HeadConfig", "HeadLossOut", "head_loss", "head_sample",
 
 _MODES = ("exact", "topk_only", "amortized")
 _MIPS = ("exact", "ivf", "ivfpq", "lsh")
-_PORTED_MIPS = ("exact", "ivf")
+_PORTED_MIPS = ("exact", "ivf", "ivfpq")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,14 +41,16 @@ class HeadConfig:
     k: int = 0  # |S|; 0 -> default_kl(n, delta)
     l: int = 0  # |T|; 0 -> same as k
     mode: str = "amortized"  # exact | topk_only | amortized
-    mips: str = "exact"  # exact | ivf  (ivfpq / lsh: not ported yet)
+    mips: str = "exact"  # exact | ivf | ivfpq  (lsh: not ported yet)
     n_probe: int = 8
     adaptive_probe: bool = False  # not ported yet
     n_probe_init: int = 0
     n_probe_max: int = 0
-    use_kernel: bool = False  # CPU: the IVF probe and the training loss
-    #   through the kernels' plain versions (on CUDA the kernels always run)
-    fused_decode: bool = False  # ivf_screen_select + tail_gather_argmax
+    use_kernel: bool = False  # CPU: the IVF / IVF-PQ probe and the training
+    #   loss through the kernels' plain versions (on CUDA the kernels always
+    #   run)
+    fused_decode: bool = False  # the index's fused screen (ivf_screen_select,
+    #   or pq_screen_select + rerank_select) + tail_gather_argmax
     chunk: int = 256  # token chunk of the training loss
     delta: float = 1e-4
     c: float = 0.0  # assumed approximate-top-k gap (Def 3.1)
@@ -103,7 +105,12 @@ def make_index(cfg: HeadConfig, emb: torch.Tensor, device=None, **build_kw
     """Build the head's MIPS index over the embedding rows on ``device``
     (CUDA unless the caller names another), or None when the exact top-k
     path applies. ``emb`` must already live on that device; ``build_kw``
-    go to the backend's ``build`` (IVF: ``init_cent``, ``iters``)."""
+    go to the backend's ``build`` (IVF: ``init_cent``, ``iters``; IVF-PQ
+    also ``init_codebooks``, ``pq_iters``).
+
+    The IVF-PQ index keeps ``emb`` itself as its re-rank rows: the resident
+    table is passed unsliced when the vocabulary is unpadded, and a caller
+    that updates ``emb`` in place must pass a frozen copy."""
     cfg = cfg.resolved()
     dev = resolve_device(device)
     if emb.device.type != dev.type or (
@@ -116,7 +123,14 @@ def make_index(cfg: HeadConfig, emb: torch.Tensor, device=None, **build_kw
             f"MIPS backend {cfg.mips!r} is not in the PyTorch port yet")
     if cfg.adaptive_probe:
         raise NotImplementedError("the adaptive probe is not in the port yet")
-    mips_cfg = mips.IVFConfig(n_probe=cfg.n_probe, use_kernel=cfg.use_kernel)
+    if cfg.mips == "ivf":
+        mips_cfg = mips.IVFConfig(n_probe=cfg.n_probe,
+                                  use_kernel=cfg.use_kernel)
+    else:
+        # the exact re-rank covers the head's k with screening headroom
+        mips_cfg = mips.PQConfig(n_probe=cfg.n_probe,
+                                 use_kernel=cfg.use_kernel,
+                                 rerank=2 * max(8, cfg.k))
     db = emb if cfg.n == emb.shape[0] else emb[: cfg.n]
     return mips.build_index(mips_cfg, db, **build_kw)
 

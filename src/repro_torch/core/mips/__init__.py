@@ -1,6 +1,6 @@
 """MIPS indexes (counterpart of ``repro/core/mips``): the stateful Index API
-with the exact oracle and the IVF backend. The config dataclass selects the
-backend::
+with the exact oracle and the IVF and IVF-PQ backends. The config dataclass
+selects the backend::
 
     from repro_torch.core import mips
 
@@ -14,17 +14,22 @@ from repro_torch.core.mips.base import (
     Index,
     backend_cls,
     build_index,
+    index_spill,
+    index_spill_parts,
     register_backend,
     state_bytes,
     top_k,
 )
 from repro_torch.core.mips.exact import ExactConfig, ExactIndex
 from repro_torch.core.mips.ivf import IVFConfig, IVFIndex, IVFState
+from repro_torch.core.mips.pq import IVFPQIndex, PQConfig, PQState
 
 __all__ = [
     "Index",
     "backend_cls",
     "build_index",
+    "index_spill",
+    "index_spill_parts",
     "register_backend",
     "state_bytes",
     "top_k",
@@ -33,5 +38,8 @@ __all__ = [
     "IVFConfig",
     "IVFIndex",
     "IVFState",
+    "IVFPQIndex",
+    "PQConfig",
+    "PQState",
     "TopK",
 ]

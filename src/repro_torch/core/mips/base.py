@@ -21,6 +21,8 @@ __all__ = [
     "Index",
     "backend_cls",
     "build_index",
+    "index_spill",
+    "index_spill_parts",
     "register_backend",
     "state_bytes",
     "top_k",
@@ -81,6 +83,27 @@ def backend_cls(config: Any) -> type:
 def build_index(config: Any, db: torch.Tensor, **kw) -> Index:
     """Build the index backend matching ``type(config)`` over ``db``."""
     return backend_cls(config).build(db, config, **kw)
+
+
+def index_spill(index: Any) -> int:
+    """Coverage shortfall of a built index; 0 means every database row is
+    reachable at the configured probe / re-rank settings. The sum of
+    :func:`index_spill_parts`, whose two counts call for different fixes."""
+    return sum(index_spill_parts(index))
+
+
+def index_spill_parts(index: Any) -> tuple[int, int]:
+    """(rows an IVF / IVF-PQ build dropped from both the member tables and
+    the overflow buffer — ``state.spill_count``, fixed by a larger
+    ``overflow_frac``; re-rank slots an IVF-PQ probe pool can never fill —
+    ``state.rerank_spill``, fixed by a smaller ``PQConfig.rerank`` or more
+    probed clusters). (0, 0) for None and for backends without the
+    counters. Reads device scalars."""
+    st = getattr(index, "state", None)
+    dropped = getattr(st, "spill_count", None)
+    short = getattr(st, "rerank_spill", None)
+    return (0 if dropped is None else int(dropped),
+            0 if short is None else int(short))
 
 
 def state_bytes(tree: Any) -> int:

@@ -137,24 +137,31 @@ def _cluster_radii(dbf: torch.Tensor, cent: torch.Tensor,
     return radii.scatter_reduce_(0, assign, rn, reduce="amax")
 
 
+def _coarse_quantize(dbf: torch.Tensor, init_cent: torch.Tensor | None, *,
+                     n_c: int, iters: int, seed: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Coarse k-means of the f32 rows ``dbf`` -> (centroids (n_c, d),
+    assignment (n,)). ``init_cent=None`` cold-starts from ``n_c`` rows
+    sampled with a ``torch.Generator`` seeded by ``seed`` (the reference's
+    ``jax.random.permutation`` sample cannot be replayed here; tests pass
+    its centroids in as ``init_cent``)."""
+    if init_cent is None:
+        gen = torch.Generator(device=dbf.device)
+        gen.manual_seed(seed)
+        rows = torch.randperm(dbf.shape[0], generator=gen,
+                              device=dbf.device)[:n_c]
+        init_cent = dbf[rows]
+    cent = lloyd(dbf, init_cent.float(), iters)
+    return cent, assign_clusters(dbf, cent)
+
+
 def _device_build(db: torch.Tensor, init_cent: torch.Tensor | None, *,
                   n_c: int, cap: int, o_cap: int, iters: int, seed: int
                   ) -> IVFState:
-    """Full index (re)build on ``db``'s device: k-means + pack.
-
-    ``init_cent=None`` cold-starts from ``n_c`` rows sampled with a
-    ``torch.Generator`` seeded by ``seed`` (the reference's
-    ``jax.random.permutation`` sample cannot be replayed here; tests pass
-    its centroids in as ``init_cent``)."""
+    """Full index (re)build on ``db``'s device: k-means + pack."""
     dbf = db.float()
-    if init_cent is None:
-        gen = torch.Generator(device=db.device)
-        gen.manual_seed(seed)
-        rows = torch.randperm(db.shape[0], generator=gen,
-                              device=db.device)[:n_c]
-        init_cent = dbf[rows]
-    cent = lloyd(dbf, init_cent.float(), iters)
-    assign = assign_clusters(dbf, cent)
+    cent, assign = _coarse_quantize(dbf, init_cent, n_c=n_c, iters=iters,
+                                    seed=seed)
     return IVFState(cent, *_pack(db, assign, n_c, cap, o_cap),
                     _cluster_radii(dbf, cent, assign))
 

@@ -1,4 +1,5 @@
-// The fused decode head: ivf_screen_select and tail_gather_argmax.
+// The fused decode head: ivf_screen_select, pq_screen_select, rerank_select
+// and tail_gather_argmax.
 //
 // ---------------------------------------------------------------------------
 // ivf_screen_select replaces the Pallas TPU kernel
@@ -26,6 +27,46 @@
 // are re-read from the member/overflow tables for the k winners only.
 //
 // ---------------------------------------------------------------------------
+// pq_screen_select replaces the Pallas TPU kernel
+// repro/kernels/decode_fused.py::pq_screen_select (the IVF-PQ analogue:
+// each probed member's LUT sum from the shared lut_tile_scores plus its
+// cluster's coarse score, stages at or past probe_width dead, pool ∪ exact
+// overflow scores masked, top-r emitted as above).
+//
+// What bounds it on an H100: at 4 queries, latency — the block's sort.
+// The bytes are small: per query 8 uint8 codes and an int32 id per probed
+// member (8 * 544 * 12 = 52 KB), an 8 KB LUT and the overflow scores; no
+// flop beyond one add per code.
+//
+// Design: one block of 1024 threads per query, as ivf_screen_select. The
+// query's LUT goes into shared memory; each thread scores live members with
+// repro_torch::lut_sum (pq_lut.cuh) — the device function pq_lut_score.cu
+// uses — then adds the coarse term after the sum, as the unfused path adds
+// pq_lut_score's output and the coarse scores; so every live key is bitwise
+// the unfused screen's score. Keys, padding, sort and emission are
+// ivf_screen_select's (8192 keys, 64 KB, at tinyllama's 6352-slot pool).
+//
+// ---------------------------------------------------------------------------
+// rerank_select replaces the Pallas TPU kernel
+// repro/kernels/decode_fused.py::rerank_select (the exact fp32 re-rank of
+// the r screening survivors: their db rows streamed into VMEM by the
+// prefetched candidate ids, one matvec with q, survivors with id < 0 or a
+// -inf screening value dead, top-k emitted as above).
+//
+// What bounds it on an H100: bytes. A query reads r fp32 rows of d (1152 *
+// 2048 * 4 = 9.4 MB at tinyllama's width) for half a flop per byte. At the
+// serving path's 4 queries only 4 SMs stream, so latency, not the memory
+// rate, sets its time; splitting r over several blocks is later work.
+//
+// Design: one block of 1024 threads per query. q sits in shared memory;
+// warps take the live survivors only (dead ones are never read) and score
+// each row with repro_torch::warp_row_dot, writing one key per survivor
+// (the low word its position among the r); the r keys, padded to a power
+// of two, are sorted as above and the first k emitted, id -1 for a -inf
+// pick. The unfused IVF-PQ probe on the card re-ranks through this kernel
+// too, so the fused and unfused paths agree bit for bit.
+//
+// ---------------------------------------------------------------------------
 // tail_gather_argmax replaces the Pallas TPU kernel
 // repro/kernels/decode_fused.py::tail_gather_argmax (the Algorithm-2 finish:
 // gather the m_cap tail rows, fp32 dot with h, add the truncated-Gumbel
@@ -46,30 +87,59 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "pq_lut.cuh"
 #include "row_dot.cuh"
+#include "select_keys.cuh"
 
 namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 
-// fp32 -> uint32 whose ascending order is the float's descending order.
-__device__ __forceinline__ uint32_t desc_bits(float v) {
-  const uint32_t u = __float_as_uint(v);
-  const uint32_t ordered = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ~ordered;
+using repro_torch::bitonic_sort;
+using repro_torch::key_index;
+using repro_torch::key_value;
+using repro_torch::make_key;
+
+// Keys of a screen pool's overflow slots (n_mem .. n_mem + o_cap: the
+// caller's exact scores, -inf where the id is dead) and of the padding up
+// to pool_pow2 (-inf, indices past the pool).
+__device__ void fill_overflow_keys(unsigned long long* keys,
+                                   const float* __restrict__ os,
+                                   const int* __restrict__ overflow_ids,
+                                   int n_mem, int o_cap, int pool_pow2) {
+  for (int o = threadIdx.x; o < o_cap; o += blockDim.x)
+    keys[n_mem + o] =
+        make_key(overflow_ids[o] >= 0 ? os[o] : -INFINITY, n_mem + o);
+  for (int p = n_mem + o_cap + threadIdx.x; p < pool_pow2; p += blockDim.x)
+    keys[p] = make_key(-INFINITY, p);
 }
 
-__device__ __forceinline__ float from_desc_bits(uint32_t d) {
-  const uint32_t ordered = ~d;
-  const uint32_t u =
-      (ordered & 0x80000000u) ? (ordered & 0x7fffffffu) : ~ordered;
-  return __uint_as_float(u);
-}
-
-__device__ __forceinline__ unsigned long long make_key(float v, int idx) {
-  return (static_cast<unsigned long long>(desc_bits(v)) << 32) |
-         static_cast<uint32_t>(idx);
+// The first k keys of a sorted screen pool -> values and ids; the ids are
+// read back from the member / overflow tables for the winners only, and a
+// -inf pick emits id -1.
+__device__ void emit_pool(const unsigned long long* keys, int k,
+                          const int* __restrict__ pr,
+                          const int* __restrict__ member_ids,
+                          const int* __restrict__ overflow_ids, int n_c,
+                          int cap, int n_mem, float* __restrict__ vals,
+                          int* __restrict__ ids) {
+  for (int i = threadIdx.x; i < k; i += blockDim.x) {
+    const int p = key_index(keys[i]);
+    const float v = key_value(keys[i]);
+    int id = -1;
+    if (v != -INFINITY) {
+      if (p < n_mem) {
+        const int j = p / cap;
+        const int cl = min(max(pr[j], 0), n_c - 1);
+        id = member_ids[static_cast<size_t>(cl) * cap + (p - j * cap)];
+      } else {
+        id = overflow_ids[p - n_mem];
+      }
+    }
+    vals[i] = v;
+    ids[i] = id;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) ivf_screen_select_kernel(
@@ -90,7 +160,6 @@ __global__ void __launch_bounds__(kThreads) ivf_screen_select_kernel(
   const int width =
       probe_width ? min(max(probe_width[bi], 0), n_probe) : n_probe;
   const int n_mem = n_probe * cap;
-  const int pool = n_mem + o_cap;
   const int* pr = probe + static_cast<size_t>(bi) * n_probe;
 
   repro_torch::load_query(sq, q + static_cast<size_t>(bi) * d, d);
@@ -108,49 +177,101 @@ __global__ void __launch_bounds__(kThreads) ivf_screen_select_kernel(
     }
     if (lane == 0) keys[row] = make_key(s, row);
   }
-  const float* os = overflow_scores + static_cast<size_t>(bi) * o_cap;
-  for (int o = tid; o < o_cap; o += kThreads)
-    keys[n_mem + o] =
-        make_key(overflow_ids[o] >= 0 ? os[o] : -INFINITY, n_mem + o);
-  for (int p = pool + tid; p < pool_pow2; p += kThreads)
-    keys[p] = make_key(-INFINITY, p);
+  fill_overflow_keys(keys, overflow_scores + static_cast<size_t>(bi) * o_cap,
+                     overflow_ids, n_mem, o_cap, pool_pow2);
+  __syncthreads();
+  bitonic_sort(keys, pool_pow2);
+  emit_pool(keys, k, pr, member_ids, overflow_ids, n_c, cap, n_mem,
+            out_vals + static_cast<size_t>(bi) * k,
+            out_ids + static_cast<size_t>(bi) * k);
+}
+
+__global__ void __launch_bounds__(kThreads) pq_screen_select_kernel(
+    const uint8_t* __restrict__ member_codes,
+    const int* __restrict__ member_ids, const float* __restrict__ coarse,
+    const float* __restrict__ overflow_scores,
+    const int* __restrict__ overflow_ids, const int* __restrict__ probe,
+    const int* __restrict__ probe_width, const float* __restrict__ lut,
+    float* __restrict__ out_vals, int* __restrict__ out_ids, int n_c, int cap,
+    int m_sub, int ksub, int n_probe, int o_cap, int r, int pool_pow2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem_raw);
+  float* slut = reinterpret_cast<float*>(keys + pool_pow2);
+  const int bi = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int width =
+      probe_width ? min(max(probe_width[bi], 0), n_probe) : n_probe;
+  const int n_mem = n_probe * cap;
+  const int lut_n = m_sub * ksub;
+  const int* pr = probe + static_cast<size_t>(bi) * n_probe;
+  const float* cq = coarse + static_cast<size_t>(bi) * n_probe;
+
+  repro_torch::load_query(slut, lut + static_cast<size_t>(bi) * lut_n, lut_n);
   __syncthreads();
 
-  // bitonic sort, ascending, of pool_pow2 keys
-  const int half = pool_pow2 >> 1;
-  for (int size = 2; size <= pool_pow2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < half; i += kThreads) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const bool asc = (lo & size) == 0;
-        const unsigned long long a = keys[lo];
-        const unsigned long long b = keys[hi];
-        if ((a > b) == asc) {
-          keys[lo] = b;
-          keys[hi] = a;
-        }
-      }
-      __syncthreads();
+  for (int row = tid; row < n_mem; row += kThreads) {
+    const int j = row / cap;
+    float s = -INFINITY;
+    if (j < width) {
+      const int cl = min(max(pr[j], 0), n_c - 1);
+      const size_t slot = static_cast<size_t>(cl) * cap + (row - j * cap);
+      // the LUT sum, then the coarse term: pq_lut_score + coarse, as the
+      // unfused screen adds them
+      if (member_ids[slot] >= 0)
+        s = repro_torch::lut_sum(member_codes + slot * m_sub, slut, m_sub,
+                                 ksub) +
+            cq[j];
     }
+    keys[row] = make_key(s, row);
   }
+  fill_overflow_keys(keys, overflow_scores + static_cast<size_t>(bi) * o_cap,
+                     overflow_ids, n_mem, o_cap, pool_pow2);
+  __syncthreads();
+  bitonic_sort(keys, pool_pow2);
+  emit_pool(keys, r, pr, member_ids, overflow_ids, n_c, cap, n_mem,
+            out_vals + static_cast<size_t>(bi) * r,
+            out_ids + static_cast<size_t>(bi) * r);
+}
+
+__global__ void __launch_bounds__(kThreads) rerank_select_kernel(
+    const float* __restrict__ db, const int* __restrict__ cand,
+    const float* __restrict__ lut_vals, const float* __restrict__ q,
+    float* __restrict__ out_vals, int* __restrict__ out_ids, int n, int d,
+    int r, int k, int d_pad, int r_pow2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sq = reinterpret_cast<float*>(smem_raw);
+  unsigned long long* keys =
+      reinterpret_cast<unsigned long long*>(sq + d_pad);
+  const int bi = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int* cb = cand + static_cast<size_t>(bi) * r;
+  const float* lv = lut_vals + static_cast<size_t>(bi) * r;
+
+  repro_torch::load_query(sq, q + static_cast<size_t>(bi) * d, d);
+  __syncthreads();
+
+  for (int c = warp; c < r; c += kWarps) {
+    const int id = cb[c];
+    float s = -INFINITY;
+    if (id >= 0 && lv[c] != -INFINITY) {  // uniform across the warp
+      const int row = min(id, n - 1);  // clamps as a gather would
+      s = repro_torch::warp_row_dot(db + static_cast<size_t>(row) * d, sq, d,
+                                    lane);
+    }
+    if (lane == 0) keys[c] = make_key(s, c);
+  }
+  for (int p = r + tid; p < r_pow2; p += kThreads)
+    keys[p] = make_key(-INFINITY, p);
+  __syncthreads();
+  bitonic_sort(keys, r_pow2);
 
   for (int i = tid; i < k; i += kThreads) {
-    const unsigned long long key = keys[i];
-    const int p = static_cast<int>(key & 0xffffffffu);
-    const float v = from_desc_bits(static_cast<uint32_t>(key >> 32));
-    int id = -1;
-    if (v != -INFINITY) {
-      if (p < n_mem) {
-        const int j = p / cap;
-        const int cl = min(max(pr[j], 0), n_c - 1);
-        id = member_ids[static_cast<size_t>(cl) * cap + (p - j * cap)];
-      } else {
-        id = overflow_ids[p - n_mem];
-      }
-    }
+    const float v = key_value(keys[i]);
     out_vals[static_cast<size_t>(bi) * k + i] = v;
-    out_ids[static_cast<size_t>(bi) * k + i] = id;
+    out_ids[static_cast<size_t>(bi) * k + i] =
+        v != -INFINITY ? cb[key_index(keys[i])] : -1;
   }
 }
 
@@ -292,5 +413,65 @@ extern "C" int tail_gather_argmax_launch(
                               static_cast<cudaStream_t>(stream)>>>(
       emb, pos, m_used, pert_s, s_ids, heights, h, out_idx, out_max, n, d,
       m_cap, k, round_up4(d));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory a launch of pq_screen_select needs, in bytes.
+extern "C" long long pq_screen_select_smem(int m_sub, int ksub,
+                                           int pool_pow2) {
+  return static_cast<long long>(sizeof(unsigned long long)) * pool_pow2 +
+         static_cast<long long>(sizeof(float)) * m_sub * ksub;
+}
+
+// Shapes: member_codes (n_c, cap, m_sub) u8, member_ids (n_c, cap) i32,
+// coarse (b, n_probe) f32, overflow_scores (b, o_cap) f32,
+// overflow_ids (o_cap,) i32, probe (b, n_probe) i32, probe_width (b,) i32
+// or NULL (full width), lut (b, m_sub, ksub) f32
+// -> out_vals (b, r) f32, out_ids (b, r) i32.
+// pool_pow2 is a power of two >= max(n_probe * cap + o_cap, r).
+// Returns the CUDA error code of the launch (0 = success).
+extern "C" int pq_screen_select_launch(
+    const uint8_t* member_codes, const int* member_ids, const float* coarse,
+    const float* overflow_scores, const int* overflow_ids, const int* probe,
+    const int* probe_width, const float* lut, float* out_vals, int* out_ids,
+    int n_c, int cap, int m_sub, int ksub, int b, int n_probe, int o_cap,
+    int r, int pool_pow2, void* stream) {
+  if (b == 0 || r == 0) return 0;
+  const size_t smem =
+      static_cast<size_t>(pq_screen_select_smem(m_sub, ksub, pool_pow2));
+  const int e = set_smem(reinterpret_cast<const void*>(pq_screen_select_kernel),
+                         smem);
+  if (e) return e;
+  pq_screen_select_kernel<<<b, kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      member_codes, member_ids, coarse, overflow_scores, overflow_ids, probe,
+      probe_width, lut, out_vals, out_ids, n_c, cap, m_sub, ksub, n_probe,
+      o_cap, r, pool_pow2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory a launch of rerank_select needs, in bytes.
+extern "C" long long rerank_select_smem(int d, int r_pow2) {
+  return static_cast<long long>(sizeof(float)) * round_up4(d) +
+         static_cast<long long>(sizeof(unsigned long long)) * r_pow2;
+}
+
+// Shapes: db (n, d) f32, cand (b, r) i32, lut_vals (b, r) f32, q (b, d) f32
+// -> out_vals (b, k) f32, out_ids (b, k) i32; k <= r, r_pow2 a power of two
+// >= r. Returns the CUDA error code of the launch (0 = success).
+extern "C" int rerank_select_launch(const float* db, const int* cand,
+                                    const float* lut_vals, const float* q,
+                                    float* out_vals, int* out_ids, int n,
+                                    int d, int b, int r, int k, int r_pow2,
+                                    void* stream) {
+  if (b == 0 || k == 0) return 0;
+  const size_t smem = static_cast<size_t>(rerank_select_smem(d, r_pow2));
+  const int e = set_smem(reinterpret_cast<const void*>(rerank_select_kernel),
+                         smem);
+  if (e) return e;
+  rerank_select_kernel<<<b, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      db, cand, lut_vals, q, out_vals, out_ids, n, d, r, k, round_up4(d),
+      r_pow2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,8 +26,8 @@ __all__ = ["SOURCES", "build_all", "load", "build_dir", "ptxas_report",
            "bind", "ptr", "stream", "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_decode", "ivf_gather_score", "decode_fused",
-           "fused_estimator")
+SOURCES = ("flash_decode", "ivf_gather_score", "pq_lut_score",
+           "decode_fused", "fused_estimator")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

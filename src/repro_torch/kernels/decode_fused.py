@@ -1,16 +1,22 @@
-"""The fused decode head: ``ivf_screen_select`` and ``tail_gather_argmax``,
-CUDA kernels for Hopper (``csrc/decode_fused.cu``; counterpart of
-``repro/kernels/decode_fused.py``).
+"""The fused decode head: ``ivf_screen_select``, ``pq_screen_select``,
+``rerank_select`` and ``tail_gather_argmax``, CUDA kernels for Hopper
+(``csrc/decode_fused.cu``; counterpart of ``repro/kernels/decode_fused.py``).
 
 * :func:`ivf_screen_select` — IVF gather-score of the probed clusters and
   the top-k of the pool ∪ overflow, the pool held in shared memory. Members
   are scored by the device function ``ivf_gather_score`` uses, so its
   values are bitwise that kernel's.
+* :func:`pq_screen_select` — the IVF-PQ screen: each probed member's LUT
+  sum (the device function ``pq_lut_score`` uses) plus its cluster's coarse
+  score, and the top-r of the pool ∪ exact overflow scores.
+* :func:`rerank_select` — the exact fp32 re-rank of the r screening
+  survivors against the database rows, and their top-k.
 * :func:`tail_gather_argmax` — the Algorithm-2 finish: tail rows gathered
   and scored against h, perturbed by the truncated-Gumbel heights, and the
   first-occurrence argmax over S ∪ tail.
 
-Their plain versions are ``ref.ivf_screen_select_ref`` and
+Their plain versions are ``ref.ivf_screen_select_ref``,
+``ref.pq_screen_select_ref``, ``ref.rerank_select_ref`` and
 ``ref.tail_gather_argmax_ref``.
 """
 from __future__ import annotations
@@ -21,10 +27,13 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ivf_gather_score import check_tables
+from repro_torch.kernels.pq_lut_score import check_codes
 
-__all__ = ["ivf_screen_select", "tail_gather_argmax", "launches"]
+__all__ = ["ivf_screen_select", "pq_screen_select", "rerank_select",
+           "tail_gather_argmax", "launches"]
 
-launches = {"ivf_screen_select": 0, "tail_gather_argmax": 0}
+launches = {"ivf_screen_select": 0, "pq_screen_select": 0,
+            "rerank_select": 0, "tail_gather_argmax": 0}
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
 
@@ -33,6 +42,28 @@ def _cuda(name: str, *ts):
     for t in ts:
         if t is not None and not t.is_cuda:
             raise ValueError(f"{name} kernel needs CUDA tensors")
+
+
+def _pow2(n: int) -> int:
+    """The least power of two >= n (and >= 1)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _check_overflow(name, overflow_scores, overflow_ids, probe_width, b):
+    """Validate a screen's overflow pair and probe widths; returns them as
+    contiguous f32 / i32 CUDA tensors (probe_width may stay None)."""
+    o_cap = overflow_ids.shape[0]
+    if overflow_scores.shape != (b, o_cap) or overflow_ids.dim() != 1:
+        raise ValueError(f"{name}: overflow_scores "
+                         f"{tuple(overflow_scores.shape)} / overflow_ids "
+                         f"{tuple(overflow_ids.shape)} mismatch")
+    if probe_width is not None and probe_width.shape != (b,):
+        raise ValueError(f"{name}: probe_width must be (b,)")
+    _cuda(name, overflow_scores, overflow_ids, probe_width)
+    if probe_width is not None:
+        probe_width = probe_width.to(torch.int32).contiguous()
+    return (overflow_scores.to(torch.float32).contiguous(),
+            overflow_ids.to(torch.int32).contiguous(), probe_width)
 
 
 def ivf_screen_select(member_vecs, member_ids, overflow_scores, overflow_ids,
@@ -44,25 +75,14 @@ def ivf_screen_select(member_vecs, member_ids, overflow_scores, overflow_ids,
     n_c, cap, d = member_vecs.shape
     b, n_probe = probe.shape
     o_cap = overflow_ids.shape[0]
-    if overflow_scores.shape != (b, o_cap) or overflow_ids.dim() != 1:
-        raise ValueError(f"ivf_screen_select: overflow_scores "
-                         f"{tuple(overflow_scores.shape)} / overflow_ids "
-                         f"{tuple(overflow_ids.shape)} mismatch")
-    if probe_width is not None and probe_width.shape != (b,):
-        raise ValueError("ivf_screen_select: probe_width must be (b,)")
-    _cuda("ivf_screen_select", overflow_scores, overflow_ids, probe_width)
-    pool_pow2 = 1
-    while pool_pow2 < max(n_probe * cap + o_cap, k):
-        pool_pow2 *= 2
+    overflow_scores, overflow_ids, probe_width = _check_overflow(
+        "ivf_screen_select", overflow_scores, overflow_ids, probe_width, b)
+    pool_pow2 = _pow2(max(n_probe * cap + o_cap, k))
     fn_smem = build.bind("decode_fused", "ivf_screen_select_smem",
                          [build.I, build.I], restype=ctypes.c_longlong)
     if fn_smem(d, pool_pow2) > _SMEM_LIMIT:
         raise ValueError(f"ivf_screen_select: pool of {pool_pow2} slots at "
                          f"d={d} exceeds one block's shared memory")
-    overflow_scores = overflow_scores.to(torch.float32).contiguous()
-    overflow_ids = overflow_ids.to(torch.int32).contiguous()
-    if probe_width is not None:
-        probe_width = probe_width.to(torch.int32).contiguous()
     vals = torch.empty((b, k), dtype=torch.float32, device=q.device)
     ids = torch.empty((b, k), dtype=torch.int32, device=q.device)
     fn = build.bind("decode_fused", "ivf_screen_select_launch",
@@ -74,6 +94,89 @@ def ivf_screen_select(member_vecs, member_ids, overflow_scores, overflow_ids,
              k, pool_pow2, build.stream())
     build.check(err, "ivf_screen_select")
     launches["ivf_screen_select"] += 1
+    return vals, ids
+
+
+def pq_screen_select(member_codes, member_ids, coarse, overflow_scores,
+                     overflow_ids, probe, lut, *, r: int, probe_width=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel -> (values (b, r) f32, ids (b, r) i32)."""
+    member_codes, probe, lut = check_codes(member_codes, probe, lut,
+                                           "pq_screen_select")
+    n_c, cap, m_sub = member_codes.shape
+    b, n_probe = probe.shape
+    ksub = lut.shape[2]
+    o_cap = overflow_ids.shape[0]
+    if member_ids.shape != (n_c, cap) or coarse.shape != (b, n_probe):
+        raise ValueError(f"pq_screen_select: member_ids "
+                         f"{tuple(member_ids.shape)} / coarse "
+                         f"{tuple(coarse.shape)} do not fit the tables")
+    if r < 1:
+        raise ValueError(f"pq_screen_select: r={r} must be positive")
+    _cuda("pq_screen_select", member_ids, coarse)
+    overflow_scores, overflow_ids, probe_width = _check_overflow(
+        "pq_screen_select", overflow_scores, overflow_ids, probe_width, b)
+    pool_pow2 = _pow2(max(n_probe * cap + o_cap, r))
+    fn_smem = build.bind("decode_fused", "pq_screen_select_smem",
+                         [build.I] * 3, restype=ctypes.c_longlong)
+    if fn_smem(m_sub, ksub, pool_pow2) > _SMEM_LIMIT:
+        raise ValueError(f"pq_screen_select: pool of {pool_pow2} slots and "
+                         f"a {m_sub} x {ksub} LUT exceed one block's shared "
+                         "memory")
+    member_ids = member_ids.to(torch.int32).contiguous()
+    coarse = coarse.to(torch.float32).contiguous()
+    vals = torch.empty((b, r), dtype=torch.float32, device=lut.device)
+    ids = torch.empty((b, r), dtype=torch.int32, device=lut.device)
+    fn = build.bind("decode_fused", "pq_screen_select_launch",
+                    [build.P] * 10 + [build.I] * 9 + [build.P])
+    err = fn(build.ptr(member_codes), build.ptr(member_ids), build.ptr(coarse),
+             build.ptr(overflow_scores), build.ptr(overflow_ids),
+             build.ptr(probe), build.ptr(probe_width), build.ptr(lut),
+             build.ptr(vals), build.ptr(ids), n_c, cap, m_sub, ksub, b,
+             n_probe, o_cap, r, pool_pow2, build.stream())
+    build.check(err, "pq_screen_select")
+    launches["pq_screen_select"] += 1
+    return vals, ids
+
+
+def rerank_select(db, cand, lut_vals, q, *, k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel -> (values (b, k) f32, ids (b, k) i32)."""
+    _cuda("rerank_select", db, cand, lut_vals, q)
+    if db.dim() != 2 or cand.dim() != 2:
+        raise ValueError("rerank_select: db (n, d) and cand (b, r) expected")
+    n, d = db.shape
+    b, r = cand.shape
+    if lut_vals.shape != (b, r) or q.shape != (b, d):
+        raise ValueError(f"rerank_select: lut_vals {tuple(lut_vals.shape)} / "
+                         f"q {tuple(q.shape)} do not fit cand {(b, r)}, d={d}")
+    if not 0 < k <= r:
+        raise ValueError(f"rerank_select: k={k} must be in 1..r={r}")
+    if db.dtype != torch.float32 or q.dtype != torch.float32:
+        raise ValueError("rerank_select: db and q must be float32")
+    if n == 0 or n * d >= 2 ** 31:
+        raise ValueError(f"rerank_select: n={n} rows of d={d} out of range")
+    db = db.contiguous()
+    if db.data_ptr() % 16:
+        raise ValueError("rerank_select: db must be 16-byte aligned")
+    r_pow2 = _pow2(r)
+    fn_smem = build.bind("decode_fused", "rerank_select_smem",
+                         [build.I] * 2, restype=ctypes.c_longlong)
+    if fn_smem(d, r_pow2) > _SMEM_LIMIT:
+        raise ValueError(f"rerank_select: r={r} at d={d} exceeds one "
+                         "block's shared memory")
+    cand = cand.to(torch.int32).contiguous()
+    lut_vals = lut_vals.to(torch.float32).contiguous()
+    q = q.contiguous()
+    vals = torch.empty((b, k), dtype=torch.float32, device=q.device)
+    ids = torch.empty((b, k), dtype=torch.int32, device=q.device)
+    fn = build.bind("decode_fused", "rerank_select_launch",
+                    [build.P] * 6 + [build.I] * 6 + [build.P])
+    err = fn(build.ptr(db), build.ptr(cand), build.ptr(lut_vals), build.ptr(q),
+             build.ptr(vals), build.ptr(ids), n, d, b, r, k, r_pow2,
+             build.stream())
+    build.check(err, "rerank_select")
+    launches["rerank_select"] += 1
     return vals, ids
 
 

@@ -15,12 +15,16 @@ from repro_torch.kernels import decode_fused as _df
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import fused_estimator as _fe
 from repro_torch.kernels import ivf_gather_score as _igs
+from repro_torch.kernels import pq_lut_score as _pls
 from repro_torch.kernels import ref
 
 __all__ = [
     "flash_decode",
     "ivf_gather_score",
     "ivf_screen_select",
+    "pq_lut_score",
+    "pq_screen_select",
+    "rerank_select",
     "tail_gather_argmax",
     "fused_estimator",
     "fused_estimator_bwd",
@@ -29,7 +33,8 @@ __all__ = [
     "KERNELS",
 ]
 
-_COUNTERS = (_fd.launches, _igs.launches, _df.launches, _fe.launches)
+_COUNTERS = (_fd.launches, _igs.launches, _pls.launches, _df.launches,
+             _fe.launches)
 KERNELS = tuple(k for c in _COUNTERS for k in c)
 
 
@@ -81,6 +86,35 @@ def ivf_screen_select(member_vecs, member_ids, overflow_scores, overflow_ids,
     return ref.ivf_screen_select_ref(member_vecs, member_ids, overflow_scores,
                                      overflow_ids, probe, q, k,
                                      probe_width=probe_width)
+
+
+def pq_lut_score(member_codes, probe, lut) -> torch.Tensor:
+    """IVF-PQ LUT screen of the probed clusters -> (b, n_probe, cap) f32."""
+    if _on_cuda(lut, "pq_lut_score"):
+        return _pls.pq_lut_score(member_codes, probe, lut)
+    return ref.pq_lut_score_ref(member_codes, probe, lut)
+
+
+def pq_screen_select(member_codes, member_ids, coarse, overflow_scores,
+                     overflow_ids, probe, lut, *, r: int, probe_width=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused IVF-PQ LUT screen + pool top-r -> (values (b,r), ids (b,r))."""
+    if _on_cuda(lut, "pq_screen_select"):
+        return _df.pq_screen_select(member_codes, member_ids, coarse,
+                                    overflow_scores, overflow_ids, probe, lut,
+                                    r=r, probe_width=probe_width)
+    return ref.pq_screen_select_ref(member_codes, member_ids, coarse,
+                                    overflow_scores, overflow_ids, probe, lut,
+                                    r, probe_width=probe_width)
+
+
+def rerank_select(db, cand, lut_vals, q, *, k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact re-rank of the screening survivors + top-k -> (values (b,k),
+    ids (b,k))."""
+    if _on_cuda(q, "rerank_select"):
+        return _df.rerank_select(db, cand, lut_vals, q, k=k)
+    return ref.rerank_select_ref(db, cand, lut_vals, q, k)
 
 
 def tail_gather_argmax(emb, pos, m_used, pert_s, s_ids, heights, h

@@ -14,11 +14,16 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quant.pq import lut_scores
+
 __all__ = [
     "flash_decode_ref",
     "ivf_gather_score_ref",
+    "pq_lut_score_ref",
     "topk_select_ref",
     "ivf_screen_select_ref",
+    "pq_screen_select_ref",
+    "rerank_select_ref",
     "tail_gather_argmax_ref",
     "fused_estimator_ref",
     "fused_estimator_bwd_ref",
@@ -55,6 +60,39 @@ def ivf_gather_score_ref(member_vecs: torch.Tensor, member_ids: torch.Tensor,
     return scores, member_ids[probe].int()
 
 
+def pq_lut_score_ref(member_codes: torch.Tensor, probe: torch.Tensor,
+                     lut: torch.Tensor) -> torch.Tensor:
+    """(n_c,cap,m) u8, (b,np), (b,m,ksub) -> (b, np, cap) f32 LUT sums of
+    the probed members' codes, added in subspace order from 0.0
+    (:func:`repro_torch.core.quant.pq.lut_scores`)."""
+    b, n_probe = probe.shape
+    cap, m = member_codes.shape[1:]
+    codes = member_codes[probe.long()].reshape(b, n_probe * cap, m)
+    return lut_scores(lut, codes).reshape(b, n_probe, cap)
+
+
+def _probe_prefix(scores, ids, probe_width):
+    """(b, np, cap) scores / ids with the stages at or past each row's
+    ``probe_width`` dead (-inf, -1); None keeps every stage."""
+    if probe_width is None:
+        return scores, ids
+    stage = torch.arange(scores.shape[1], device=scores.device)
+    live = stage[None, :, None] < probe_width.to(scores.device)[:, None, None]
+    return (torch.where(live, scores, torch.full_like(scores, float("-inf"))),
+            torch.where(live, ids, torch.full_like(ids, -1)))
+
+
+def _pool_select(scores, ids, overflow_scores, overflow_ids, k: int):
+    """Top-k of the probed pool (b, np, cap) ∪ the overflow (b, o_cap), dead
+    ids (< 0) at -inf."""
+    b = scores.shape[0]
+    scores = torch.cat([scores.reshape(b, -1), overflow_scores.float()], dim=1)
+    o = overflow_ids.int()[None].expand(b, overflow_ids.shape[0])
+    ids = torch.cat([ids.reshape(b, -1), o], dim=1)
+    scores = torch.where(ids >= 0, scores, torch.full_like(scores, float("-inf")))
+    return topk_select_ref(scores, ids, k)
+
+
 def topk_select_ref(scores: torch.Tensor, ids: torch.Tensor, k: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k of a masked (b, pool) score/id pair under the module's
@@ -79,20 +117,38 @@ def ivf_screen_select_ref(member_vecs, member_ids, overflow_scores,
     """(n_c,cap,d), (n_c,cap), (b,o_cap), (o_cap,), (b,np), (b,d) -> top-k
     (values (b,k), ids (b,k)) of the probed pool ∪ overflow. Row i scores
     only its first ``probe_width[i]`` probes (None: all of them)."""
-    b, n_probe = probe.shape
-    cap = member_ids.shape[1]
-    scores, ids = ivf_gather_score_ref(member_vecs, member_ids, probe, q)
-    if probe_width is not None:
-        stage = torch.arange(n_probe, device=probe.device)
-        live = stage[None, :, None] < probe_width.to(probe.device)[:, None, None]
-        scores = torch.where(live, scores, torch.full_like(scores, float("-inf")))
-        ids = torch.where(live, ids, torch.full_like(ids, -1))
-    scores = torch.cat([scores.reshape(b, n_probe * cap),
-                        overflow_scores.float()], dim=1)
-    o = overflow_ids.int()[None].expand(b, overflow_ids.shape[0])
-    ids = torch.cat([ids.reshape(b, n_probe * cap), o], dim=1)
-    scores = torch.where(ids >= 0, scores, torch.full_like(scores, float("-inf")))
-    return topk_select_ref(scores, ids, k)
+    scores, ids = _probe_prefix(
+        *ivf_gather_score_ref(member_vecs, member_ids, probe, q), probe_width)
+    return _pool_select(scores, ids, overflow_scores, overflow_ids, k)
+
+
+def pq_screen_select_ref(member_codes, member_ids, coarse, overflow_scores,
+                         overflow_ids, probe, lut, r: int, probe_width=None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n_c,cap,m) u8, (n_c,cap), (b,np), (b,o_cap), (o_cap,), (b,np),
+    (b,m,ksub) -> top-r (values (b,r), ids (b,r)) of the LUT screen: each
+    probed member scores its LUT sum plus its cluster's ``coarse`` term
+    (``acc + coarse``, in that order), the overflow rows their exact
+    ``overflow_scores``. Row i screens only its first ``probe_width[i]``
+    probes (None: all of them)."""
+    scores = (pq_lut_score_ref(member_codes, probe, lut)
+              + coarse.float()[..., None])
+    ids = member_ids[probe.long()].int()
+    scores, ids = _probe_prefix(scores, ids, probe_width)
+    return _pool_select(scores, ids, overflow_scores, overflow_ids, r)
+
+
+def rerank_select_ref(db, cand, lut_vals, q, k: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n,d), (b,r), (b,r), (b,d) -> top-k (values (b,k), ids (b,k)) of the
+    screening survivors re-scored exactly in fp32 (``db[cand] · q``); a
+    survivor with id < 0 or screening value -inf is dead (-inf)."""
+    rows = db[torch.clamp(cand.long(), 0, db.shape[0] - 1)].float()
+    exact = torch.einsum("brd,bd->br", rows, q.float())
+    dead = (cand < 0) | torch.isneginf(lut_vals)
+    return topk_select_ref(
+        torch.where(dead, torch.full_like(exact, float("-inf")), exact),
+        cand.int(), k)
 
 
 def tail_gather_argmax_ref(emb, pos, m_used, pert_s, s_ids, heights, h

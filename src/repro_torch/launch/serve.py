@@ -77,7 +77,8 @@ def main(argv=None) -> None:
     ap.add_argument("--mips", default=None,
                     choices=[None, "exact", "ivf", "ivfpq", "lsh"],
                     help="head top-k backend (ivf: stateful IVF index; "
-                         "ivfpq and lsh are not ported yet)")
+                         "ivfpq: IVF with uint8 PQ codes and an exact "
+                         "re-rank; lsh is not ported yet)")
     ap.add_argument("--vocab", type=int, default=0,
                     help="override vocab size (e.g. to exercise the "
                          "amortized head on a smoke config)")
@@ -88,12 +89,14 @@ def main(argv=None) -> None:
     ap.add_argument("--overlength", default="truncate",
                     choices=["truncate", "reject"])
     ap.add_argument("--head-use-kernel", action="store_true",
-                    help="on the CPU, run the unfused IVF probe through "
-                         "ivf_gather_score's plain version; on CUDA the "
-                         "kernel always runs")
+                    help="on the CPU, run the unfused probe's screen "
+                         "through its kernel's plain version "
+                         "(ivf_gather_score, pq_lut_score); on CUDA the "
+                         "kernels always run")
     ap.add_argument("--fused-decode", action="store_true",
-                    help="fused decode head: ivf_screen_select + "
-                         "tail_gather_argmax kernels")
+                    help="fused decode head: the index's fused screen "
+                         "(ivf_screen_select, or pq_screen_select + "
+                         "rerank_select) + tail_gather_argmax")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
     # accepted so that reference command lines fail with a clear message
@@ -112,8 +115,8 @@ def main(argv=None) -> None:
         if getattr(args, name) != default:
             ap.error(f"--{name.replace('_', '-')}: {what} is not in the "
                      "PyTorch port yet")
-    if args.mips in ("ivfpq", "lsh"):
-        ap.error(f"--mips {args.mips}: not in the PyTorch port yet")
+    if args.mips == "lsh":
+        ap.error("--mips lsh: not in the PyTorch port yet")
 
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     if not cfg.has_decode:

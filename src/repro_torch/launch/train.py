@@ -55,8 +55,8 @@ def main(argv=None) -> None:
                     choices=[None, "exact", "topk_only", "amortized"])
     ap.add_argument("--mips", default=None,
                     choices=[None, "exact", "ivf", "ivfpq", "lsh"],
-                    help="head top-k backend (ivf: stateful, refreshed "
-                         "index; ivfpq and lsh are not ported yet)")
+                    help="head top-k backend (ivf / ivfpq: stateful, "
+                         "refreshed index; lsh is not ported yet)")
     ap.add_argument("--vocab", type=int, default=0,
                     help="override vocab size (e.g. to exercise the "
                          "amortized head on a smoke config)")
@@ -66,9 +66,9 @@ def main(argv=None) -> None:
                     help="> 0: refresh when relative embedding drift exceeds")
     ap.add_argument("--head-use-kernel", action="store_true",
                     help="on the CPU, run the head through the plain "
-                         "versions of its kernels (ivf_gather_score, "
-                         "fused_estimator and its backward); on CUDA the "
-                         "kernels always run")
+                         "versions of its kernels (ivf_gather_score or "
+                         "pq_lut_score, fused_estimator and its backward); "
+                         "on CUDA the kernels always run")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
     ap.add_argument("--workdir", default=str(build_dir().parent / "train"),
@@ -89,8 +89,8 @@ def main(argv=None) -> None:
         if getattr(args, name) != default:
             ap.error(f"--{name.replace('_', '-')}: {what} is not in the "
                      "PyTorch port yet")
-    if args.mips in ("ivfpq", "lsh"):
-        ap.error(f"--mips {args.mips}: not in the PyTorch port yet")
+    if args.mips == "lsh":
+        ap.error("--mips lsh: not in the PyTorch port yet")
 
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     if args.head:

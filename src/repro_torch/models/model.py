@@ -98,7 +98,9 @@ class Model:
         """The head's MIPS index over the output embedding (or ``db``), or
         None when the exact path applies. Serving builds it once; training
         refreshes it as the embedding drifts (train/trainer.py).
-        ``build_kw`` go to the index backend's ``build``."""
+        ``build_kw`` go to the index backend's ``build`` (``init_cent``,
+        ``iters``; IVF-PQ also ``init_codebooks``, ``pq_iters``). An IVF-PQ
+        index keeps the rows it was built over as its re-rank table."""
         emb = self._out_embed(params) if db is None else db
         return ah.make_index(self.head_cfg, emb, device=self.device,
                              **build_kw)

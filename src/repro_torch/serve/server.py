@@ -36,6 +36,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch.core import mips
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import Model
@@ -126,11 +127,16 @@ class Server:
                       else self.model.make_head_index(params))
         self.stats["index_bytes"] = (self.index.memory_bytes()
                                      if self.index is not None else 0)
-        spill = getattr(getattr(self.index, "state", None), "spill_count", 0)
-        self.stats["index_spill"] = int(spill)
-        if self.stats["index_spill"]:  # coverage contract (DESIGN.md §3)
-            warnings.warn(f"head index dropped {self.stats['index_spill']} "
-                          "rows — raise overflow_frac")
+        # coverage contract (DESIGN.md §3); the two shortfalls have their
+        # own remedies
+        dropped, short = mips.index_spill_parts(self.index)
+        self.stats["index_spill"] = dropped + short
+        if dropped:
+            warnings.warn(f"head index dropped {dropped} rows — raise "
+                          "overflow_frac")
+        if short:
+            warnings.warn(f"head index re-rank pool short {short} slots — "
+                          "lower PQConfig.rerank or raise n_probe")
 
     # ------------------------------------------------------------- admission
     def _validate(self, rid: int, prompt, results: list) -> list | None:

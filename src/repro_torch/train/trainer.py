@@ -15,18 +15,20 @@ invariant to how it is chunked into windows.
 Index refresh during learning (DESIGN.md §7): the output embedding — the
 head index's database — drifts every optimizer step. The trainer snapshots
 the embedding rows at every (re)build, tracks the relative L2 drift against
-that snapshot, and refreshes the index (``IVFIndex.refresh``, warm-started
-Lloyd on the device) every ``index_refresh_every`` steps and/or when the
-drift exceeds ``index_drift_threshold``. The refresh is synchronous: it
-runs at a window boundary, and the index is frozen within a window.
+that snapshot, and refreshes the index (``refresh``, warm-started Lloyd on
+the device) every ``index_refresh_every`` steps and/or when the drift
+exceeds ``index_drift_threshold``. The index is built over the snapshot,
+not the live rows, which the optimizer updates in place: an IVF-PQ index
+keeps its rows for the exact re-rank. The refresh is synchronous: it runs
+at a window boundary, and the index is frozen within a window.
 
 Fault tolerance: every state element (params, optimizer, data cursor;
 randomness is a function of (seed, step)) lives in the checkpoint, so a
 restart trains exactly as the uninterrupted run would. The head index is a
 function of the embedding rows it was last built over and of its
-centroids, so the checkpoint carries those two (``index``: the drift
-snapshot and the centroids) and a restore re-packs the rows around the
-saved centroids: the resumed run probes the very index the uninterrupted
+quantizers, so the checkpoint carries them (``index``: the drift snapshot,
+the centroids and, for IVF-PQ, the codebooks) and a restore re-packs the
+rows around them: the resumed run probes the very index the uninterrupted
 one did. (The reference rebuilds the index cold on restore instead, so
 there a resume counts as a refresh.) SIGTERM
 or a ``PREEMPT`` file in the workdir saves and exits cleanly. Per-step wall
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core import mips
 from repro_torch.data.synthetic import DataConfig, SyntheticStream
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.config import ArchConfig
@@ -163,20 +166,26 @@ class Trainer:
         return self.model.head_index_db(params)
 
     def _init_head_index(self, params, saved: dict | None = None) -> None:
-        """Build the head index over the live rows, or — on resume — re-pack
-        the saved snapshot around the saved centroids (no Lloyd step)."""
+        """Build the head index over a copy of the live rows, or — on resume
+        — re-pack the saved snapshot around the saved centroids (and
+        codebooks) without a Lloyd step."""
         if not self.model.head_uses_index:
             self.head_index = None  # exact path: no index, no snapshot
             return
         if saved is None:
-            emb = self._head_emb(params)
-            self.head_index = self.model.make_head_index(params, db=emb)
-            # a copy: the optimizer updates the live rows in place
-            self._index_snapshot = emb.clone()
+            snap = self._head_emb(params).clone()
+            self.head_index = self.model.make_head_index(params, db=snap)
         else:
-            self.head_index = self.model.make_head_index(
-                params, db=saved["db"], init_cent=saved["centroids"], iters=0)
-            self._index_snapshot = saved["db"]
+            snap = saved["db"]
+            kw = {"init_cent": saved["centroids"], "iters": 0}
+            if "codebooks" in saved:
+                kw.update(init_codebooks=saved["codebooks"], pq_iters=0)
+            self.head_index = self.model.make_head_index(params, db=snap,
+                                                         **kw)
+        # one copy doing double duty: the drift snapshot, and the rows the
+        # index is built over — the optimizer updates the live rows in
+        # place, and an IVF-PQ index re-ranks against the rows it was given
+        self._index_snapshot = snap
 
     def _drift(self, params) -> float:
         emb = self._head_emb(params)
@@ -197,15 +206,18 @@ class Trainer:
                    and drift > run.index_drift_threshold)
         if not (due or tripped):
             return drift
-        emb = self._head_emb(params)
-        self.head_index = self.head_index.refresh(emb)
-        self._index_snapshot = emb.clone()
+        snap = self._head_emb(params).clone()
+        self.head_index = self.head_index.refresh(snap)
+        self._index_snapshot = snap
         self.index_refreshes += 1
-        spill = int(self.head_index.state.spill_count)
-        if spill:
-            _log(f"index refresh at step {done} dropped {spill} rows "
+        dropped, short = mips.index_spill_parts(self.head_index)
+        if dropped:
+            _log(f"index refresh at step {done} dropped {dropped} rows "
                  f"(overflow buffer full) — raise overflow_frac",
                  logging.WARNING)
+        if short:
+            _log(f"re-rank pool short {short} slots — lower PQConfig.rerank "
+                 f"or raise n_probe", logging.WARNING)
         if tripped:
             _log(f"index refresh at step {done}: drift {drift:.4f} > "
                  f"{run.index_drift_threshold}")
@@ -253,7 +265,7 @@ class Trainer:
         note = ""
         if self.head_index is not None:
             note = (f" index={self.head_index.memory_bytes() / 1e6:.1f}MB "
-                    f"spill={int(self.head_index.state.spill_count)}")
+                    f"spill={mips.index_spill(self.head_index)}")
         for s0, t, metrics in host:
             for i in range(t):
                 entry = {k: float(v[i]) for k, v in metrics.items()}
@@ -271,8 +283,11 @@ class Trainer:
         state = {"params": dev["params"], "opt": dev["opt"],
                  "meta": {"step": done, "data": self.data.state()}}
         if self.head_index is not None:
+            st = self.head_index.state
             state["index"] = {"db": self._index_snapshot,
-                              "centroids": self.head_index.state.centroids}
+                              "centroids": st.centroids}
+            if hasattr(st, "codebooks"):  # IVF-PQ
+                state["index"]["codebooks"] = st.codebooks
         self.ckpt.save_async(done, state)
 
     # --------------------------------------------------------------- run

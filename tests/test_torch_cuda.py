@@ -2,7 +2,8 @@
 small shapes with the edge cases the serving and training paths can produce
 (pools narrower than k, dead rows, exact ties, probe widths, empty tails, d
 not a multiple of 4, lengths 0, 1 and full, dead candidate slots, all-dead
-tokens, row segments longer than a backward tile). Marked ``cuda``: they skip without
+tokens, row segments longer than a backward tile, PQ subspace counts 4, 8
+and 16, codebooks narrower than 256). Marked ``cuda``: they skip without
 an NVIDIA GPU; run them on one with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -11,7 +12,8 @@ an NVIDIA GPU; run them on one with
 machine with the card need not have.)
 
 Tolerances: ids exact; fp32 values rtol=atol=1e-5 (small-integer inputs
-make the fp32 ones exact); flash_decode atol=2e-3; fused_estimator and its
+make the fp32 ones exact; the PQ LUT sums are bitwise on any input, both
+sides adding the same terms in the same order); flash_decode atol=2e-3; fused_estimator and its
 backward on random fp32 data rtol=atol=1e-5 (the kernel and the plain
 version sum the same terms in different orders), NaN where the plain
 version has NaN (an all-dead token).
@@ -20,8 +22,9 @@ import pytest
 import torch
 
 from repro_torch.core import estimators
+from repro_torch.core.mips import IVFPQIndex, PQConfig
 from repro_torch.kernels import decode_fused, flash_decode, fused_estimator
-from repro_torch.kernels import ivf_gather_score
+from repro_torch.kernels import ivf_gather_score, pq_lut_score
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -147,6 +150,144 @@ def test_kernels_reject_bad_inputs(gen):
     with pytest.raises(ValueError, match="lengths"):
         flash_decode.flash_decode(torch.zeros(2, 2, 8, device="cuda"), kv, kv,
                                   torch.ones(1, device="cuda"))
+    codes, mids, coarse, o_sc, o_ids, probe, lut = _pq_tables(gen)
+    with pytest.raises(ValueError, match="ksub"):
+        pq_lut_score.pq_lut_score(codes, probe, torch.zeros(
+            (lut.shape[0], lut.shape[1], 300), device="cuda"))
+    with pytest.raises(ValueError, match="uint8"):
+        pq_lut_score.pq_lut_score(codes.int(), probe, lut)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pq_lut_score.pq_lut_score(codes.cpu(), probe, lut)
+    with pytest.raises(ValueError, match="do not fit"):
+        decode_fused.pq_screen_select(codes, mids, coarse[:, :1], o_sc, o_ids,
+                                      probe, lut, r=8)
+    db = _ints(gen, (50, 16))
+    cand = torch.zeros((2, 8), device="cuda", dtype=torch.int32)
+    lv = torch.zeros((2, 8), device="cuda")
+    q = _ints(gen, (2, 16))
+    with pytest.raises(ValueError, match="k=9"):
+        decode_fused.rerank_select(db, cand, lv, q, k=9)
+    with pytest.raises(ValueError, match="float32"):
+        decode_fused.rerank_select(db.double(), cand, lv, q, k=4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        decode_fused.rerank_select(db.cpu(), cand, lv, q, k=4)
+
+
+def _pq_tables(gen, n_c=12, cap=40, m_sub=8, ksub=256, b=5, n_probe=4,
+               o_cap=24, values="ints"):
+    """IVF-PQ screen inputs: codes, member ids (30 % dead), coarse scores,
+    overflow scores and ids (a third dead), probe, LUTs."""
+    codes = torch.randint(0, ksub, (n_c, cap, m_sub), generator=gen,
+                          device="cuda", dtype=torch.int32).to(torch.uint8)
+    mids = torch.randint(0, 1000, (n_c, cap), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    mids[torch.rand((n_c, cap), generator=gen, device="cuda") < 0.3] = -1
+    probe = torch.stack([torch.randperm(n_c, generator=gen, device="cuda")
+                         [:n_probe] for _ in range(b)]).int()
+    o_ids = torch.randint(0, 1000, (o_cap,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    o_ids[::3] = -1
+    if values == "ints":
+        lut = _ints(gen, (b, m_sub, ksub), -3, 4)
+        coarse = _ints(gen, (b, n_probe), -5, 6)
+        o_sc = _ints(gen, (b, o_cap), -20, 20)
+    else:
+        lut = torch.randn((b, m_sub, ksub), generator=gen, device="cuda")
+        coarse = torch.randn((b, n_probe), generator=gen, device="cuda")
+        o_sc = torch.randn((b, o_cap), generator=gen, device="cuda") * 3
+    return codes, mids, coarse, o_sc, o_ids, probe, lut
+
+
+@pytest.mark.parametrize("values", ["ints", "random"])
+@pytest.mark.parametrize("m_sub,ksub", [(8, 256), (4, 16), (16, 100)])
+def test_pq_lut_score_kernel(gen, m_sub, ksub, values):
+    codes, _, _, _, _, probe, lut = _pq_tables(gen, m_sub=m_sub, ksub=ksub,
+                                               values=values)
+    got = pq_lut_score.pq_lut_score(codes, probe, lut)
+    assert torch.equal(got, ref.pq_lut_score_ref(codes, probe, lut))
+
+
+@pytest.mark.parametrize("case", ["ties", "small_pool", "dead_row", "width",
+                                  "all_dead", "m_sub4"])
+def test_pq_screen_select_kernel(gen, case):
+    kw = {"small_pool": dict(n_c=4, cap=4, n_probe=2, o_cap=4),
+          "m_sub4": dict(m_sub=4, ksub=16)}.get(case, {})
+    codes, mids, coarse, o_sc, o_ids, probe, lut = _pq_tables(gen, **kw)
+    r = 16 if case == "small_pool" else 50
+    width = None
+    if case == "dead_row":
+        mids[probe[0].long()] = -1
+        o_ids[:] = -1
+    if case == "width":
+        width = torch.tensor([4, 0, 1, 3, 2], device="cuda",
+                             dtype=torch.int32)
+    if case == "all_dead":  # row 1: no probe stage and no live overflow
+        o_ids[:] = -1
+        width = torch.tensor([4, 0, 2, 4, 1], device="cuda",
+                             dtype=torch.int32)
+    args = (codes, mids, coarse, o_sc, o_ids, probe, lut)
+    v, i = decode_fused.pq_screen_select(*args, r=r, probe_width=width)
+    wv, wi = ref.pq_screen_select_ref(*args, r, probe_width=width)
+    assert torch.equal(i, wi)
+    assert torch.equal(v, wv)  # exact: integer-valued scores
+    if case in ("dead_row", "all_dead"):
+        row = 0 if case == "dead_row" else 1
+        assert (i[row] == -1).all() and torch.isneginf(v[row]).all()
+
+
+def test_pq_screen_select_bitwise_equals_lut_score_plus_top_r(gen):
+    """Random fp32 LUTs: the fused screen's values are bitwise
+    pq_lut_score's sums plus the coarse term, and its picks those of a
+    top-r over them."""
+    codes, mids, coarse, o_sc, o_ids, probe, lut = _pq_tables(
+        gen, values="random")
+    v, i = decode_fused.pq_screen_select(codes, mids, coarse, o_sc, o_ids,
+                                         probe, lut, r=64)
+    s = pq_lut_score.pq_lut_score(codes, probe, lut) + coarse[..., None]
+    pool_s = torch.cat([s.reshape(s.shape[0], -1), o_sc], 1)
+    pool_i = torch.cat([mids[probe.long()].reshape(s.shape[0], -1),
+                        o_ids[None].expand(s.shape[0], -1)], 1)
+    pool_s = torch.where(pool_i >= 0, pool_s, float("-inf"))
+    wv, wi = ref.topk_select_ref(pool_s, pool_i, 64)
+    assert torch.equal(v, wv) and torch.equal(i, wi)
+
+
+@pytest.mark.parametrize("d", [64, 30])
+def test_rerank_select_kernel(gen, d):
+    n, b, r, k = 400, 6, 100, 40
+    db = _ints(gen, (n, d))
+    q = _ints(gen, (b, d))
+    cand = torch.randint(0, n, (b, r), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lut_vals = torch.randn((b, r), generator=gen, device="cuda")
+    cand[:, ::7] = -1  # dead ids
+    lut_vals[:, 3::9] = float("-inf")  # dead screening values
+    cand[2] = -1  # an all-dead query
+    v, i = decode_fused.rerank_select(db, cand, lut_vals, q, k=k)
+    wv, wi = ref.rerank_select_ref(db, cand, lut_vals, q, k)
+    assert torch.equal(i, wi) and torch.equal(v, wv)
+    assert (i[2] == -1).all() and torch.isneginf(v[2]).all()
+
+
+@pytest.mark.parametrize("k", [32, 700], ids=["k32", "k_past_pool"])
+def test_ivfpq_screen_select_equals_topk_batch_on_card(gen, k):
+    """The IVF-PQ index on the card: ``screen_select`` (pq_screen_select +
+    rerank_select) equals ``topk_batch`` (pq_lut_score + top-r +
+    rerank_select) bit for bit, ids and values, on random fp32 data."""
+    centers = torch.randn((24, 32), generator=gen, device="cuda")
+    pick = torch.randint(0, 24, (3000,), generator=gen, device="cuda")
+    db = centers[pick] + 0.5 * torch.randn((3000, 32), generator=gen,
+                                           device="cuda")
+    index = IVFPQIndex.build(db, PQConfig(n_probe=3, m_sub=8, ksub=64))
+    assert index.state.db is db
+    q = torch.randn((7, 32), generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    a = index.topk_batch(q, k)
+    b = index.screen_select(q, k)
+    counts = ops.launch_counts()
+    assert counts["pq_lut_score"] == 1 and counts["pq_screen_select"] == 1
+    assert counts["rerank_select"] == 2
+    assert torch.equal(a.ids, b.ids) and torch.equal(a.values, b.values)
 
 
 def _estimator_inputs(gen, dtype, n=300, d=64, t=6, m=40, all_dead=True):

@@ -15,6 +15,9 @@ minutes on a CPU) is
 
     PYTHONPATH=src python tests/test_torch_ivf_train.py --full-width
 
+(``--mips ivfpq`` runs it with the IVF-PQ head;
+tests/test_torch_ivfpq_train.py holds that path at smoke width.)
+
 Tolerances: losses rtol=1e-5 (the trunk and head reduced in different
 orders); params after one AdamW step rtol=1e-4, atol=2e-5 (as in
 ``test_torch_train.py``: an element whose gradient is within rounding of
@@ -41,9 +44,11 @@ from repro.launch import steps as jsteps
 from repro.models.model import Model as JModel
 from repro.optim import adamw as jadamw
 from repro_torch.configs import get, get_smoke
-from repro_torch.convert import ivf_state_from_jax, params_from_jax
+from repro_torch.convert import (ivf_state_from_jax, opt_state_from_jax,
+                                 params_from_jax, pq_state_from_jax)
 from repro_torch.core import amortized_head as ah
 from repro_torch.core.mips.ivf import IVFConfig, IVFIndex
+from repro_torch.core.mips.pq import IVFPQIndex, PQConfig
 from repro_torch.launch import steps
 from repro_torch.models import transformer
 from repro_torch.models.model import Model
@@ -58,17 +63,42 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def run_both(jcfg, tcfg, batch: int, seq: int, lr: float) -> dict:
+def _port_index(hc, jindex, db: torch.Tensor):
+    """The port's counterpart of the JAX head index ``jindex`` (its state
+    carried across); an IVF-PQ index re-ranks against ``db``."""
+    st = jax.device_get(jindex.state)
+    if hc.mips == "ivf":
+        return IVFIndex(IVFConfig(n_probe=hc.n_probe), ivf_state_from_jax(st))
+    return IVFPQIndex(PQConfig(n_probe=hc.n_probe,
+                               rerank=jindex.config.rerank),
+                      pq_state_from_jax(st, db))
+
+
+def run_both(jcfg, tcfg, batch: int, seq: int, lr: float,
+             sync: bool = False) -> dict:
     """STEPS steps of each trainer's train step from the same params and
     index, with the reference's tail draws handed to the port. Returns the
     per-step losses of both sides, both sides' params after the first
-    step, and both sides' index states after each refresh."""
+    step, and both sides' index states after each refresh.
+
+    The head's backend is the config's (``ivf`` or ``ivfpq``). As in the
+    port's trainer, the port's index is built and refreshed over a copy of
+    the rows: its optimizer updates the live ones in place, and an IVF-PQ
+    index re-ranks against the rows it holds.
+
+    ``sync=True`` resets the port's params and AdamW state to the
+    reference's after every step (before the refresh), so each step and
+    each refresh starts from the same state on both sides: a top-k
+    membership that flips between two near-tied candidates on rounding
+    changes that token's complement draws, and AdamW's normalization turns
+    the changed gradient of a rarely-touched row into a step of ~lr, which
+    the unsynced runs would carry into every later step."""
     saved = jtr.REMAT
     jtr.REMAT = False  # same numerics, faster compile
     try:
         jm = JModel(jcfg, precision_policy="f32")
         hc = jm.head_cfg
-        assert hc.mode == "amortized" and hc.mips == "ivf"
+        assert hc.mode == "amortized" and hc.mips in ("ivf", "ivfpq")
         opt = dict(lr=lr, warmup_steps=2, total_steps=STEPS)
         jparams = jm.init(jax.random.key(0))
         jindex = jm.make_head_index(jparams)
@@ -84,8 +114,7 @@ def run_both(jcfg, tcfg, batch: int, seq: int, lr: float) -> dict:
 
         model = Model(tcfg, "f32", device="cpu")
         params = params_from_jax(jax.device_get(jparams), tcfg)
-        index = IVFIndex(IVFConfig(n_probe=hc.n_probe),
-                         ivf_state_from_jax(jax.device_get(jindex.state)))
+        index = _port_index(hc, jindex, model.head_index_db(params).clone())
         tstep = steps.make_train_step(model, steps.TrainConfig(
             opt=adamw.OptConfig(**opt), precision="f32"))
         topt = adamw.init(params)
@@ -127,9 +156,12 @@ def run_both(jcfg, tcfg, batch: int, seq: int, lr: float) -> dict:
                 out["jax_params1"] = jax.device_get(jparams)
                 out["port_params1"] = adamw.tree_map(
                     lambda p: p.clone(), params)
+            if sync:
+                params = params_from_jax(jax.device_get(jparams), tcfg)
+                topt = opt_state_from_jax(jax.device_get(jopt), tcfg)
             if (i + 1) % EVERY == 0:
                 jindex = jindex.refresh(jm.head_index_db(jparams))
-                index = index.refresh(model.head_index_db(params))
+                index = index.refresh(model.head_index_db(params).clone())
                 out["refreshes"].append((jax.device_get(jindex.state),
                                          index.state))
     finally:
@@ -191,13 +223,16 @@ def main() -> None:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--threads", type=int, default=4)
+    ap.add_argument("--mips", default="ivf", choices=["ivf", "ivfpq"],
+                    help="the head's index backend")
     args = ap.parse_args()
     torch.set_num_threads(args.threads)
-    kw = dict(vocab=32000, head_mips="ivf", n_layers=args.layers)
+    kw = dict(vocab=32000, head_mips=args.mips, n_layers=args.layers)
     jg, tg = (jget, get) if args.full_width else (jget_smoke, get_smoke)
     jcfg, tcfg = jg(ARCH).scaled(**kw), tg(ARCH).scaled(**kw)
     r = run_both(jcfg, tcfg, args.batch, args.seq, args.lr)
-    print(f"d {tcfg.d_model}, {tcfg.n_layers} layers, vocab {tcfg.vocab}, "
+    print(f"{args.mips} head, d {tcfg.d_model}, {tcfg.n_layers} layers, "
+          f"vocab {tcfg.vocab}, "
           f"batch {args.batch} x {args.seq}, lr {args.lr}, refresh every "
           f"{EVERY}")
     print("step  jax_loss  jax_nll  port_loss  port_nll")

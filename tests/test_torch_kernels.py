@@ -181,8 +181,10 @@ def test_ops_dispatch_cpu_uses_plain_versions_and_counts_no_launch():
                                                  torch.tensor([2, 5])))
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
     assert set(ops.KERNELS) == {"flash_decode", "ivf_gather_score",
-                                "ivf_screen_select", "tail_gather_argmax",
-                                "fused_estimator", "fused_estimator_bwd"}
+                                "ivf_screen_select", "pq_lut_score",
+                                "pq_screen_select", "rerank_select",
+                                "tail_gather_argmax", "fused_estimator",
+                                "fused_estimator_bwd"}
 
 
 def test_ops_rejects_devices_without_a_kernel_or_plain_version():

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke
-from repro_torch.core.mips import IVFIndex
+from repro_torch.core.mips import IVFIndex, IVFPQIndex
 from repro_torch.models.model import Model
 from repro_torch.serve.server import ServeConfig, Server
 
@@ -84,6 +84,29 @@ def test_tokens_invariant_to_window_and_fusion(setup):
         assert [r.tokens for r in res] == [r.tokens for r in ref]
 
 
+def test_ivfpq_tokens_invariant_to_window_and_fusion(setup):
+    """The IVF-PQ head: fused T=4 (pq_screen_select + rerank_select) ≡
+    unfused T=1 with the kernel screen's plain version ≡ unfused T=3, on
+    one shared index."""
+    cfg, params, prompts = setup
+    pq_cfg = cfg.scaled(head_mips="ivfpq")
+    srv, ref = _serve(pq_cfg.scaled(head_fused_decode=True), params,
+                      prompts, 4)
+    assert isinstance(srv.index, IVFPQIndex)
+    assert srv.index.state.db is params["out_embed"]
+    assert all(r.status == "ok" and len(r.tokens) == 10 for r in ref)
+    kernel_index = IVFPQIndex(dataclasses.replace(srv.index.config,
+                                                  use_kernel=True),
+                              srv.index.state)
+    runs = [
+        _serve(pq_cfg.scaled(head_use_kernel=True), params, prompts, 1,
+               kernel_index)[1],
+        _serve(pq_cfg, params, prompts, 3, srv.index)[1],
+    ]
+    for res in runs:
+        assert [r.tokens for r in res] == [r.tokens for r in ref]
+
+
 def test_bf16_policy_serves(setup):
     cfg, params, prompts = setup
     srv = Server(cfg.scaled(head_fused_decode=True), params,
@@ -104,10 +127,10 @@ def _reference_report_keys() -> set[str]:
     return set(re.findall(r'^\s+"(\w+)":', block, flags=re.M))
 
 
-def test_launcher_cpu_report_has_reference_fields():
+def _launch_serve(mips: str) -> dict:
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
-         "--smoke", "--vocab", "4096", "--mips", "ivf", "--fused-decode",
+         "--smoke", "--vocab", "4096", "--mips", mips, "--fused-decode",
          "--device", "cpu", "--requests", "3", "--slots", "2",
          "--new-tokens", "4", "--max-seq", "64"],
         capture_output=True, text=True, env=_env(), timeout=240, check=True,
@@ -117,6 +140,20 @@ def test_launcher_cpu_report_has_reference_fields():
     assert len(keys) >= 20 and set(rep) == keys
     assert rep["requests"] == 3 and rep["decoded_tokens"] == 12
     assert rep["index_mb"] > 0
+    return rep
+
+
+def test_launcher_cpu_report_has_reference_fields():
+    _launch_serve("ivf")
+
+
+def test_launcher_cpu_ivfpq_report():
+    """``--mips ivfpq``: the reference launcher's report, every token
+    certified, and an index far smaller than the IVF one (uint8 codes in
+    place of fp32 row copies)."""
+    rep = _launch_serve("ivfpq")
+    assert rep["ok_rate"] == 1.0
+    assert rep["index_mb"] < _launch_serve("ivf")["index_mb"] / 4
 
 
 def test_launcher_rejects_unported_flags():

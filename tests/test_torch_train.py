@@ -400,22 +400,42 @@ def test_checkpoint_roundtrip_keep_n_and_skips_broken(tmp_path):
     assert torch.equal(got["w"], torch.zeros(3))
 
 
-def test_launcher_cpu_prints_reference_json(tmp_path, capsys):
+def _launch_train(workdir, capsys, mips: str, steps_: int) -> dict:
     train_launcher.main([
-        "--arch", ARCH, "--smoke", "--vocab", "4096", "--mips", "ivf",
-        "--steps", "2", "--batch", "2", "--seq", "16", "--device", "cpu",
-        "--index-refresh-every", "1", "--workdir", str(tmp_path)])
+        "--arch", ARCH, "--smoke", "--vocab", "4096", "--mips", mips,
+        "--steps", str(steps_), "--batch", "2", "--seq", "16", "--device",
+        "cpu", "--index-refresh-every", "1", "--ckpt-every", "2",
+        "--workdir", str(workdir)])
     out = json.loads(capsys.readouterr().out)
-    assert out["status"] == "done" and out["step"] == 2
-    assert out["index_refreshes"] == 2 and out["index_swaps"] == 0
+    assert out["status"] == "done" and out["step"] == steps_
+    assert out["index_swaps"] == 0
     for key in ("loss", "nll", "aux", "log_z", "grad_norm", "lr"):
         assert np.isfinite(out[key])
+    return out
+
+
+def test_launcher_cpu_prints_reference_json(tmp_path, capsys):
+    out = _launch_train(tmp_path, capsys, "ivf", 2)
+    assert out["index_refreshes"] == 2
+
+
+def test_launcher_cpu_ivfpq_runs_and_resumes(tmp_path, capsys, caplog):
+    """``--mips ivfpq``: the IVF-PQ head trains, checkpoints its index
+    (rows, centroids, codebooks) and resumes from it."""
+    out = _launch_train(tmp_path, capsys, "ivfpq", 2)
+    assert out["index_refreshes"] == 2
+    st, _, _ = manager.restore(str(tmp_path), step=2)
+    assert set(st["index"]) == {"db", "centroids", "codebooks"}
+    caplog.set_level("INFO", logger="repro_torch.train")
+    out = _launch_train(tmp_path, capsys, "ivfpq", 4)
+    assert "resumed from step 2" in caplog.text
+    assert out["index_refreshes"] == 2  # steps 3 and 4, after the resume
 
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"],
                                   ["--sharded-ckpt"], ["--async-refresh"],
                                   ["--adaptive-probe"], ["--probe-router"],
-                                  ["--mips", "ivfpq"], ["--mips", "lsh"]])
+                                  ["--n-probe-max", "4"], ["--mips", "lsh"]])
 def test_launcher_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         train_launcher.main(["--arch", ARCH, "--smoke", "--device", "cpu",
