@@ -12,9 +12,11 @@ then, for each head index (IVF, then IVF-PQ)
   checkpoint at step 3), checks a finite and falling loss, and resumes
   from the step-3 checkpoint to check that the resumed steps match;
 
-then runs six more steps with each top-k probe (exact, IVF, IVF-PQ)
-reading the amortized loss beside the exact NLL, and profiles one training
-step.
+after serving with both indexes, it times warm serving repeats of the two,
+interleaved (wall, decode-dispatch and index-query host time, syncs per
+token); at the end it runs six more steps with each top-k probe (exact,
+IVF, IVF-PQ) reading the amortized loss beside the exact NLL, and profiles
+one training step.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -535,7 +537,9 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
     on small-integer LUTs and within rtol 1e-5 on random ones, probe widths
     below n_probe (0 included) and an all-dead query; ``rerank_select``
     over the screen's survivors against a 32000 x 2048 table of small
-    integers (and one of random fp32 for the second check)."""
+    integers (and one of random fp32 for the second check). Times and
+    bounds are taken at the main path's full probe width, over its
+    survivors."""
     from repro_torch.kernels import decode_fused as kdf
     from repro_torch.kernels import pq_lut_score as kpls
     from repro_torch.kernels import ref
@@ -608,28 +612,27 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
         check(torch.equal(di, wdi) and torch.equal(dv, wdv)
               and bool((di[2] == -1).all()),
               f"pq_screen_select b={b}: the all-dead query differs")
-        live = (mids[probe.long()] >= 0) & (
-            torch.arange(g.n_probe, device="cuda")[None, :, None]
-            < width[:, None, None])
+        # timed at the main path's full probe width (no probe_width)
+        full_v, full_i = kdf.pq_screen_select(*sargs, r=g.r)
+        live = mids[probe.long()] >= 0
         live_slots = torch.unique(
             (probe.long()[:, :, None] * g.cap
              + torch.arange(g.cap, device="cuda")[None, None, :])[live])
-        tiles = torch.unique(probe[torch.arange(g.n_probe, device="cuda")[None]
-                                   < width[:, None]])
+        tiles = torch.unique(probe)
         # ids of the probed tiles, codes of their live members, LUTs,
-        # coarse, probe, widths, overflow pair in; top-r (values, ids) out
+        # coarse, probe, overflow pair in; top-r (values, ids) out
         rec = {"max_abs_err": max_err(rv, wrv),
-               "ms": timer(lambda: kdf.pq_screen_select(
-                   *sargs, r=g.r, probe_width=width)),
-               "plain_ms": timer(lambda: ref.pq_screen_select_ref(
-                   *sargs, g.r, probe_width=width)),
+               "ms": timer(lambda: kdf.pq_screen_select(*sargs, r=g.r)),
+               "plain_ms": timer(lambda: ref.pq_screen_select_ref(*sargs,
+                                                                  g.r)),
                "nb": tiles.numel() * g.cap * 4 + live_slots.numel() * g.m_sub
-               + nbytes(lut, coarse, probe, width, o_sc, o_ids) + b * g.r * 8,
+               + nbytes(lut, coarse, probe, o_sc, o_ids) + b * g.r * 8,
                "flops": float(int(live.sum().item()) * (g.m_sub + 1)),
                "bitwise_random": torch.equal(rv, wrv)}
         pq_record(records, "pq_screen_select", tag, b, rec)
 
-        # ---- rerank_select over the screen's survivors, some dead
+        # ---- rerank_select over the narrow screen's survivors, some dead
+        # (checks); timed over the full-width screen's survivors
         cand, lut_vals = got_i, got_v.clone()
         lut_vals[:, 5::17] = float("-inf")  # dead screening values
         q = int_valued(torch, gen, (b, g.d))
@@ -645,14 +648,16 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
         check(values_close(torch, rv, wrv, scaled=True),
               f"rerank_select b={b} disagrees on random rows: "
               f"{max_err(rv, wrv)}")
-        alive = (cand >= 0) & ~torch.isneginf(lut_vals)
-        rows = torch.unique(cand[alive]).numel()
+        targs = (emb, full_i, full_v, q)
+        alive = (full_i >= 0) & ~torch.isneginf(full_v)
+        rows = torch.unique(full_i[alive]).numel()
         # each distinct live survivor row once, candidates, screening values
         # and q in; the top-k (values, ids) out; a 2d dot per live survivor
         rec = {"max_abs_err": max_err(rv, wrv),
-               "ms": timer(lambda: kdf.rerank_select(*rargs, k=g.k)),
-               "plain_ms": timer(lambda: ref.rerank_select_ref(*rargs, g.k)),
-               "nb": rows * g.d * 4 + nbytes(cand, lut_vals, q) + b * g.k * 8,
+               "ms": timer(lambda: kdf.rerank_select(*targs, k=g.k)),
+               "plain_ms": timer(lambda: ref.rerank_select_ref(*targs, g.k)),
+               "nb": rows * g.d * 4 + nbytes(full_i, full_v, q)
+               + b * g.k * 8,
                "flops": 2.0 * g.d * int(alive.sum().item()),
                "bitwise_random": torch.equal(rv, wrv)}
         pq_record(records, "rerank_select", tag, b, rec)
@@ -708,15 +713,28 @@ def serve(torch, seed: int, cfg, scfg_kw) -> tuple[dict, dict]:
     rng = np.random.default_rng(seed)
     prompts = [list(rng.integers(0, cfg.vocab, size=rng.integers(4, 13)))
                for _ in range(REQUESTS)]
-    counts, stats = {}, {}
+    counts, stats, servers = {}, {}, {}
     for mips in MIPS:
-        runs, stats[mips] = serve_one(torch, cfg, mips, params, prompts,
-                                      scfg_kw)
+        runs, stats[mips], servers[mips] = serve_one(torch, cfg, mips, params,
+                                                     prompts, scfg_kw)
         for run in runs:
             for name, n in run.items():
                 if n and name not in counts:
                     counts[name] = n
         torch.cuda.empty_cache()
+    # warm repeats, the indexes in the order A B B A, so that a drift of the
+    # host's speed during the call falls on both
+    for mips in MIPS + MIPS[::-1]:
+        for kind, srv in zip(("fused", "unfused"), servers[mips]):
+            for key, v in warm_repeat(torch, srv, prompts[:SLOTS]).items():
+                stats[mips].setdefault(f"warm_{kind}_{key}", []).append(v)
+    for mips in MIPS:
+        for kind, srv in zip(("fused", "unfused"), servers[mips]):
+            stats[mips][f"warm_{kind}_syncs_per_token"] = syncs_per_token(
+                torch, srv, prompts[:SLOTS])
+        print(f"[serve] {mips} warm, per token: " + json.dumps(
+            {k: v for k, v in stats[mips].items()
+             if k.startswith(("warm_", "device_"))}), flush=True)
     print("[serve] index_mb " + json.dumps(
         {m: stats[m]["index_mb"] for m in MIPS}), flush=True)
     return counts, stats
@@ -725,7 +743,8 @@ def serve(torch, seed: int, cfg, scfg_kw) -> tuple[dict, dict]:
 def serve_one(torch, cfg, mips: str, params, prompts, scfg_kw):
     """Serve ``prompts`` with the ``mips`` head fused at window T=8, then
     unfused at T=1 over the same index, and require the same tokens.
-    Returns ((fused counts, unfused counts), stats)."""
+    Returns ((fused counts, unfused counts), stats, (fused server, unfused
+    server))."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import report
     from repro_torch.serve.server import ServeConfig, Server
@@ -781,17 +800,71 @@ def serve_one(torch, cfg, mips: str, params, prompts, scfg_kw):
              "index_mb": rep["index_mb"],
              "fused_tokens_per_s": rep["tokens_per_s"],
              "unfused_tokens_per_s": rep1["tokens_per_s"]}
-    profile(torch, f"serve {mips} fused T=8",
-            lambda: sum(len(r.tokens) for r in srv.run(prompts[:SLOTS])))
-    return (fused_counts, unfused_counts), stats
+    prof = profile(torch, f"serve {mips} fused T=8",
+                   lambda: sum(len(r.tokens)
+                               for r in srv.run(prompts[:SLOTS])))
+    stats.update(device_ms_per_token=prof["device_ms"] / prof["tokens"],
+                 device_events_per_token=prof["device_events"]
+                 / prof["tokens"])
+    return (fused_counts, unfused_counts), stats, (srv, srv1)
 
 
-def profile(torch, label: str, fn) -> None:
+def warm_repeat(torch, srv, prompts) -> dict:
+    """A warm, unprofiled repeat of ``srv.run(prompts)``, per decoded token:
+    the wall time, the host time spent in the server's decode dispatches
+    (``decode_fn``) and, inside them, in the head index's queries
+    (``screen_select`` / ``topk_batch``, the one stage that differs between
+    the indexes)."""
+    host = {"decode": 0.0, "index": 0.0}
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            host[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    decode_fn, index = srv.decode_fn, srv.index
+    srv.decode_fn = timed(decode_fn, "decode")
+    for name in ("screen_select", "topk_batch"):  # instance over class
+        setattr(index, name, timed(getattr(index, name), "index"))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = sum(len(r.tokens) for r in srv.run(prompts))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        srv.decode_fn = decode_fn
+        for name in ("screen_select", "topk_batch"):
+            delattr(index, name)
+    return {"wall_ms_per_token": 1e3 * wall / tokens,
+            "decode_host_ms_per_token": 1e3 * host["decode"] / tokens,
+            "index_host_ms_per_token": 1e3 * host["index"] / tokens}
+
+
+def syncs_per_token(torch, srv, prompts) -> float:
+    """Host-device syncs per decoded token of ``srv.run(prompts)``, counted
+    under CUDA's sync debug mode."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tokens = sum(len(r.tokens) for r in srv.run(prompts))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught) / tokens
+
+
+def profile(torch, label: str, fn) -> dict:
     """Where a run's time goes: torch.profiler over ``fn()`` (which returns
-    the number of tokens it processed); prints wall time, the summed
-    duration of the device's own events (kernels, copies), the device's
-    idle share, and the device events that took the most time. Profiling
-    slows the host, so the idle share is an upper estimate of the
+    the number of tokens it processed); prints and returns wall time, the
+    summed duration of the device's own events (kernels, copies), the
+    device's idle share, and the device events that took the most time.
+    Profiling slows the host, so the idle share is an upper estimate of the
     unprofiled run's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -811,11 +884,12 @@ def profile(torch, label: str, fn) -> None:
             acc[1] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    print(f"[profile] {label} " + json.dumps({
-        "tokens": tokens, "wall_ms": wall_ms,
-        "device_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "device_events": sum(n for n, _ in by_name.values()),
-        "top": [[name, n, ms] for name, (n, ms) in top]}), flush=True)
+    out = {"tokens": tokens, "wall_ms": wall_ms, "device_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "device_events": sum(n for n, _ in by_name.values()),
+           "top": [[name, n, ms] for name, (n, ms) in top]}
+    print(f"[profile] {label} " + json.dumps(out), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------- training

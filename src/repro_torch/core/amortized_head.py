@@ -46,9 +46,9 @@ class HeadConfig:
     adaptive_probe: bool = False  # not ported yet
     n_probe_init: int = 0
     n_probe_max: int = 0
-    use_kernel: bool = False  # CPU: the IVF / IVF-PQ probe and the training
-    #   loss through the kernels' plain versions (on CUDA the kernels always
-    #   run)
+    use_kernel: bool = False  # CPU: the IVF probe and the training loss
+    #   through the kernels' plain versions (on CUDA the kernels always run;
+    #   the IVF-PQ screen always takes pq_lut_score or its plain version)
     fused_decode: bool = False  # the index's fused screen (ivf_screen_select,
     #   or pq_screen_select + rerank_select) + tail_gather_argmax
     chunk: int = 256  # token chunk of the training loss
@@ -129,7 +129,6 @@ def make_index(cfg: HeadConfig, emb: torch.Tensor, device=None, **build_kw
     else:
         # the exact re-rank covers the head's k with screening headroom
         mips_cfg = mips.PQConfig(n_probe=cfg.n_probe,
-                                 use_kernel=cfg.use_kernel,
                                  rerank=2 * max(8, cfg.k))
     db = emb if cfg.n == emb.shape[0] else emb[: cfg.n]
     return mips.build_index(mips_cfg, db, **build_kw)

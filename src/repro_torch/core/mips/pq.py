@@ -73,8 +73,6 @@ class PQConfig:
     rerank: int = 0  # top-r LUT candidates re-ranked exactly; 0 -> 2k
     seed: int = 0  # seeds the cold build's row samples (torch.Generator)
     n_probe: int = 8  # clusters probed per query
-    use_kernel: bool = False  # CPU: the screen through pq_lut_score's
-    #   plain version (CUDA queries always take the kernels)
 
 
 class PQState(NamedTuple):
@@ -231,13 +229,7 @@ class IVFPQIndex:
         qf = q.float()
         b = qf.shape[0]
         probe, coarse, lut, o_scores = self._screen_inputs(qf, n_probe)
-        if self.config.use_kernel or qf.is_cuda:
-            scores = ops.pq_lut_score(st.member_codes, probe, lut)
-        else:
-            codes = st.member_codes[probe.long()]  # (b, np, cap, m)
-            scores = quant.lut_scores(
-                lut, codes.reshape(b, -1, st.m_sub)).reshape(probe.shape
-                                                             + (st.cap,))
+        scores = ops.pq_lut_score(st.member_codes, probe, lut)
         # residual PQ: the LUT sum, then q·centroid
         scores = (scores + coarse[..., None]).reshape(b, -1)
         ids = st.member_ids[probe.long()].reshape(b, -1)

@@ -89,10 +89,10 @@ def main(argv=None) -> None:
     ap.add_argument("--overlength", default="truncate",
                     choices=["truncate", "reject"])
     ap.add_argument("--head-use-kernel", action="store_true",
-                    help="on the CPU, run the unfused probe's screen "
-                         "through its kernel's plain version "
-                         "(ivf_gather_score, pq_lut_score); on CUDA the "
-                         "kernels always run")
+                    help="on the CPU, run the unfused IVF probe "
+                         "through ivf_gather_score's plain version (the "
+                         "IVF-PQ screen always takes pq_lut_score's); on "
+                         "CUDA the kernels always run")
     ap.add_argument("--fused-decode", action="store_true",
                     help="fused decode head: the index's fused screen "
                          "(ivf_screen_select, or pq_screen_select + "

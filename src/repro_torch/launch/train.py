@@ -66,9 +66,10 @@ def main(argv=None) -> None:
                     help="> 0: refresh when relative embedding drift exceeds")
     ap.add_argument("--head-use-kernel", action="store_true",
                     help="on the CPU, run the head through the plain "
-                         "versions of its kernels (ivf_gather_score or "
-                         "pq_lut_score, fused_estimator and its backward); "
-                         "on CUDA the kernels always run")
+                         "versions of its kernels (ivf_gather_score, "
+                         "fused_estimator and its backward; the IVF-PQ "
+                         "screen always takes pq_lut_score's); on CUDA the "
+                         "kernels always run")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
     ap.add_argument("--workdir", default=str(build_dir().parent / "train"),

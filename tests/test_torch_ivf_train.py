@@ -9,8 +9,8 @@ Test size: tinyllama-1.1b's smoke config (2 layers, d 64) at the full
 vocabulary of 32000, so the amortized head (k = l = 576) and the IVF index
 are live; f32 policy, batch 2 x 128 (one head chunk), lr 1e-3.
 
-Run as a script, the same comparison prints its table at other sizes; the
-full-width witness (d 2048, one layer, batch 1 x 256, lr 1e-4: a few
+Run as a script, the same comparison (unsynced, with each step's top-k
+flips) prints its table at other sizes; the full-width witness (d 2048, one layer, batch 1 x 256, lr 1e-4: a few
 minutes on a CPU) is
 
     PYTHONPATH=src python tests/test_torch_ivf_train.py --full-width
@@ -47,6 +47,7 @@ from repro_torch.configs import get, get_smoke
 from repro_torch.convert import (ivf_state_from_jax, opt_state_from_jax,
                                  params_from_jax, pq_state_from_jax)
 from repro_torch.core import amortized_head as ah
+from repro_torch.core import estimators as est
 from repro_torch.core.mips.ivf import IVFConfig, IVFIndex
 from repro_torch.core.mips.pq import IVFPQIndex, PQConfig
 from repro_torch.launch import steps
@@ -74,25 +75,48 @@ def _port_index(hc, jindex, db: torch.Tensor):
                       pq_state_from_jax(st, db))
 
 
+def _flips(jtopk, ptopk, h, jdb) -> list[dict]:
+    """The tokens whose top-k id sets differ between the reference's probe
+    ``jtopk`` and the port's ``ptopk``: the ids only one side picked, their
+    scores on the reference's side (``h`` against the index rows ``jdb``)
+    and the reference's k-th value."""
+    jids, pids = np.asarray(jtopk.ids), ptopk.ids.numpy()
+    out = []
+    for t in range(jids.shape[0]):
+        a, b = set(jids[t].tolist()), set(pids[t].tolist())
+        if a == b:
+            continue
+        ids = sorted(a ^ b)
+        out.append(dict(token=t, jax_only=sorted(a - b),
+                        port_only=sorted(b - a),
+                        scores=np.asarray(jdb[np.array(ids)] @ h[t]).tolist(),
+                        kth=float(jtopk.values[t, -1])))
+    return out
+
+
 def run_both(jcfg, tcfg, batch: int, seq: int, lr: float,
-             sync: bool = False) -> dict:
+             sync_from: int | None = None) -> dict:
     """STEPS steps of each trainer's train step from the same params and
     index, with the reference's tail draws handed to the port. Returns the
     per-step losses of both sides, both sides' params after the first
-    step, and both sides' index states after each refresh.
+    step, both sides' index states after each refresh, and per step the
+    top-k flips: each token whose probed top-k set differs between the
+    sides, with the contested ids' scores on the reference's side (its
+    hidden state against the rows its index was last built over) beside
+    its k-th value.
 
     The head's backend is the config's (``ivf`` or ``ivfpq``). As in the
     port's trainer, the port's index is built and refreshed over a copy of
     the rows: its optimizer updates the live ones in place, and an IVF-PQ
     index re-ranks against the rows it holds.
 
-    ``sync=True`` resets the port's params and AdamW state to the
-    reference's after every step (before the refresh), so each step and
-    each refresh starts from the same state on both sides: a top-k
-    membership that flips between two near-tied candidates on rounding
-    changes that token's complement draws, and AdamW's normalization turns
-    the changed gradient of a rarely-touched row into a step of ~lr, which
-    the unsynced runs would carry into every later step."""
+    ``sync_from=s`` resets the port's params and AdamW state to the
+    reference's after step s and every later one (before the refresh), so
+    each later step and refresh starts from the same state on both sides:
+    a top-k membership that flips between two near-tied candidates on
+    rounding changes that token's complement draws, and AdamW's
+    normalization turns the changed gradient of a rarely-touched row into
+    a step of ~lr, which an unsynced run carries into every later step."""
     saved = jtr.REMAT
     jtr.REMAT = False  # same numerics, faster compile
     try:
@@ -102,6 +126,7 @@ def run_both(jcfg, tcfg, batch: int, seq: int, lr: float,
         opt = dict(lr=lr, warmup_steps=2, total_steps=STEPS)
         jparams = jm.init(jax.random.key(0))
         jindex = jm.make_head_index(jparams)
+        jdb = jm.head_index_db(jparams)  # the rows jindex was built over
         jstep = jax.jit(jsteps.make_train_step(jm, jsteps.TrainConfig(
             opt=jadamw.OptConfig(**opt), precision="f32")))
         jopt = jadamw.init(jparams)
@@ -121,7 +146,7 @@ def run_both(jcfg, tcfg, batch: int, seq: int, lr: float,
         exact_head = ah.HeadConfig(n=hc.n, mode="exact")
 
         out = {k: [] for k in ("jax_loss", "jax_nll", "port_loss",
-                               "port_nll", "refreshes")}
+                               "port_nll", "refreshes", "flips")}
         for i in range(STEPS):
             b = jmake_batch(jcfg, JDataConfig(batch=batch, seq=seq), i)
             key = jax.random.fold_in(jax.random.key(21), i)
@@ -149,6 +174,11 @@ def run_both(jcfg, tcfg, batch: int, seq: int, lr: float,
                     model._out_embed(params), th.reshape(-1, th.shape[-1]),
                     tb["labels"].reshape(-1), exact_head
                 ).loss.mean().item())
+                ptopk = est.topk_probe(
+                    model._out_embed(params)[: hc.n],
+                    th.reshape(-1, th.shape[-1]), hc.k, index=index,
+                    n_valid=hc.n)
+            out["flips"].append(_flips(topk, ptopk, h, jdb))
             params, topt, tm_ = tstep(params, topt, tb, (0, i), index,
                                       draws=draws)
             out["port_loss"].append(tm_["loss"].item())
@@ -156,11 +186,12 @@ def run_both(jcfg, tcfg, batch: int, seq: int, lr: float,
                 out["jax_params1"] = jax.device_get(jparams)
                 out["port_params1"] = adamw.tree_map(
                     lambda p: p.clone(), params)
-            if sync:
+            if sync_from is not None and i + 1 >= sync_from:
                 params = params_from_jax(jax.device_get(jparams), tcfg)
                 topt = opt_state_from_jax(jax.device_get(jopt), tcfg)
             if (i + 1) % EVERY == 0:
-                jindex = jindex.refresh(jm.head_index_db(jparams))
+                jdb = jm.head_index_db(jparams)
+                jindex = jindex.refresh(jdb)
                 index = index.refresh(model.head_index_db(params).clone())
                 out["refreshes"].append((jax.device_get(jindex.state),
                                          index.state))
@@ -239,6 +270,9 @@ def main() -> None:
     for i in range(STEPS):
         print(f"{i + 1:4d}  {r['jax_loss'][i]:.5f}  {r['jax_nll'][i]:.5f}  "
               f"{r['port_loss'][i]:.5f}  {r['port_nll'][i]:.5f}")
+    for i, flips in enumerate(r["flips"]):
+        for f in flips:
+            print(f"step {i + 1} top-k flip: {json.dumps(f)}")
     print(json.dumps({k: r[k] for k in ("jax_loss", "jax_nll", "port_loss",
                                         "port_nll")}))
 

@@ -86,8 +86,8 @@ def test_tokens_invariant_to_window_and_fusion(setup):
 
 def test_ivfpq_tokens_invariant_to_window_and_fusion(setup):
     """The IVF-PQ head: fused T=4 (pq_screen_select + rerank_select) ≡
-    unfused T=1 with the kernel screen's plain version ≡ unfused T=3, on
-    one shared index."""
+    unfused T=1 (pq_lut_score + rerank_select) ≡ unfused T=3, on one shared
+    index."""
     cfg, params, prompts = setup
     pq_cfg = cfg.scaled(head_mips="ivfpq")
     srv, ref = _serve(pq_cfg.scaled(head_fused_decode=True), params,
@@ -95,12 +95,8 @@ def test_ivfpq_tokens_invariant_to_window_and_fusion(setup):
     assert isinstance(srv.index, IVFPQIndex)
     assert srv.index.state.db is params["out_embed"]
     assert all(r.status == "ok" and len(r.tokens) == 10 for r in ref)
-    kernel_index = IVFPQIndex(dataclasses.replace(srv.index.config,
-                                                  use_kernel=True),
-                              srv.index.state)
     runs = [
-        _serve(pq_cfg.scaled(head_use_kernel=True), params, prompts, 1,
-               kernel_index)[1],
+        _serve(pq_cfg, params, prompts, 1, srv.index)[1],
         _serve(pq_cfg, params, prompts, 3, srv.index)[1],
     ]
     for res in runs:
