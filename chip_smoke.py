@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA
 GPU: builds the CUDA kernels from ``src/repro_torch/csrc``, holds each one
-against its plain PyTorch version at the shapes of the paths that run it,
-then, for each head index (IVF, then IVF-PQ)
+against its plain PyTorch version at the shapes of the paths that run it
+(``flash_decode`` also at tinyllama's 2,048-position context,
+``ivf_gather_score`` also at 256 queries with skewed probes) and times it
+by device time alone (:class:`Timer`), beside its host issue time, then,
+for each head index (IVF, then IVF-PQ)
 
 * serves a full-width tinyllama-1.1b (random weights from ``--seed``) with
   the fused head and again with the unfused kernel probe at decode window
@@ -16,7 +19,8 @@ after serving with both indexes, it times warm serving repeats of the two,
 interleaved (wall, decode-dispatch and index-query host time, syncs per
 token); at the end it runs six more steps with each top-k probe (exact,
 IVF, IVF-PQ) reading the amortized loss beside the exact NLL, and profiles
-one training step.
+one training step with each index. The profiled serving and training runs
+give each kernel's device time per call on its path (``path_us``).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -28,9 +32,10 @@ repository beside it, the script exits non-zero and prints no result.
 
 Tolerances: ids and indices exact; fp32 values rtol=1e-5, atol=1e-5;
 on small-integer inputs the IVF and IVF-PQ kernels' values bit for bit;
-rerank_select on random fp32 rows rtol=1e-5 and an atol of 1e-5 times
-the largest magnitude (2048-term dot products summed in different orders:
-a score that cancels to near 0 keeps the rounding of its terms);
+rerank_select and ivf_gather_score on random fp32 rows rtol=1e-5 and an
+atol of 1e-5 times the largest magnitude (2048-term dot products summed in
+different orders: a score that cancels to near 0 keeps the rounding of its
+terms);
 flash_decode (bf16 inputs, fp32 output) atol=2e-3; fused_estimator and its
 backward at training shapes rtol=1e-4 and an atol of 1e-5 times the largest
 magnitude of the tensor compared (2048-term dot products and sums of up to
@@ -49,6 +54,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -69,6 +75,7 @@ FP32_FLOPS = 67e12
 # 4 slots of a 512-position KV ring, fused decode window 8
 REQUESTS, NEW_TOKENS, SLOTS, MAX_SEQ, WINDOW = 8, 32, 4, 512, 8
 ITERS = 20  # timed launches per kernel
+LONG_CONTEXT = 2048  # tinyllama-1.1b's context: flash_decode's second shape
 
 # the training run: batch 2 x seq 1024 = 2048 tokens a step (8 head chunks of
 # 256, two attention query blocks), 6 steps, index refresh every 3, a
@@ -103,6 +110,23 @@ SOURCE = {
     "rerank_select": "src/repro_torch/csrc/decode_fused.cu",
 }
 MIPS = ("ivf", "ivfpq")  # the head indexes served and trained
+# each kernel's CUDA symbols, as the profiler names them: (those of which a
+# call launches exactly one, counted as the calls; the others it launches)
+KERNEL_SYMBOLS = {
+    "flash_decode": (("flash_decode_split_kernel",
+                      "flash_decode_split_mma_kernel"),
+                     ("flash_decode_combine_kernel",)),
+    "ivf_gather_score": (("ivf_gather_score_kernel",
+                          "ivf_gather_score_small_kernel"),
+                         ("ivf_gather_score_plan_kernel",)),
+    "ivf_screen_select": (("ivf_screen_select_kernel",), ()),
+    "tail_gather_argmax": (("tail_gather_argmax_kernel",), ()),
+    "fused_estimator": (("fused_estimator_fwd_kernel",), ()),
+    "fused_estimator_bwd": (("fused_estimator_bwd_kernel",), ()),
+    "pq_lut_score": (("pq_lut_score_kernel",), ()),
+    "pq_screen_select": (("pq_screen_select_kernel",), ()),
+    "rerank_select": (("rerank_select_kernel",), ()),
+}
 
 
 class Failed(RuntimeError):
@@ -124,28 +148,73 @@ def gpu_line() -> str:
 
 # ---------------------------------------------------------------- timing
 class Timer:
-    """Median per-launch device time with CUDA events; L2 (50 MB) is
-    flushed before every timed launch, as the serving path finds it cold."""
+    """Median per-launch device time of a call, with CUDA events around its
+    device work alone. L2 (50 MB) is flushed before every timed launch, as
+    the serving path finds it cold. The stream is then held busy
+    (``torch.cuda._sleep``) for longer than the host takes to issue the
+    call, so the call's kernels are already queued when the first event
+    fires, and the host's issue time (wrapper, allocation, binding, launch)
+    falls outside the pair. The hold is sized from the call's own host time
+    (:meth:`host_us`) with a margin, and doubled and re-timed if the host
+    outlasted it in any launch; a call that still outlasts it (one that
+    waits on the device itself) is listed in ``uncovered``."""
 
     def __init__(self, torch, iters: int):
         self.torch = torch
         self.iters = iters
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        self.uncovered: list[str] = []
+        torch.cuda._sleep(1000)  # first-use costs
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(1 << 21)
+        b.record()
+        b.synchronize()
+        self.cycles_per_us = (1 << 21) / (1e3 * a.elapsed_time(b))
 
-    def __call__(self, fn) -> float:
+    def host_us(self, fn) -> float:
+        """Median host time to issue ``fn()``: host clock around the call,
+        no sync inside it (one after it, outside the clock)."""
         torch = self.torch
-        fn()  # warm-up (and first-use costs)
         times = []
         for _ in range(self.iters):
-            self.flush.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
+            times.append(1e6 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
         return statistics.median(times)
+
+    def both(self, fn, label: str = "") -> tuple[float, float]:
+        """(median device ms per call, median host issue us per call)."""
+        torch = self.torch
+        fn()  # warm-up (and first-use costs)
+        host = self.host_us(fn)
+        hold_us = 2.0 * host + 50.0
+        for _ in range(4):
+            times, late = [], 0
+            for _ in range(self.iters):
+                self.flush.zero_()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                torch.cuda._sleep(int(hold_us * self.cycles_per_us))
+                a.record()
+                fn()
+                late += 1e6 * (time.perf_counter() - t0) >= hold_us
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            if not late:
+                break
+            hold_us *= 2
+        else:
+            self.uncovered.append(label)
+        return statistics.median(times), host
+
+    def __call__(self, fn, label: str = "") -> float:
+        return self.both(fn, label)[0]
 
 
 def bound_ms(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -168,17 +237,20 @@ def close(torch, got, want, rel: float = 1e-5) -> bool:
                           equal_nan=True)
 
 
-def make_record(name, err, ms, plain_ms, lib_ms, nb, flops, peak) -> dict:
-    """One entry of the ``{"kernels": [...]}`` line (launches filled in
-    from the main path's run later), printed as a check line."""
+def make_record(name, err, timed, plain_ms, lib_ms, nb, flops, peak) -> dict:
+    """One entry of the ``{"kernels": [...]}`` line (launches and path_us
+    filled in from the main path's runs later), printed as a check line;
+    ``timed`` is :meth:`Timer.both` of the kernel's call."""
+    ms, host = timed
     b_ms, b_by = bound_ms(nb, flops, peak)
     print(f"[kernel] {name}: ok max_abs_err={err:.3g} ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-          f"library_ms={lib_ms}", flush=True)
+          f"host_us={host:.1f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+          f"({b_by}) library_ms={lib_ms}", flush=True)
     return {"name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": TPU_KERNEL[name], "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
+            "bound_by": b_by, "library_ms": lib_ms, "host_us": host,
+            "path_us": None}
 
 
 @dataclasses.dataclass
@@ -226,9 +298,60 @@ def int_valued(torch, gen, shape, lo=-2, hi=3):
                          dtype=torch.int32).float()
 
 
+def flash_decode_case(torch, gen, g: Geometry, timer: Timer, S: int,
+                      lengths) -> dict:
+    """flash_decode on a bf16 KV ring of ``g.slots`` sequences x ``S``
+    positions at tinyllama's heads: checked against its plain version
+    (atol 2e-3), each sequence computed alone equal bit for bit to the
+    batch's row, two launches equal; timed beside the plain version and
+    SDPA (GQA, masked), with the bytes and flops of its bound."""
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import ref
+
+    B = g.slots
+    q = torch.randn((B, g.hq, g.hd), generator=gen, device="cuda").bfloat16()
+    kc = torch.randn((B, S, g.hkv, g.hd), generator=gen,
+                     device="cuda").bfloat16()
+    vc = torch.randn((B, S, g.hkv, g.hd), generator=gen,
+                     device="cuda").bfloat16()
+    got = kfd.flash_decode(q, kc, vc, lengths)
+    again = kfd.flash_decode(q, kc, vc, lengths)
+    alone = [kfd.flash_decode(q[i:i + 1], kc[i:i + 1], vc[i:i + 1],
+                              lengths[i:i + 1]) for i in range(B)]
+    want = ref.flash_decode_ref(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"flash_decode S={S}: shape / finiteness")
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, rtol=0, atol=2e-3),
+          f"flash_decode S={S} disagrees with its plain version: {err}")
+    check(torch.equal(got, again), f"flash_decode S={S}: two launches differ")
+    check(all(torch.equal(a[0], got[i]) for i, a in enumerate(alone)),
+          f"flash_decode S={S}: a sequence alone differs from the batch")
+    mask = (torch.arange(S, device="cuda")[None] < lengths[:, None])
+    mask = mask[:, None, None, :]
+    qs, ks, vs = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    try:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        lib = timer(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True),
+                    "sdpa")
+    except TypeError:  # a PyTorch without GQA in SDPA: no one-call yardstick
+        lib = None
+    live = int(lengths.clamp(1, S).sum().item())
+    return {"err": err,
+            "timed": timer.both(lambda: kfd.flash_decode(q, kc, vc, lengths),
+                                "flash_decode"),
+            "plain_ms": timer(lambda: ref.flash_decode_ref(q, kc, vc, lengths),
+                              "flash_decode plain"),
+            "lib_ms": lib,
+            "nb": nbytes(q, lengths) + 2 * live * g.hkv * g.hd * 2
+            + B * g.hq * g.hd * 4,
+            "flops": 4 * live * g.hq * g.hd}
+
+
 def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
     from repro_torch.kernels import decode_fused as kdf
-    from repro_torch.kernels import flash_decode as kfd
     from repro_torch.kernels import ivf_gather_score as kigs
     from repro_torch.kernels import ref
 
@@ -239,39 +362,28 @@ def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
     def record(*args):
         out.append(make_record(*args))
 
-    # ---- flash_decode: bf16 KV ring of every slot, lengths 1 .. max_seq
+    # ---- flash_decode: bf16 KV ring of every slot, lengths 1 .. max_seq;
+    # then tinyllama-1.1b's full 2,048-position context (keys ``long_*``)
     B, S = g.slots, g.max_seq
-    q = torch.randn((B, g.hq, g.hd), generator=gen, device="cuda").bfloat16()
-    kc = torch.randn((B, S, g.hkv, g.hd), generator=gen,
-                     device="cuda").bfloat16()
-    vc = torch.randn((B, S, g.hkv, g.hd), generator=gen,
-                     device="cuda").bfloat16()
     lengths = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
                             dtype=torch.int32)
     lengths[0], lengths[-1] = 1, S
-    got = kfd.flash_decode(q, kc, vc, lengths)
-    want = ref.flash_decode_ref(q, kc, vc, lengths)
-    torch.cuda.synchronize()
-    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
-          "flash_decode: shape / finiteness")
-    err = (got - want).abs().max().item()
-    check(torch.allclose(got, want, rtol=0, atol=2e-3),
-          f"flash_decode disagrees with its plain version: {err}")
-    mask = (torch.arange(S, device="cuda")[None] < lengths[:, None])
-    mask = mask[:, None, None, :]
-    qs, ks, vs = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-    try:
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
-        lib = timer(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True))
-    except TypeError:  # a PyTorch without GQA in SDPA: no one-call yardstick
-        lib = None
-    live = int(lengths.sum().item())
-    record("flash_decode", err,
-           timer(lambda: kfd.flash_decode(q, kc, vc, lengths)),
-           timer(lambda: ref.flash_decode_ref(q, kc, vc, lengths)), lib,
-           nbytes(q, lengths) + 2 * live * g.hkv * g.hd * 2 + B * g.hq * g.hd * 4,
-           4 * live * g.hq * g.hd, BF16_FLOPS)
+    rec = flash_decode_case(torch, gen, g, timer, S, lengths)
+    record("flash_decode", rec["err"], rec["timed"], rec["plain_ms"],
+           rec["lib_ms"], rec["nb"], rec["flops"], BF16_FLOPS)
+    S = LONG_CONTEXT
+    lengths = torch.full((B,), S, device="cuda", dtype=torch.int32)
+    rec = flash_decode_case(torch, gen, g, timer, S, lengths)
+    b_ms, b_by = bound_ms(rec["nb"], rec["flops"], BF16_FLOPS)
+    out[-1].update(long_positions=S, long_max_abs_err=rec["err"],
+                   long_ms=rec["timed"][0], long_host_us=rec["timed"][1],
+                   long_plain_ms=rec["plain_ms"],
+                   long_library_ms=rec["lib_ms"], long_bound_ms=b_ms,
+                   long_bound_by=b_by)
+    print(f"[kernel] flash_decode S={S}: ok max_abs_err={rec['err']:.3g} "
+          f"ms={rec['timed'][0]:.4f} host_us={rec['timed'][1]:.1f} "
+          f"plain_ms={rec['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"library_ms={rec['lib_ms']}", flush=True)
 
     # ---- IVF tables at the index geometry, small-integer values
     b = g.slots
@@ -294,8 +406,10 @@ def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
           f"ivf_gather_score scores disagree: {err}")
     check(torch.equal(got_i, want_i), "ivf_gather_score ids disagree")
     record("ivf_gather_score", err,
-           timer(lambda: kigs.ivf_gather_score(mv, mids, probe, qv)),
-           timer(lambda: ref.ivf_gather_score_ref(mv, mids, probe, qv)), None,
+           timer.both(lambda: kigs.ivf_gather_score(mv, mids, probe, qv),
+                      "ivf_gather_score"),
+           timer(lambda: ref.ivf_gather_score_ref(mv, mids, probe, qv),
+                 "ivf_gather_score plain"), None,
            uniq.numel() * g.cap * (g.d + 1) * 4 + nbytes(probe, qv)
            + b * g.n_probe * g.cap * 8,
            2.0 * b * g.n_probe * g.cap * g.d, FP32_FLOPS)
@@ -327,8 +441,10 @@ def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
     live_rows = mids[probe.long()] >= 0  # (b, np, cap)
     live_uniq = int((mids[uniq.long()] >= 0).sum().item())
     record("ivf_screen_select", err,
-           timer(lambda: kdf.ivf_screen_select(*args, k=g.k)),
-           timer(lambda: ref.ivf_screen_select_ref(*args, g.k)), None,
+           timer.both(lambda: kdf.ivf_screen_select(*args, k=g.k),
+                      "ivf_screen_select"),
+           timer(lambda: ref.ivf_screen_select_ref(*args, g.k),
+                 "ivf_screen_select plain"), None,
            live_uniq * g.d * 4 + uniq.numel() * g.cap * 4
            + nbytes(o_sc, o_ids, probe, qv) + b * g.k * 8,
            2.0 * g.d * int(live_rows.sum().item()), FP32_FLOPS)
@@ -359,8 +475,10 @@ def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
     live = torch.arange(g.m_cap, device="cuda")[None] < m_used[:, None]
     rows = int(torch.unique(pos[live]).numel())
     record("tail_gather_argmax", err,
-           timer(lambda: kdf.tail_gather_argmax(*targs)),
-           timer(lambda: ref.tail_gather_argmax_ref(*targs)), None,
+           timer.both(lambda: kdf.tail_gather_argmax(*targs),
+                      "tail_gather_argmax"),
+           timer(lambda: ref.tail_gather_argmax_ref(*targs),
+                 "tail_gather_argmax plain"), None,
            rows * g.d * 4 + nbytes(pos, m_used, pert_s, s_ids, heights, h)
            + t * 8,
            2.0 * g.d * int(m_used.sum().item()), FP32_FLOPS)
@@ -372,8 +490,11 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
     """The training path's kernels at its shapes: ``fused_estimator`` and
     ``fused_estimator_bwd`` over one head chunk (256 tokens, k + l = 1152
     candidates, the 32000 x 2048 output embedding), and ``ivf_gather_score``
-    re-timed at the training probe's 256 queries (extra keys ``train_*`` of
-    its record)."""
+    at the training probe's 256 queries (extra keys ``train_*`` of its
+    record), then at 256 queries whose probes pile onto popular clusters,
+    over random fp32 rows (keys ``skew_*``), where the fused IVF screen must
+    also equal it plus a top-k bit for bit."""
+    from repro_torch.kernels import decode_fused as kdf
     from repro_torch.kernels import fused_estimator as kfe
     from repro_torch.kernels import ivf_gather_score as kigs
     from repro_torch.kernels import ref
@@ -413,8 +534,10 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
     # bytes: each live distinct row once, ids / log_w / h in, log_z / expv
     # out; operations: a 2d dot and a 2d weighted sum per live candidate
     records.append(make_record(
-        "fused_estimator", err, timer(lambda: kfe.fused_estimator(*args)),
-        timer(lambda: ref.fused_estimator_ref(*args)), None,
+        "fused_estimator", err,
+        timer.both(lambda: kfe.fused_estimator(*args), "fused_estimator"),
+        timer(lambda: ref.fused_estimator_ref(*args), "fused_estimator plain"),
+        None,
         rows_live * g.d * 4 + nbytes(ids, log_w, h) + t * 4 + t * g.d * 4,
         4.0 * g.d * n_live, FP32_FLOPS))
 
@@ -444,14 +567,19 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
     # the dense (n, d) d_emb and p out; operations as the forward's
     records.append(make_record(
         "fused_estimator_bwd", err,
-        timer(lambda: kfe.fused_estimator_bwd(*bargs)),
-        timer(lambda: ref.fused_estimator_bwd_ref(*bargs)), None,
+        timer.both(lambda: kfe.fused_estimator_bwd(*bargs),
+                   "fused_estimator_bwd"),
+        timer(lambda: ref.fused_estimator_bwd_ref(*bargs),
+              "fused_estimator_bwd plain"), None,
         rows_live * g.d * 4 + nbytes(*bargs[1:]) + g.n * g.d * 4 + tb * m * 4,
         4.0 * g.d * int(bl.sum().item()), FP32_FLOPS))
     del emb, args, bargs, want_d, got_d, again_d
 
-    # ---- ivf_gather_score at the training probe's 256 queries
+    # ---- ivf_gather_score at the training probe's 256 queries: uniform
+    # probes over small-integer rows (keys ``train_*``), then skewed probes
+    # over random fp32 rows (keys ``skew_*``)
     b = HEAD_CHUNK
+    rec = next(r for r in records if r["name"] == "ivf_gather_score")
     mv = int_valued(torch, gen, (g.n_c, g.cap, g.d))
     mids = torch.randint(0, g.n, (g.n_c, g.cap), generator=gen,
                          device="cuda", dtype=torch.int32)
@@ -465,21 +593,74 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
     check(torch.equal(got_s, want_s) and torch.equal(got_i, want_i),
           "ivf_gather_score at b=256 disagrees with its plain version")
     del want_s, want_i
+    gather_record(torch, g, timer, rec, "train_", mv, mids, probe, qv)
+
+    # skewed: cluster popularity ~ 1 / rank, each query probing n_probe
+    # distinct clusters drawn by it, so the first clusters are probed by
+    # most of the batch (as trained hidden states favour popular clusters)
+    mv.normal_(generator=gen)
+    qv = torch.randn((b, g.d), generator=gen, device="cuda")
+    pop = 1.0 / torch.arange(1, g.n_c + 1, device="cuda", dtype=torch.float32)
+    perm = torch.randperm(g.n_c, generator=gen, device="cuda")
+    probe = perm[torch.multinomial(pop.expand(b, -1), g.n_probe,
+                                   generator=gen)].int()
+    got_s, got_i = kigs.ivf_gather_score(mv, mids, probe, qv)
+    again_s, again_i = kigs.ivf_gather_score(mv, mids, probe, qv)
+    want_s, want_i = ref.ivf_gather_score_ref(mv, mids, probe, qv)
+    torch.cuda.synchronize()
+    err = (got_s - want_s).abs().max().item()
+    check(values_close(torch, got_s, want_s, scaled=True)
+          and torch.equal(got_i, want_i),
+          f"ivf_gather_score, skewed b=256 on random rows, disagrees: {err}")
+    check(torch.equal(got_s, again_s) and torch.equal(got_i, again_i),
+          "ivf_gather_score: two launches differ")
+    del want_s, want_i, again_s, again_i
+    # the fused screen equals the unfused kernel probe + top-k bit for bit
+    # on random fp32 rows at full width, where the order of the sums matters
+    o_ids = torch.randint(0, g.n, (g.o_cap,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    o_sc = torch.randn((b, g.o_cap), generator=gen, device="cuda") * 30
+    v, i = kdf.ivf_screen_select(mv, mids, o_sc, o_ids, probe, qv, k=g.k)
+    pool_s = torch.cat([got_s.reshape(b, -1), o_sc], 1)
+    pool_i = torch.cat([got_i.reshape(b, -1), o_ids[None].expand(b, -1)], 1)
+    pool_s = torch.where(pool_i >= 0, pool_s, float("-inf"))
+    wv, wi = ref.topk_select_ref(pool_s, pool_i, g.k)
+    check(torch.equal(v, wv) and torch.equal(i, wi),
+          "ivf_screen_select != ivf_gather_score + top-k on random fp32 "
+          "rows, skewed probes, b=256")
+    del pool_s, pool_i, got_s, got_i
+    hot = torch.bincount(probe.flatten().long(), minlength=g.n_c).max().item()
+    rec["skew_max_err"] = err
+    rec["skew_hottest_cluster_queries"] = hot
+    gather_record(torch, g, timer, rec, "skew_", mv, mids, probe, qv)
+
+
+def gather_record(torch, g: Geometry, timer: Timer, rec: dict, tag: str,
+                  mv, mids, probe, qv) -> None:
+    """``ivf_gather_score``'s keys ``<tag>*`` at ``probe``'s batch: device
+    and host time, the plain version's time, and the bound (each distinct
+    probed tile and its ids once, probe and q in, scores and ids out; a 2d
+    dot per (query, probe, member))."""
+    from repro_torch.kernels import ivf_gather_score as kigs
+    from repro_torch.kernels import ref
+
+    b = probe.shape[0]
     uniq = torch.unique(probe)
     b_ms, b_by = bound_ms(
         uniq.numel() * g.cap * (g.d + 1) * 4 + nbytes(probe, qv)
         + b * g.n_probe * g.cap * 8,
         2.0 * b * g.n_probe * g.cap * g.d, FP32_FLOPS)
-    rec = next(r for r in records if r["name"] == "ivf_gather_score")
-    rec.update(train_queries=b,
-               train_ms=timer(lambda: kigs.ivf_gather_score(mv, mids, probe,
-                                                            qv)),
-               train_plain_ms=timer(lambda: ref.ivf_gather_score_ref(
-                   mv, mids, probe, qv)),
-               train_bound_ms=b_ms, train_bound_by=b_by)
-    print(f"[kernel] ivf_gather_score b={b}: ok ms={rec['train_ms']:.4f} "
-          f"plain_ms={rec['train_plain_ms']:.4f} bound_ms={b_ms:.4f} "
-          f"({b_by})", flush=True)
+    ms, host = timer.both(lambda: kigs.ivf_gather_score(mv, mids, probe, qv),
+                          f"ivf_gather_score {tag}")
+    plain = timer(lambda: ref.ivf_gather_score_ref(mv, mids, probe, qv),
+                  f"ivf_gather_score {tag}plain")
+    rec.update({f"{tag}queries": b, f"{tag}ms": ms, f"{tag}host_us": host,
+                f"{tag}plain_ms": plain, f"{tag}bound_ms": b_ms,
+                f"{tag}bound_by": b_by,
+                f"{tag}distinct_clusters": uniq.numel()})
+    print(f"[kernel] ivf_gather_score {tag}b={b}: ok ms={ms:.4f} "
+          f"host_us={host:.1f} plain_ms={plain:.4f} bound_ms={b_ms:.4f} "
+          f"({b_by}) distinct clusters {uniq.numel()}", flush=True)
 
 
 def pq_inputs(torch, gen, g: Geometry, b: int, ints: bool):
@@ -572,9 +753,12 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
         # codes of the distinct probed tiles, probe and LUTs in; the
         # (b, np, cap) f32 sums out; m_sub adds per member
         rec = {"max_abs_err": max_err(got_r, want_r),
-               "ms": timer(lambda: kpls.pq_lut_score(codes, probe, lut)),
+               "timed": timer.both(lambda: kpls.pq_lut_score(codes, probe,
+                                                              lut),
+                                   f"pq_lut_score b={b}"),
                "plain_ms": timer(lambda: ref.pq_lut_score_ref(codes, probe,
-                                                               lut)),
+                                                               lut),
+                                 f"pq_lut_score b={b} plain"),
                "nb": uniq.numel() * g.cap * g.m_sub + nbytes(probe, lut)
                + pool * 4,
                "flops": float(pool * g.m_sub),
@@ -622,9 +806,12 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
         # ids of the probed tiles, codes of their live members, LUTs,
         # coarse, probe, overflow pair in; top-r (values, ids) out
         rec = {"max_abs_err": max_err(rv, wrv),
-               "ms": timer(lambda: kdf.pq_screen_select(*sargs, r=g.r)),
+               "timed": timer.both(lambda: kdf.pq_screen_select(*sargs,
+                                                                 r=g.r),
+                                   f"pq_screen_select b={b}"),
                "plain_ms": timer(lambda: ref.pq_screen_select_ref(*sargs,
-                                                                  g.r)),
+                                                                  g.r),
+                                 f"pq_screen_select b={b} plain"),
                "nb": tiles.numel() * g.cap * 4 + live_slots.numel() * g.m_sub
                + nbytes(lut, coarse, probe, o_sc, o_ids) + b * g.r * 8,
                "flops": float(int(live.sum().item()) * (g.m_sub + 1)),
@@ -654,8 +841,10 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
         # each distinct live survivor row once, candidates, screening values
         # and q in; the top-k (values, ids) out; a 2d dot per live survivor
         rec = {"max_abs_err": max_err(rv, wrv),
-               "ms": timer(lambda: kdf.rerank_select(*targs, k=g.k)),
-               "plain_ms": timer(lambda: ref.rerank_select_ref(*targs, g.k)),
+               "timed": timer.both(lambda: kdf.rerank_select(*targs, k=g.k),
+                                   f"rerank_select b={b}"),
+               "plain_ms": timer(lambda: ref.rerank_select_ref(*targs, g.k),
+                                 f"rerank_select b={b} plain"),
                "nb": rows * g.d * 4 + nbytes(full_i, full_v, q)
                + b * g.k * 8,
                "flops": 2.0 * g.d * int(alive.sum().item()),
@@ -669,7 +858,7 @@ def pq_record(records: list[dict], name: str, tag: str, b: int,
     """A PQ kernel's record at the serving shape (``tag`` "") or its
     ``train_*`` keys at the training probe's (``tag`` "train_")."""
     if not tag:
-        out = make_record(name, rec["max_abs_err"], rec["ms"],
+        out = make_record(name, rec["max_abs_err"], rec["timed"],
                           rec["plain_ms"], None, rec["nb"], rec["flops"],
                           FP32_FLOPS)
         out.update(queries=b, bitwise_random=rec["bitwise_random"])
@@ -677,12 +866,13 @@ def pq_record(records: list[dict], name: str, tag: str, b: int,
         return
     b_ms, b_by = bound_ms(rec["nb"], rec["flops"], FP32_FLOPS)
     out = next(x for x in records if x["name"] == name)
-    out.update(train_queries=b, train_ms=rec["ms"],
+    ms, host = rec["timed"]
+    out.update(train_queries=b, train_ms=ms, train_host_us=host,
                train_plain_ms=rec["plain_ms"], train_bound_ms=b_ms,
                train_bound_by=b_by, train_max_abs_err=rec["max_abs_err"],
                train_bitwise_random=rec["bitwise_random"])
     print(f"[kernel] {name} b={b}: ok max_abs_err={rec['max_abs_err']:.3g} "
-          f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+          f"ms={ms:.4f} host_us={host:.1f} plain_ms={rec['plain_ms']:.4f} "
           f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
 
 
@@ -697,10 +887,12 @@ UNFUSED_KERNELS = {"ivf": ("ivf_gather_score",),
                    "ivfpq": ("pq_lut_score", "rerank_select")}
 
 
-def serve(torch, seed: int, cfg, scfg_kw) -> tuple[dict, dict]:
+def serve(torch, seed: int, cfg, scfg_kw) -> tuple[dict, dict, dict]:
     """The serving phase: one set of weights, served with each head index
     (:func:`serve_one`). Returns (launch counts: each kernel's count on the
-    first run that launches it, the fused one first; per-index stats)."""
+    first run that launches it, the fused one first; per-index stats; each
+    kernel's device us per call on the first profiled run that launches
+    it, in the same order)."""
     from repro_torch.models.model import Model
 
     import numpy as np
@@ -713,14 +905,17 @@ def serve(torch, seed: int, cfg, scfg_kw) -> tuple[dict, dict]:
     rng = np.random.default_rng(seed)
     prompts = [list(rng.integers(0, cfg.vocab, size=rng.integers(4, 13)))
                for _ in range(REQUESTS)]
-    counts, stats, servers = {}, {}, {}
+    counts, stats, servers, path_us = {}, {}, {}, {}
     for mips in MIPS:
-        runs, stats[mips], servers[mips] = serve_one(torch, cfg, mips, params,
-                                                     prompts, scfg_kw)
+        runs, stats[mips], servers[mips], profs = serve_one(
+            torch, cfg, mips, params, prompts, scfg_kw)
         for run in runs:
             for name, n in run.items():
                 if n and name not in counts:
                     counts[name] = n
+        for kern in profs:
+            for name, v in kern.items():
+                path_us.setdefault(name, v["us_per_call"])
         torch.cuda.empty_cache()
     # warm repeats, the indexes in the order A B B A, so that a drift of the
     # host's speed during the call falls on both
@@ -737,14 +932,15 @@ def serve(torch, seed: int, cfg, scfg_kw) -> tuple[dict, dict]:
              if k.startswith(("warm_", "device_"))}), flush=True)
     print("[serve] index_mb " + json.dumps(
         {m: stats[m]["index_mb"] for m in MIPS}), flush=True)
-    return counts, stats
+    return counts, stats, path_us
 
 
 def serve_one(torch, cfg, mips: str, params, prompts, scfg_kw):
     """Serve ``prompts`` with the ``mips`` head fused at window T=8, then
-    unfused at T=1 over the same index, and require the same tokens.
-    Returns ((fused counts, unfused counts), stats, (fused server, unfused
-    server))."""
+    unfused at T=1 over the same index, and require the same tokens; then
+    profile a repeat of each over ``SLOTS`` prompts. Returns ((fused
+    counts, unfused counts), stats, (fused server, unfused server), (fused
+    profile's, unfused profile's kernels))."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import report
     from repro_torch.serve.server import ServeConfig, Server
@@ -806,7 +1002,11 @@ def serve_one(torch, cfg, mips: str, params, prompts, scfg_kw):
     stats.update(device_ms_per_token=prof["device_ms"] / prof["tokens"],
                  device_events_per_token=prof["device_events"]
                  / prof["tokens"])
-    return (fused_counts, unfused_counts), stats, (srv, srv1)
+    prof1 = profile(torch, f"serve {mips} unfused T=1",
+                    lambda: sum(len(r.tokens)
+                                for r in srv1.run(prompts[:SLOTS])))
+    return ((fused_counts, unfused_counts), stats, (srv, srv1),
+            (prof["kernels"], prof1["kernels"]))
 
 
 def warm_repeat(torch, srv, prompts) -> dict:
@@ -877,17 +1077,26 @@ def profile(torch, label: str, fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name: dict[str, list] = {}
+    ours = {name: [0, 0.0] for name in KERNEL_SYMBOLS}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
             acc = by_name.setdefault(e.name[:60], [0, 0.0])
             acc[0] += 1
-            acc[1] += e.time_range.elapsed_us() / 1e3
+            acc[1] += us / 1e3
+            for name, (calls, others) in KERNEL_SYMBOLS.items():
+                for sym in calls + others:
+                    if re.search(rf"(^|[\s:]){sym}[<(]", e.name):
+                        ours[name][0] += sym in calls
+                        ours[name][1] += us
     busy_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     out = {"tokens": tokens, "wall_ms": wall_ms, "device_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
            "device_events": sum(n for n, _ in by_name.values()),
-           "top": [[name, n, ms] for name, (n, ms) in top]}
+           "top": [[name, n, ms] for name, (n, ms) in top],
+           "kernels": {k: {"calls": n, "us_per_call": us / n}
+                       for k, (n, us) in ours.items() if n}}
     print(f"[profile] {label} " + json.dumps(out), flush=True)
     return out
 
@@ -992,7 +1201,9 @@ def probe_diagnostics(torch, seed: int, cfg) -> dict:
     trainer does), reading before each update both the amortized loss the
     step optimizes and the exact NLL of the same batch (a dense logsumexp
     over all 32000 rows); then torch.profiler over one more step of the IVF
-    run. Returns {probe: {"amortized": [...], "exact": [...]}}."""
+    and the IVF-PQ runs. Returns ({probe: {"amortized": [...], "exact":
+    [...]}}, each head kernel's device us per call in the first profiled
+    step that launches it, IVF first)."""
     import numpy as np
 
     from repro_torch.core import amortized_head as ah
@@ -1004,7 +1215,7 @@ def probe_diagnostics(torch, seed: int, cfg) -> dict:
 
     run = train_config(seed)
     dcfg = DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed)
-    out = {}
+    out, path_us = {}, {}
     for mips in ("exact",) + MIPS:
         tcfg = cfg.scaled(head_mips=mips)
         model = Model(tcfg, "bf16", device="cuda")
@@ -1047,11 +1258,14 @@ def probe_diagnostics(torch, seed: int, cfg) -> dict:
             check(gap <= EXACT_PROBE_GAP,
                   f"probe=exact: amortized loss {gap} nats off the exact NLL")
         out[mips] = {"amortized": amortized, "exact": exact}
-        if mips == "ivf":
-            profile(torch, "train step", lambda: one(TRAIN_STEPS, False))
+        if mips != "exact":
+            prof = profile(torch, f"train step {mips}",
+                           lambda: one(TRAIN_STEPS, False))
+            for name, v in prof["kernels"].items():
+                path_us.setdefault(name, v["us_per_call"])
         del params, opt, index
         torch.cuda.empty_cache()
-    return out
+    return out, path_us
 
 
 def main() -> int:
@@ -1095,11 +1309,13 @@ def main() -> int:
     train_kernel_checks(torch, g, timer, records)
     torch.cuda.empty_cache()
     pq_kernel_checks(torch, g, timer, records)
+    print(f"[timer] calls whose host issue outlasted the hold (timed with "
+          f"host time in them): {json.dumps(timer.uncovered)}", flush=True)
     del timer
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    counts, serve_stats = serve(torch, args.seed, cfg, scfg_kw)
+    counts, serve_stats, serve_us = serve(torch, args.seed, cfg, scfg_kw)
     print(f"[serve] {json.dumps(serve_stats)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
@@ -1109,7 +1325,7 @@ def main() -> int:
         run_counts, _ = train(torch, args.seed, cfg, mips)
         for name in TRAIN_KERNELS[mips]:
             train_counts.setdefault(name, run_counts[name])
-    probe_diagnostics(torch, args.seed, cfg)
+    _, train_us = probe_diagnostics(torch, args.seed, cfg)
     print(f"[train] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     # launches: each path's count, read just after its own run — serving
@@ -1118,11 +1334,25 @@ def main() -> int:
     # training runs (IVF, then IVF-PQ for the PQ kernels); "launches" is
     # the count on the newest path that runs the kernel (training where it
     # ran there, else serving)
+    # path_us: device us per call of the kernel on the same path, from the
+    # profiled repeats of it (serving: 4 prompts; training: one step)
     for rec in records:
         serve_n = counts.get(rec["name"], 0)
         train_n = train_counts.get(rec["name"], 0)
         rec.update(launches=train_n or serve_n, launches_serve=serve_n,
-                   launches_train=train_n)
+                   launches_train=train_n,
+                   path_us_serve=serve_us.get(rec["name"]),
+                   path_us_train=train_us.get(rec["name"]))
+        rec["path_us"] = (rec["path_us_train"] if train_n
+                          else rec["path_us_serve"])
+        # the device time each path loses to the kernel's distance from its
+        # bound: launches x (ms - bound), at each path's shape
+        rec["excess_ms"] = serve_n * (rec["ms"] - rec["bound_ms"]) + train_n * (
+            rec.get("train_ms", rec["ms"])
+            - rec.get("train_bound_ms", rec["bound_ms"]))
+    print("[rank] launches x (ms - bound): " + json.dumps(
+        {r["name"]: round(r["excess_ms"], 2) for r in
+         sorted(records, key=lambda r: -r["excess_ms"])}), flush=True)
     check(len(records) == len(TPU_KERNEL)
           and all(r["launches"] > 0 for r in records),
           "a kernel was never launched on its path: "

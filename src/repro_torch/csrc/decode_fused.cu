@@ -13,8 +13,9 @@
 // a flop per byte; the pool itself never leaves the SM.
 //
 // Design: one block of 1024 threads per query. Warps score the member rows
-// with repro_torch::warp_row_dot — the device function ivf_gather_score.cu
-// uses, so every live score is bitwise the unfused kernel's — and write a
+// with repro_torch::warp_row_dot — made of the row_dot.cuh pieces whose
+// order ivf_gather_score.cu folds its sums in, so every live score is
+// bitwise the unfused kernel's — and write a
 // 64-bit sort key per pool slot into shared memory: the high word orders
 // the fp32 score descending, the low word is the pool index, so an
 // ascending sort of the keys is exactly the Pallas kernel's emission order.

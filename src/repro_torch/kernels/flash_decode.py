@@ -6,6 +6,10 @@ the compute dtype (float32 or bfloat16), and ``lengths (B,)``; returns the
 fp32 attention output ``(B, Hq, hd)``. Positions at or past ``lengths[b]``
 are masked. The plain version is :func:`repro_torch.kernels.ref
 .flash_decode_ref`.
+
+The kernel splits each sequence into ``SPLIT_ROWS``-row blocks and combines
+their partial softmax states in a second kernel, both enqueued by one C
+call; the output and the split workspace share one allocation.
 """
 from __future__ import annotations
 
@@ -18,6 +22,13 @@ __all__ = ["flash_decode", "launches"]
 launches = {"flash_decode": 0}  # kernel launches; reset by ops.reset_launch_counts
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SPLIT_ROWS = 64  # cache rows per split: the kernel's kSplit, which it checks
+
+
+def workspace_floats(b: int, s: int, hq: int, hd: int) -> int:
+    """Floats of the split workspace: one (acc[hd], m, l) record per
+    (sequence, query head, split)."""
+    return b * hq * -(-s // SPLIT_ROWS) * (hd + 2)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -42,12 +53,15 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
             raise ValueError("flash_decode kernel needs CUDA tensors")
     q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty((b, hq, hd), dtype=torch.float32, device=q.device)
+    n_out = b * hq * hd
+    buf = torch.empty(n_out + workspace_floats(b, s, hq, hd),
+                      dtype=torch.float32, device=q.device)
+    out = buf[:n_out].view(b, hq, hd)
     fn = build.bind("flash_decode", "flash_decode_launch",
-                    [build.P] * 5 + [build.I] * 6 + [build.P])
+                    [build.P] * 6 + [build.I] * 7 + [build.P])
     err = fn(build.ptr(q), build.ptr(k_cache), build.ptr(v_cache),
-             build.ptr(lengths), build.ptr(out), b, s, hq, hkv, hd,
-             _DTYPES[q.dtype], build.stream())
+             build.ptr(lengths), build.ptr(out), buf.data_ptr() + 4 * n_out,
+             b, s, hq, hkv, hd, SPLIT_ROWS, _DTYPES[q.dtype], build.stream())
     build.check(err, "flash_decode")
     launches["flash_decode"] += 1
     return out

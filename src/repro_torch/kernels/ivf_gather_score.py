@@ -6,14 +6,22 @@ Scores every member of each query's probed clusters against the query in
 fp32 and copies the member ids alongside: ``scores = member_vecs[probe] · q``
 and ``ids = member_ids[probe]``, both ``(b, n_probe, cap)``. The plain
 version is :func:`repro_torch.kernels.ref.ivf_gather_score_ref`.
+
+The kernel works cluster by cluster, reading each member row once per
+chunk of queries that probe its cluster; for batches above 4 queries a
+plan kernel first lists each cluster's (query, probe slot) pairs into an
+int32 workspace, which shares one allocation with ``ids``. One C call
+enqueues the kernels.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["ivf_gather_score", "launches", "check_tables"]
+__all__ = ["ivf_gather_score", "launches", "check_tables", "workspace_ints"]
 
 launches = {"ivf_gather_score": 0}  # kernel launches; reset by ops.reset_launch_counts
 
@@ -40,6 +48,16 @@ def check_tables(member_vecs, member_ids, probe, q, name: str):
             probe.to(torch.int32).contiguous(), q.contiguous())
 
 
+def workspace_ints(n_c: int, b: int, n_probe: int) -> int:
+    """Int32 workspace of a call, at its most: per-cluster counts, the
+    ``b * n_probe`` (query, probe slot) pairs grouped by cluster, and one
+    (cluster, first pair, pairs) record per work item — at most one item per
+    probed cluster plus one per further ``qc`` pairs, bounded here at
+    ``qc = 1`` — and the item count."""
+    p = b * n_probe
+    return n_c + p + 3 * (min(n_c, p) + p) + 1
+
+
 def ivf_gather_score(member_vecs: torch.Tensor, member_ids: torch.Tensor,
                      probe: torch.Tensor, q: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -51,12 +69,17 @@ def ivf_gather_score(member_vecs: torch.Tensor, member_ids: torch.Tensor,
     b, n_probe = probe.shape
     scores = torch.empty((b, n_probe, cap), dtype=torch.float32,
                          device=q.device)
-    ids = torch.empty((b, n_probe, cap), dtype=torch.int32, device=q.device)
+    n_ids = b * n_probe * cap
+    ws_len = workspace_ints(n_c, b, n_probe)
+    buf = torch.empty(n_ids + ws_len, dtype=torch.int32, device=q.device)
+    ids = buf[:n_ids].view(b, n_probe, cap)
     fn = build.bind("ivf_gather_score", "ivf_gather_score_launch",
-                    [build.P] * 6 + [build.I] * 5 + [build.P])
+                    [build.P] * 7 + [ctypes.c_longlong] + [build.I] * 5
+                    + [build.P])
     err = fn(build.ptr(member_vecs), build.ptr(member_ids), build.ptr(probe),
-             build.ptr(q), build.ptr(scores), build.ptr(ids), n_c, cap, d, b,
-             n_probe, build.stream())
+             build.ptr(q), build.ptr(scores), build.ptr(ids),
+             buf.data_ptr() + 4 * n_ids, ws_len, n_c, cap, d, b, n_probe,
+             build.stream())
     build.check(err, "ivf_gather_score")
     launches["ivf_gather_score"] += 1
     return scores, ids

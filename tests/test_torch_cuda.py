@@ -3,7 +3,9 @@ small shapes with the edge cases the serving and training paths can produce
 (pools narrower than k, dead rows, exact ties, probe widths, empty tails, d
 not a multiple of 4, lengths 0, 1 and full, dead candidate slots, all-dead
 tokens, row segments longer than a backward tile, PQ subspace counts 4, 8
-and 16, codebooks narrower than 256). Marked ``cuda``: they skip without
+and 16, codebooks narrower than 256; flash_decode lengths around its split
+of the sequence, query-group sizes 1 to 32 and head dims 16 to 256;
+duplicate, out-of-range and piled-up IVF probes). Marked ``cuda``: they skip without
 an NVIDIA GPU; run them on one with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -57,6 +59,69 @@ def test_flash_decode_kernel(gen, dtype, hq, hkv, hd):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 24, 64, 128, 256])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (16, 2), (32, 1)],
+                         ids=["G1", "G8", "G32"])
+def test_flash_decode_split_edges(gen, dtype, hq, hkv, hd):
+    """Lengths around the kernel's split of the sequence (0, 1, split - 1,
+    split, split + 1, S) with S not a multiple of the split; each sequence
+    alone equals its row of the batch bit for bit, and two launches agree.
+    bf16 with hd % 16 == 0 runs on the tensor cores, hd 24 and fp32 on the
+    CUDA cores."""
+    split = flash_decode.SPLIT_ROWS
+    s = 3 * split + 11
+    lengths = torch.tensor([0, 1, split - 1, split, split + 1, s],
+                           device="cuda", dtype=torch.int32)
+    b = lengths.numel()
+    q = torch.randn((b, hq, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, s, hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, s, hkv, hd), generator=gen, device="cuda").to(dtype)
+    got = flash_decode.flash_decode(q, k, v, lengths)
+    want = ref.flash_decode_ref(q, k, v, lengths)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+    assert torch.equal(flash_decode.flash_decode(q, k, v, lengths), got)
+    for i in range(b):
+        alone = flash_decode.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                          lengths[i:i + 1])
+        assert torch.equal(alone[0], got[i])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_unaligned_cache(gen, dtype):
+    """A KV cache whose rows do not start on 16 bytes takes the scalar copy
+    path; same results as the plain version."""
+    b, s, hq, hkv, hd = 3, 150, 8, 2, 64
+    q = torch.randn((b, hq, hd), generator=gen, device="cuda").to(dtype)
+    n = b * s * hkv * hd
+    kb = torch.randn((n + 1,), generator=gen, device="cuda").to(dtype)
+    vb = torch.randn((n + 1,), generator=gen, device="cuda").to(dtype)
+    k, v = kb[1:].view(b, s, hkv, hd), vb[1:].view(b, s, hkv, hd)
+    assert k.data_ptr() % 16 and k.is_contiguous()
+    lengths = torch.tensor([0, 70, 150], device="cuda", dtype=torch.int32)
+    torch.testing.assert_close(flash_decode.flash_decode(q, k, v, lengths),
+                               ref.flash_decode_ref(q, k, v, lengths),
+                               rtol=0, atol=2e-3)
+
+
+def test_flash_decode_batch_of_four_is_bitwise_per_sequence(gen):
+    """A sequence computed alone equals it computed inside a batch of 4
+    (other slots at other lengths), at tinyllama's heads in bf16."""
+    b, s, hq, hkv, hd = 4, 2048, 32, 4, 64
+    q = torch.randn((b, hq, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((b, s, hkv, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((b, s, hkv, hd), generator=gen, device="cuda").bfloat16()
+    lengths = torch.tensor([2048, 5, 1000, 129], device="cuda",
+                           dtype=torch.int32)
+    got = flash_decode.flash_decode(q, k, v, lengths)
+    torch.testing.assert_close(got, ref.flash_decode_ref(q, k, v, lengths),
+                               rtol=0, atol=2e-3)
+    for i in range(b):
+        alone = flash_decode.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                          lengths[i:i + 1])
+        assert torch.equal(alone[0], got[i])
+
+
 def _tables(gen, n_c=12, cap=40, d=64, b=5, n_probe=4, o_cap=24):
     mv = _ints(gen, (n_c, cap, d))
     mids = torch.randint(0, 1000, (n_c, cap), generator=gen, device="cuda",
@@ -81,6 +146,44 @@ def test_ivf_gather_score_kernel(gen, d):
     assert torch.equal(i, wi)
 
 
+@pytest.mark.parametrize("case", ["duplicates", "out_of_range", "one_cluster",
+                                  "b1", "b256_d30", "small_batch_piled",
+                                  "small_batch_d30"])
+def test_ivf_gather_score_kernel_probe_shapes(gen, case):
+    """Probe sets the cluster-major kernel must get right: a query naming a
+    cluster twice (both slots filled), ids out of range (clamped, as a
+    gather does), every query probing one cluster (its query list split
+    over several blocks), one query, and 256 queries at d 30; caps that are
+    not a multiple of the kernel's row chunk; and the small-batch kernel
+    (at most 4 queries) with more pairs on one cluster than it scores at
+    once, duplicates and out-of-range ids. Small-integer rows: exact."""
+    n_c, cap, d, b, n_probe = 12, 45, 64, 40, 4
+    if case == "b1":
+        b, cap = 1, 77
+    if case == "b256_d30":
+        b, d, cap = 256, 30, 33
+    if case.startswith("small_batch"):
+        b, n_probe = 3, 6
+        d = 30 if case == "small_batch_d30" else 64
+    mv, mids, _, _, probe, q = _tables(gen, n_c=n_c, cap=cap, d=d, b=b,
+                                       n_probe=n_probe)
+    if case == "duplicates":
+        probe[:, 1] = probe[:, 0]
+        probe[3, :] = probe[3, 2]
+    if case == "out_of_range":
+        probe[0, 0], probe[1, 2], probe[2, 3] = -5, n_c, 10 ** 6
+    if case == "one_cluster":
+        probe[:, 2] = 7
+    if case.startswith("small_batch"):  # 7 pairs on cluster 5
+        probe[:, 0], probe[:, 4] = 5, 5
+        probe[1, 5], probe[2, 1], probe[0, 3] = 5, -1, n_c + 3
+    s, i = ivf_gather_score.ivf_gather_score(mv, mids, probe, q)
+    ws, wi = ref.ivf_gather_score_ref(mv, mids, probe.clamp(0, n_c - 1), q)
+    assert torch.equal(s, ws) and torch.equal(i, wi)
+    s2, i2 = ivf_gather_score.ivf_gather_score(mv, mids, probe, q)
+    assert torch.equal(s2, s) and torch.equal(i2, i)
+
+
 @pytest.mark.parametrize("case", ["ties", "small_pool", "dead_row", "width"])
 def test_ivf_screen_select_kernel(gen, case):
     kw = dict(n_c=4, cap=4, n_probe=2, o_cap=4) if case == "small_pool" else {}
@@ -100,24 +203,41 @@ def test_ivf_screen_select_kernel(gen, case):
     assert torch.equal(v, wv)  # exact: integer-valued scores
 
 
-def test_screen_select_bitwise_equals_gather_score_plus_topk(gen):
+@pytest.mark.parametrize("d,b,skew", [(256, 3, False), (2048, 64, True)],
+                         ids=["d256_b3", "d2048_b64_skewed"])
+def test_screen_select_bitwise_equals_gather_score_plus_topk(gen, d, b, skew):
     """Random fp32 data: the fused screen's values are bitwise the unfused
-    kernel's scores, and its picks those of a top-k over them."""
-    mv = torch.randn((16, 48, 256), generator=gen, device="cuda")
-    mids = torch.randint(0, 5000, (16, 48), generator=gen, device="cuda",
+    kernel's scores, and its picks those of a top-k over them — also at
+    tinyllama's d 2048 with many queries piling onto a few clusters, where
+    the order of the sums shows in the last bits."""
+    n_c, cap = 16, 48
+    mv = torch.randn((n_c, cap, d), generator=gen, device="cuda")
+    mids = torch.randint(0, 5000, (n_c, cap), generator=gen, device="cuda",
                          dtype=torch.int32)
-    probe = torch.stack([torch.randperm(16, generator=gen, device="cuda")[:5]
-                         for _ in range(3)]).int()
-    q = torch.randn((3, 256), generator=gen, device="cuda")
+    if skew:  # popularity ~ 1 / rank: cluster 0 in most queries' probes
+        pop = 1.0 / torch.arange(1, n_c + 1, device="cuda",
+                                 dtype=torch.float32)
+        probe = torch.multinomial(pop.expand(b, -1), 5, generator=gen).int()
+    else:
+        probe = torch.stack([torch.randperm(n_c, generator=gen,
+                                            device="cuda")[:5]
+                             for _ in range(b)]).int()
+    q = torch.randn((b, d), generator=gen, device="cuda")
     o_ids = torch.arange(10, device="cuda", dtype=torch.int32) + 6000
-    o_sc = torch.randn((3, 10), generator=gen, device="cuda") * 10
+    o_sc = torch.randn((b, 10), generator=gen, device="cuda") * 10
     v, i = decode_fused.ivf_screen_select(mv, mids, o_sc, o_ids, probe, q,
                                           k=64)
     s, ids = ops.ivf_gather_score(mv, mids, probe, q)
     pool_s = torch.cat([s, o_sc], 1)
-    pool_i = torch.cat([ids, o_ids[None].expand(3, -1)], 1)
+    pool_i = torch.cat([ids, o_ids[None].expand(b, -1)], 1)
     wv, wi = ref.topk_select_ref(pool_s, pool_i, 64)
     assert torch.equal(v, wv) and torch.equal(i, wi)
+    # d-term dot products summed in another order than the plain version's:
+    # rtol 1e-5 and an atol of 1e-5 times the largest |score| (a score that
+    # cancels to ~0 keeps the rounding of its terms), as rerank_select's
+    ws = ref.ivf_gather_score_ref(mv, mids, probe, q)[0].reshape(b, -1)
+    torch.testing.assert_close(s, ws, rtol=1e-5,
+                               atol=1e-5 * ws.abs().max().item())
 
 
 @pytest.mark.parametrize("d", [64, 30])

@@ -1,0 +1,131 @@
+"""The inputs the split ``flash_decode`` and the cluster-major
+``ivf_gather_score`` kernels have to get right, held on the CPU: the plain
+versions (what the CPU runs in place of the kernels) against the JAX
+package at lengths around the kernel's split of the sequence and at probe
+sets with repeated and piled-up clusters, and the wrappers' workspace sizes
+against a brute-force listing of what the kernels write there.
+
+The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
+
+Tolerances: ids exact; fp32 values rtol=atol=1e-5 (XLA-CPU and PyTorch
+reduce in different orders).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_decode import flash_decode as jax_flash_decode
+from repro.kernels.ivf_gather_score import ivf_gather_score as jax_ivf_gather_score
+from repro_torch.kernels import flash_decode, ivf_gather_score, ref
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+SPLIT = flash_decode.SPLIT_ROWS
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (8, 1)], ids=["G1", "G8"])
+def test_flash_decode_ref_at_split_edges_matches_jax(hq, hkv):
+    """Lengths 0 (uniform over all S rows), 1, split - 1, split, split + 1
+    and S, with S not a multiple of the split."""
+    rng = np.random.default_rng(3)
+    s, hd = 2 * SPLIT + 11, 16
+    lens = np.asarray([0, 1, SPLIT - 1, SPLIT, SPLIT + 1, s], np.int32)
+    b = lens.size
+    q = rng.standard_normal((b, hq, hd), dtype=np.float32)
+    k = rng.standard_normal((b, s, hkv, hd), dtype=np.float32)
+    v = rng.standard_normal((b, s, hkv, hd), dtype=np.float32)
+    want = np.asarray(jref.flash_decode_ref(q, k, v, lens))
+    got = ref.flash_decode_ref(_t(q), _t(k), _t(v), _t(lens))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(got[0].numpy(), v[0].mean(0).repeat(
+        hq // hkv, axis=0), **TOL)
+
+
+def test_flash_decode_ref_rows_depend_on_their_sequence_only():
+    """A sequence computed alone equals its row of a batch (the kernel's
+    contract, which the plain version it is held to also keeps), and the
+    interpret-mode Pallas kernel agrees with both."""
+    rng = np.random.default_rng(4)
+    b, s, hq, hkv, hd = 4, 2 * SPLIT, 4, 2, 16
+    q = rng.standard_normal((b, hq, hd), dtype=np.float32)
+    k = rng.standard_normal((b, s, hkv, hd), dtype=np.float32)
+    v = rng.standard_normal((b, s, hkv, hd), dtype=np.float32)
+    lens = np.asarray([s, 3, SPLIT + 1, SPLIT], np.int32)
+    batch = ref.flash_decode_ref(_t(q), _t(k), _t(v), _t(lens))
+    want = jax_flash_decode(q, k, v, lens, s_block=SPLIT, interpret=True)
+    np.testing.assert_allclose(batch.numpy(), np.asarray(want), **TOL)
+    for i in range(b):
+        alone = ref.flash_decode_ref(_t(q[i:i + 1]), _t(k[i:i + 1]),
+                                     _t(v[i:i + 1]), _t(lens[i:i + 1]))
+        np.testing.assert_allclose(alone[0].numpy(), batch[i].numpy(), **TOL)
+
+
+@pytest.mark.parametrize("case", ["duplicates", "one_cluster"])
+def test_ivf_gather_score_ref_probe_sets_match_jax(case):
+    """A query naming a cluster twice gets both slots; every query probing
+    one cluster (the pile-up the kernel spreads over several blocks)."""
+    rng = np.random.default_rng(5)
+    n_c, cap, d, b, n_probe = 6, 8, 128, 20, 3
+    mv = rng.standard_normal((n_c, cap, d), dtype=np.float32)
+    mids = rng.integers(-1, n_c * cap, (n_c, cap)).astype(np.int32)
+    probe = rng.integers(0, n_c, (b, n_probe)).astype(np.int32)
+    if case == "duplicates":
+        probe[:, 1] = probe[:, 0]
+    else:
+        probe[:, 2] = 4
+    q = rng.standard_normal((b, d), dtype=np.float32)
+    want_s, want_i = jax_ivf_gather_score(mv, mids, probe, q, d_block=128,
+                                          interpret=True)
+    got_s, got_i = ref.ivf_gather_score_ref(_t(mv), _t(mids), _t(probe), _t(q))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), **TOL)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    if case == "duplicates":
+        np.testing.assert_array_equal(got_s[:, 0].numpy(), got_s[:, 1].numpy())
+
+
+def _plan_listing(probe: np.ndarray, n_c: int, qc: int):
+    """Brute force: the (query, probe slot) pairs of each cluster, in
+    increasing pair index, cut into items of at most qc pairs."""
+    flat = np.clip(probe.reshape(-1), 0, n_c - 1)
+    items = []
+    for c in range(n_c):
+        pairs = np.flatnonzero(flat == c)
+        for i in range(0, pairs.size, qc):
+            items.append((c, pairs[i:i + qc]))
+    return items
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_ivf_gather_score_workspace_covers_every_plan(seed):
+    """The wrapper's workspace holds the counts, every pair and one record
+    per item for any probe set and any queries-per-item from 1 to 16 (the
+    kernel's plan), skewed and out-of-range probes included."""
+    rng = np.random.default_rng(seed)
+    n_c = int(rng.integers(1, 40))
+    b = int(rng.integers(1, 300))
+    n_probe = int(rng.integers(1, 9))
+    weights = 1.0 / np.arange(1, n_c + 1) ** rng.uniform(0, 3)
+    probe = rng.choice(n_c, size=(b, n_probe), p=weights / weights.sum())
+    probe[rng.random(probe.shape) < 0.05] = n_c + 7
+    probe[rng.random(probe.shape) < 0.05] = -3
+    ws = ivf_gather_score.workspace_ints(n_c, b, n_probe)
+    for qc in range(1, 17):
+        items = _plan_listing(probe, n_c, qc)
+        assert sum(p.size for _, p in items) == b * n_probe
+        assert all(0 < p.size <= qc for _, p in items)
+        assert n_c + b * n_probe + 3 * len(items) + 1 <= ws
+
+
+@pytest.mark.parametrize("s", [1, SPLIT - 1, SPLIT, SPLIT + 1, 2048])
+def test_flash_decode_workspace_holds_one_record_per_split(s):
+    """One (acc[hd], m, l) record per (sequence, query head, split) of the
+    longest possible sequence, S rows."""
+    b, hq, hd = 3, 8, 64
+    splits = len(range(0, s, SPLIT))
+    assert flash_decode.workspace_floats(b, s, hq, hd) == b * hq * splits * (hd + 2)
