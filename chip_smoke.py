@@ -125,7 +125,7 @@ KERNEL_SYMBOLS = {
     "fused_estimator_bwd": (("fused_estimator_bwd_kernel",), ()),
     "pq_lut_score": (("pq_lut_score_kernel",), ()),
     "pq_screen_select": (("pq_screen_select_kernel",), ()),
-    "rerank_select": (("rerank_select_kernel",), ()),
+    "rerank_select": (("rerank_score_kernel",), ("rerank_select_kernel",)),
 }
 
 
@@ -718,7 +718,9 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
     on small-integer LUTs and within rtol 1e-5 on random ones, probe widths
     below n_probe (0 included) and an all-dead query; ``rerank_select``
     over the screen's survivors against a 32000 x 2048 table of small
-    integers (and one of random fp32 for the second check). Times and
+    integers (and one of random fp32 for the second check, where two
+    launches and the last query re-ranked alone must equal the batch's
+    outputs bit for bit). Times and
     bounds are taken at the main path's full probe width, over its
     survivors."""
     from repro_torch.kernels import decode_fused as kdf
@@ -828,6 +830,11 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
         want_v, want_i = ref.rerank_select_ref(*rargs, g.k)
         qr = torch.randn((b, g.d), generator=gen, device="cuda")
         rv, ri = kdf.rerank_select(emb_rand, cand, lut_vals, qr, k=g.k)
+        again_v, again_i = kdf.rerank_select(emb_rand, cand, lut_vals, qr,
+                                             k=g.k)
+        j = b - 1  # the last query, re-ranked alone
+        alone_v, alone_i = kdf.rerank_select(emb_rand, cand[j:], lut_vals[j:],
+                                             qr[j:], k=g.k)
         wrv, wri = ref.rerank_select_ref(emb_rand, cand, lut_vals, qr, g.k)
         torch.cuda.synchronize()
         check(torch.equal(got_i, want_i) and torch.equal(got_v, want_v),
@@ -835,6 +842,11 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
         check(values_close(torch, rv, wrv, scaled=True),
               f"rerank_select b={b} disagrees on random rows: "
               f"{max_err(rv, wrv)}")
+        check(torch.equal(rv, again_v) and torch.equal(ri, again_i),
+              f"rerank_select b={b}: two launches differ")
+        check(torch.equal(alone_v[0], rv[j])
+              and torch.equal(alone_i[0], ri[j]),
+              f"rerank_select b={b}: a query alone differs from the batch")
         targs = (emb, full_i, full_v, q)
         alive = (full_i >= 0) & ~torch.isneginf(full_v)
         rows = torch.unique(full_i[alive]).numel()
@@ -1059,13 +1071,26 @@ def syncs_per_token(torch, srv, prompts) -> float:
     return sum("synchroniz" in str(w.message) for w in caught) / tokens
 
 
+def covered_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
 def profile(torch, label: str, fn) -> dict:
     """Where a run's time goes: torch.profiler over ``fn()`` (which returns
     the number of tokens it processed); prints and returns wall time, the
     summed duration of the device's own events (kernels, copies), the
-    device's idle share, and the device events that took the most time.
-    Profiling slows the host, so the idle share is an upper estimate of the
-    unprofiled run's."""
+    device's idle share, the device events that took the most time, and
+    each of our kernels' device us per call: the time its kernels were on
+    the device, overlaps counted once (a programmatic dependent launch is
+    on the device, waiting, while its predecessor runs). Profiling slows
+    the host, so the idle share is an upper estimate of the unprofiled
+    run's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -1077,7 +1102,8 @@ def profile(torch, label: str, fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name: dict[str, list] = {}
-    ours = {name: [0, 0.0] for name in KERNEL_SYMBOLS}
+    calls_of = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    spans: dict[str, list] = {name: [] for name in KERNEL_SYMBOLS}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             us = e.time_range.elapsed_us()
@@ -1087,16 +1113,18 @@ def profile(torch, label: str, fn) -> dict:
             for name, (calls, others) in KERNEL_SYMBOLS.items():
                 for sym in calls + others:
                     if re.search(rf"(^|[\s:]){sym}[<(]", e.name):
-                        ours[name][0] += sym in calls
-                        ours[name][1] += us
+                        calls_of[name] += sym in calls
+                        spans[name].append((e.time_range.start,
+                                            e.time_range.end))
     busy_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     out = {"tokens": tokens, "wall_ms": wall_ms, "device_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
            "device_events": sum(n for n, _ in by_name.values()),
            "top": [[name, n, ms] for name, (n, ms) in top],
-           "kernels": {k: {"calls": n, "us_per_call": us / n}
-                       for k, (n, us) in ours.items() if n}}
+           "kernels": {k: {"calls": n,
+                           "us_per_call": covered_us(spans[k]) / n}
+                       for k, n in calls_of.items() if n}}
     print(f"[profile] {label} " + json.dumps(out), flush=True)
     return out
 

@@ -1,26 +1,40 @@
 #!/usr/bin/env python3
-"""Times the ``flash_decode`` and ``ivf_gather_score`` kernels of one source
-tree on one NVIDIA GPU, at the shapes ``chip_smoke.py`` checks them at, with
-``chip_smoke.py``'s device-time :class:`Timer` — so two trees (a change and
-its parent) can be compared on the same card, in turns:
+"""Times the ``flash_decode``, ``ivf_gather_score`` and ``rerank_select``
+kernels of one source tree on one NVIDIA GPU, at the shapes ``chip_smoke.py``
+checks them at, with ``chip_smoke.py``'s device-time :class:`Timer` — so two
+trees (a change and its parent) can be compared on the same card, in turns:
 
     git archive <parent> | tar -x -C build/parent   # build/ is git-ignored
     for t in build/parent . . build/parent; do python3 kernel_ab.py --tree $t; done
 
-Each run builds the tree's two kernel libraries (in ``<tree>/build/kernels``),
+Each run builds the tree's kernel libraries (in ``<tree>/build/kernels``),
 checks each kernel against the tree's plain version on the same inputs
-(flash_decode atol 2e-3; ivf_gather_score rtol 1e-5 and an atol of 1e-5
-times the largest |score|, ids exact), and
+(flash_decode atol 2e-3; ivf_gather_score and rerank_select rtol 1e-5 and an
+atol of 1e-5 times the largest |score|, ivf_gather_score's ids exact), and
 prints one JSON line: per shape, the median device ms per call (L2 flushed,
-host issue outside the events), the median host issue time in us, and the
-bound ms from the shape's bytes; ``sdpa_ms`` is one
-``scaled_dot_product_attention`` call (GQA, masked) on the same inputs.
-Inputs come from ``--seed``, so every tree sees the same data. Exits non-zero
-without CUDA.
+host issue outside the events), the median host issue time in us, the
+device us of each kernel a call launches (profiler), and the bound ms from
+the shape's bytes; ``sdpa_ms`` is one ``scaled_dot_product_attention`` call
+(GQA, masked) on the same inputs.
+
+``rerank_select`` runs at the serving path's 4 queries and the training
+probe's 256, over one fixed set of 1,152 survivors a query against a
+32,000 x 2,048 table of random fp32 rows: uniform survivors (as
+``chip_smoke.py``'s random probes give); at 256 queries also survivors
+piled onto popular rows (popularity ~ 1 / rank, as trained hidden states
+pile onto popular clusters) and near-identical queries sharing most of
+their survivors in a similar order (as a training batch's hidden states
+from one model can). Each of its shapes also prints ``digest``, the SHA-256 of the
+output values' and ids' bytes: two trees whose kernels agree bit for bit
+print the same digests.
+
+Inputs come from ``--seed``, so every tree sees the same data. Exits
+non-zero without CUDA.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import subprocess
@@ -28,6 +42,7 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+KERNELS = ("flash_decode", "ivf_gather_score", "rerank_select")
 
 
 def kernel_breakdown(torch, timer, fn, calls: int = 10) -> dict:
@@ -58,6 +73,12 @@ def main() -> int:
     ap.add_argument("--tree", default=".", help="source tree to time")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--kernels", nargs="+", default=list(KERNELS),
+                    choices=KERNELS, help="kernels to time (default: all)")
+    ap.add_argument("--rerank-batches", nargs="+", type=int,
+                    default=[4, 256],
+                    help="rerank_select's query counts (uniform survivors; "
+                    "256 also piled-up ones)")
     args = ap.parse_args()
 
     import torch
@@ -68,18 +89,31 @@ def main() -> int:
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(1, str(HERE))
-    from chip_smoke import BF16_FLOPS, FP32_FLOPS, Timer, bound_ms, nbytes
-    from repro_torch.kernels import build, ref
-    from repro_torch.kernels import flash_decode as kfd
-    from repro_torch.kernels import ivf_gather_score as kigs
+    from chip_smoke import Timer
+    from repro_torch.kernels import build
 
-    build.build_all(("flash_decode", "ivf_gather_score"))
+    sources = {"flash_decode": "flash_decode",
+               "ivf_gather_score": "ivf_gather_score",
+               "rerank_select": "decode_fused"}
+    build.build_all(tuple(sources[k] for k in args.kernels))
     timer = Timer(torch, args.iters)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(args.seed)
     out = {"tree": str(tree), "card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()}
+    for name in args.kernels:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(args.seed)
+        CASES[name](torch, timer, gen, out, args)
+        torch.cuda.empty_cache()
+    out["uncovered"] = timer.uncovered
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def flash_decode_case(torch, timer, gen, out: dict, args) -> None:
+    from chip_smoke import BF16_FLOPS, bound_ms, nbytes
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import ref
 
     # flash_decode: tinyllama's heads, 4 slots, bf16 ring
     B, hq, hkv, hd = 4, 32, 4, 64
@@ -116,7 +150,14 @@ def main() -> int:
                                  + B * hq * hd * 4, 4 * live * hq * hd,
                                  BF16_FLOPS)[0]}
 
-    # ivf_gather_score: tinyllama's IVF geometry (178 x 544 x 2048), 8 probes
+
+
+def ivf_gather_score_case(torch, timer, gen, out: dict, args) -> None:
+    from chip_smoke import FP32_FLOPS, bound_ms, nbytes
+    from repro_torch.kernels import ivf_gather_score as kigs
+    from repro_torch.kernels import ref
+
+    # tinyllama's IVF geometry (178 x 544 x 2048), 8 probes
     n_c, cap, d, n_probe = 178, 544, 2048, 8
     mv = torch.randn((n_c, cap, d), generator=gen, device="cuda")
     mids = torch.randint(0, 32000, (n_c, cap), generator=gen, device="cuda",
@@ -153,9 +194,78 @@ def main() -> int:
             "bound_ms": bound_ms(uniq * cap * (d + 1) * 4 + nbytes(probe, qv)
                                  + b * n_probe * cap * 8,
                                  2.0 * b * n_probe * cap * d, FP32_FLOPS)[0]}
-    out["uncovered"] = timer.uncovered
-    print(json.dumps(out), flush=True)
-    return 0
+
+
+def digest(*ts) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rerank_select_case(torch, timer, gen, out: dict, args) -> None:
+    from chip_smoke import FP32_FLOPS, bound_ms, nbytes, values_close
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import ref
+
+    # tinyllama's output embedding (32,000 x 2,048), r = 2k = 1,152
+    # survivors a query, k = 576; ~2 % of the survivors dead (a -inf
+    # screening value), as a screen over sparse clusters leaves
+    n, d, r, k = 32000, 2048, 1152, 576
+    db = torch.randn((n, d), generator=gen, device="cuda")
+    pop = 1.0 / torch.arange(1, n + 1, device="cuda", dtype=torch.float32)
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    shapes = [(f"b{b}", b, "uniform") for b in args.rerank_batches]
+    if 256 in args.rerank_batches:
+        shapes += [("b256_skewed", 256, "skewed"),
+                   ("b256_shared", 256, "shared")]
+    for name, b, kind in shapes:
+        if kind == "skewed":
+            cand = perm[torch.multinomial(pop.expand(b, -1), r,
+                                          generator=gen)].int()
+        elif kind == "shared":
+            # near-identical queries: each one's survivors are the top r of
+            # 3,000 popular rows under one shared score plus its own noise
+            pool = perm[:3000]
+            shared = torch.randn((3000,), generator=gen, device="cuda")
+            noisy = shared + 0.3 * torch.randn((b, 3000), generator=gen,
+                                               device="cuda")
+            cand = pool[noisy.topk(r, dim=1).indices].int()
+        else:
+            cand = torch.rand((b, n), generator=gen,
+                              device="cuda").argsort(1)[:, :r].int()
+        lut_vals = torch.randn((b, r), generator=gen,
+                               device="cuda").sort(1, descending=True)[0]
+        lut_vals[:, 17::53] = float("-inf")
+        q = torch.randn((b, d), generator=gen, device="cuda")
+        args = (db, cand, lut_vals, q)
+        got_v, got_i = kdf.rerank_select(*args, k=k)
+        want_v, _ = ref.rerank_select_ref(*args, k)
+        torch.cuda.synchronize()
+        if not values_close(torch, got_v, want_v, scaled=True):
+            raise SystemExit(f"rerank_select {name} disagrees with its plain "
+                             "version")
+        live = ~torch.isneginf(lut_vals)
+        rows = torch.unique(cand[live]).numel()
+        ms, host = timer.both(lambda: kdf.rerank_select(*args, k=k),
+                              f"rerank_select {name}")
+        out[f"rerank_select_{name}"] = {
+            "ms": ms, "host_us": host, "distinct_rows": rows,
+            "digest": digest(got_v, got_i),
+            "kernels_us": kernel_breakdown(
+                torch, timer, lambda: kdf.rerank_select(*args, k=k)),
+            "plain_ms": timer(lambda: ref.rerank_select_ref(*args, k),
+                              f"rerank_select {name} plain"),
+            "bound_ms": bound_ms(rows * d * 4 + nbytes(cand, lut_vals, q)
+                                 + b * k * 8,
+                                 2.0 * d * int(live.sum().item()),
+                                 FP32_FLOPS)[0]}
+
+
+CASES = {"flash_decode": flash_decode_case,
+         "ivf_gather_score": ivf_gather_score_case,
+         "rerank_select": rerank_select_case}
 
 
 if __name__ == "__main__":

@@ -55,17 +55,59 @@
 // -inf screening value dead, top-k emitted as above).
 //
 // What bounds it on an H100: bytes. A query reads r fp32 rows of d (1152 *
-// 2048 * 4 = 9.4 MB at tinyllama's width) for half a flop per byte. At the
-// serving path's 4 queries only 4 SMs stream, so latency, not the memory
-// rate, sets its time; splitting r over several blocks is later work.
+// 2048 * 4 = 9.4 MB at tinyllama's width) for half a flop per byte.
 //
-// Design: one block of 1024 threads per query. q sits in shared memory;
-// warps take the live survivors only (dead ones are never read) and score
-// each row with repro_torch::warp_row_dot, writing one key per survivor
-// (the low word its position among the r); the r keys, padded to a power
-// of two, are sorted as above and the first k emitted, id -1 for a -inf
-// pick. The unfused IVF-PQ probe on the card re-ranks through this kernel
-// too, so the fused and unfused paths agree bit for bit.
+//   * At the serving path's 4 queries, ~38 MB of row reads: 11 us at the
+//     HBM rate if the whole card streams them, where one block a query (the
+//     first port) left them to 4 SMs at one SM's rate (0.22 ms). The split
+//     grid below streams them on every SM; what is left is latency: the
+//     score grid's ~22 us on an H100 80GB HBM3 at 700 W (one row a warp,
+//     each lane's loads as warp_row_dot issues them) and the select.
+//   * At the training probe's 256 queries each row is read once per query
+//     that picked it: ~2.4 GB through L2 for the distinct rows (2k-32k of
+//     them, 17-262 MB), so the re-reads that miss the 50 MB L2 set the
+//     time. The grid keeps the blocks in flight on the same stretch of
+//     many queries' screening order, so a row that many queries picked is
+//     re-read while it is still in L2. Grouping the pairs by row instead (a
+//     plan kernel: count, scan, fill; each row held in registers against up
+//     to 16 queries read from L2) cuts the DRAM reads to the distinct rows,
+//     but then every pair reads its q (8 KB) through L2, 2.4 GB again: on
+//     the same card it ran 1.4x (uniform survivors) to 2.3x (piled-up
+//     survivors) slower than this grid, and was left out.
+//
+// Design: two kernels, enqueued by one C call.
+//
+//   * rerank_score_kernel, grid (query, chunk): each block stages its query
+//     in shared memory; its warps take kRerankRows survivors at a time,
+//     one a warp, stepping over the query's survivors by the grid's chunk
+//     count, and score the live ones with repro_torch::warp_row_dot (dead
+//     ones are never read; an id >= n clamps as a gather would), writing
+//     one 64-bit key per survivor (the low word its position among the r)
+//     into a (b, r) workspace. A few queries get a block for every chunk of
+//     kRerankRows survivors (4 queries of 1,152: 144 blocks), so the whole
+//     card streams their rows; a batch that fills kRerankBlocksPerSM blocks
+//     an SM on its own gets fewer chunks a query, each block striding over
+//     the rest (256 queries: 3 a query), so the q staging and the block's
+//     start are paid once per ~400 rows, not per 32. The query is the fast
+//     grid index: the blocks in flight hold the same stretch of many
+//     queries' survivors, as the one-block-a-query kernel's warps did.
+//   * rerank_select_kernel, one block a query, a programmatic dependent
+//     launch (pdl.cuh): scheduled while the scores run, it waits for them
+//     on the device, then takes the query's first k keys by rank
+//     (select_by_rank, select_keys.cuh): each warp sorts 64-key runs in
+//     registers, and a key's rank is its place in its run plus a binary
+//     search in each other run: one block barrier, where a bitonic sort of
+//     the 2,048 padded keys took 66 (~25 us at 4 queries). The same sort
+//     with its strides below 64 in registers (21 barriers) measured as
+//     this does, ~16 us, so what the select costs is not its barriers. It
+//     emits value, then cand[key index], id -1 for a -inf pick.
+//
+// Every score is one warp_row_dot in its fixed order, whichever block
+// computes it, and the keys are unique and ordered as before, so the
+// outputs equal the one-block-per-query kernel's bit for bit; no float
+// atomics, and two launches agree. The unfused IVF-PQ probe on the card
+// re-ranks through this kernel too, so the fused and unfused paths agree
+// bit for bit.
 //
 // ---------------------------------------------------------------------------
 // tail_gather_argmax replaces the Pallas TPU kernel
@@ -88,6 +130,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "pdl.cuh"
 #include "pq_lut.cuh"
 #include "row_dot.cuh"
 #include "select_keys.cuh"
@@ -234,46 +277,60 @@ __global__ void __launch_bounds__(kThreads) pq_screen_select_kernel(
             out_ids + static_cast<size_t>(bi) * r);
 }
 
-__global__ void __launch_bounds__(kThreads) rerank_select_kernel(
+// rerank_select's score kernel: survivors a block scores at once, one a
+// warp, and the blocks per SM the grid aims at (4 measured best of 1, 2
+// and 4: 1 left a 4-query call a second wave, and 4 was the fastest at
+// 256 queries).
+constexpr int kRerankRows = 32;
+constexpr int kRerankThreads = 32 * kRerankRows;
+constexpr int kRerankBlocksPerSM = 4;
+
+__global__ void __launch_bounds__(kRerankThreads, 1) rerank_score_kernel(
     const float* __restrict__ db, const int* __restrict__ cand,
     const float* __restrict__ lut_vals, const float* __restrict__ q,
-    float* __restrict__ out_vals, int* __restrict__ out_ids, int n, int d,
-    int r, int k, int d_pad, int r_pow2) {
+    unsigned long long* __restrict__ keys, int n, int d, int r) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sq = reinterpret_cast<float*>(smem_raw);
-  unsigned long long* keys =
-      reinterpret_cast<unsigned long long*>(sq + d_pad);
+  // the select kernel may be scheduled now; it waits for this grid's end
+  repro_torch::allow_dependent_launch();
   const int bi = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int* cb = cand + static_cast<size_t>(bi) * r;
-  const float* lv = lut_vals + static_cast<size_t>(bi) * r;
+  const int lane = threadIdx.x & 31;
+  const size_t base = static_cast<size_t>(bi) * r;
 
   repro_torch::load_query(sq, q + static_cast<size_t>(bi) * d, d);
   __syncthreads();
-
-  for (int c = warp; c < r; c += kWarps) {
-    const int id = cb[c];
+  for (int c = blockIdx.y * kRerankRows + (threadIdx.x >> 5); c < r;
+       c += gridDim.y * kRerankRows) {
+    // dead survivors (id < 0, a -inf screening value) are never read; an
+    // id >= n clamps as a gather would
+    const int id = cand[base + c];
     float s = -INFINITY;
-    if (id >= 0 && lv[c] != -INFINITY) {  // uniform across the warp
-      const int row = min(id, n - 1);  // clamps as a gather would
-      s = repro_torch::warp_row_dot(db + static_cast<size_t>(row) * d, sq, d,
-                                    lane);
-    }
-    if (lane == 0) keys[c] = make_key(s, c);
+    if (id >= 0 && lut_vals[base + c] != -INFINITY)  // warp-uniform
+      s = repro_torch::warp_row_dot(
+          db + static_cast<size_t>(min(id, n - 1)) * d, sq, d, lane);
+    if (lane == 0) keys[base + c] = make_key(s, c);
   }
-  for (int p = r + tid; p < r_pow2; p += kThreads)
-    keys[p] = make_key(-INFINITY, p);
-  __syncthreads();
-  bitonic_sort(keys, r_pow2);
+}
 
-  for (int i = tid; i < k; i += kThreads) {
-    const float v = key_value(keys[i]);
-    out_vals[static_cast<size_t>(bi) * k + i] = v;
-    out_ids[static_cast<size_t>(bi) * k + i] =
-        v != -INFINITY ? cb[key_index(keys[i])] : -1;
-  }
+__global__ void __launch_bounds__(kThreads) rerank_select_kernel(
+    const unsigned long long* __restrict__ ws, const int* __restrict__ cand,
+    float* __restrict__ out_vals, int* __restrict__ out_ids, int r, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem_raw);
+  const int bi = blockIdx.x;
+  const int* cb = cand + static_cast<size_t>(bi) * r;
+  float* vals = out_vals + static_cast<size_t>(bi) * k;
+  int* ids = out_ids + static_cast<size_t>(bi) * k;
+  // launched early (programmatic dependent launch): wait until the score
+  // grid has finished and its keys are visible
+  repro_torch::wait_for_previous_grid();
+  repro_torch::select_by_rank(
+      keys, ws + static_cast<size_t>(bi) * r, r, (r + 63) / 64, k,
+      [&](int i, unsigned long long key) {
+        const float v = key_value(key);
+        vals[i] = v;
+        ids[i] = v != -INFINITY ? cb[key_index(key)] : -1;
+      });
 }
 
 // (value, index) order of a first-occurrence argmax: larger value, then
@@ -451,28 +508,53 @@ extern "C" int pq_screen_select_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory a launch of rerank_select needs, in bytes.
-extern "C" long long rerank_select_smem(int d, int r_pow2) {
-  return static_cast<long long>(sizeof(float)) * round_up4(d) +
-         static_cast<long long>(sizeof(unsigned long long)) * r_pow2;
+// Shared memory one block of a rerank_select launch needs at most, in
+// bytes: the score kernel's staged query or the select kernel's keys (r
+// rounded up to 64-key runs).
+extern "C" long long rerank_select_smem(int d, int r) {
+  const long long q = static_cast<long long>(sizeof(float)) * round_up4(d);
+  const long long keys = static_cast<long long>(sizeof(unsigned long long)) *
+                         64 * ((r + 63) / 64);
+  return q > keys ? q : keys;
 }
 
 // Shapes: db (n, d) f32, cand (b, r) i32, lut_vals (b, r) f32, q (b, d) f32
-// -> out_vals (b, k) f32, out_ids (b, k) i32; k <= r, r_pow2 a power of two
-// >= r. Returns the CUDA error code of the launch (0 = success).
+// -> out_vals (b, k) f32, out_ids (b, k) i32; ws: b * r 64-bit keys of
+// workspace, 8-byte aligned; k <= r.
+// Enqueues the score and select kernels; returns the CUDA error code of the
+// launches (0 = success).
 extern "C" int rerank_select_launch(const float* db, const int* cand,
                                     const float* lut_vals, const float* q,
-                                    float* out_vals, int* out_ids, int n,
-                                    int d, int b, int r, int k, int r_pow2,
-                                    void* stream) {
+                                    float* out_vals, int* out_ids,
+                                    unsigned long long* ws, int n, int d,
+                                    int b, int r, int k, void* stream) {
   if (b == 0 || k == 0) return 0;
-  const size_t smem = static_cast<size_t>(rerank_select_smem(d, r_pow2));
-  const int e = set_smem(reinterpret_cast<const void*>(rerank_select_kernel),
-                         smem);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0;
+  int sms = 0;
+  int e = static_cast<int>(cudaGetDevice(&dev));
+  if (!e)
+    e = static_cast<int>(
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   if (e) return e;
-  rerank_select_kernel<<<b, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      db, cand, lut_vals, q, out_vals, out_ids, n, d, r, k, round_up4(d),
-      r_pow2);
-  return static_cast<int>(cudaGetLastError());
+  // chunks of a query's survivors that run as blocks of their own: all of
+  // them for a few queries, fewer (each block then strides over the rest)
+  // once the batch alone fills kRerankBlocksPerSM blocks on every SM
+  const int chunks = (r + kRerankRows - 1) / kRerankRows;
+  const int per_query = (kRerankBlocksPerSM * sms + b - 1) / b;
+  const size_t smem_q = sizeof(float) * round_up4(d);
+  e = set_smem(reinterpret_cast<const void*>(rerank_score_kernel), smem_q);
+  if (e) return e;
+  rerank_score_kernel<<<dim3(b, chunks < per_query ? chunks : per_query),
+                        kRerankThreads, smem_q, s>>>(db, cand, lut_vals, q,
+                                                     ws, n, d, r);
+  e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  const size_t smem_k = sizeof(unsigned long long) * 64 * ((r + 63) / 64);
+  e = set_smem(reinterpret_cast<const void*>(rerank_select_kernel), smem_k);
+  if (e) return e;
+  return repro_torch::launch_dependent(
+      rerank_select_kernel, dim3(b), dim3(kThreads), smem_k, s,
+      static_cast<const unsigned long long*>(ws), cand, out_vals, out_ids, r,
+      k);
 }

@@ -2,7 +2,8 @@
 // previous kernel on the stream wrote may be scheduled while that kernel
 // still runs, and waits for it on the device instead of behind the host's
 // launch gap. Used by the two-kernel calls of flash_decode.cu (split, then
-// combine) and ivf_gather_score.cu (plan, then score).
+// combine), ivf_gather_score.cu (plan, then score) and decode_fused.cu's
+// rerank_select (score, then select).
 #pragma once
 
 #include <cuda_runtime.h>

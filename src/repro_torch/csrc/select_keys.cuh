@@ -1,5 +1,5 @@
-// Top-k selection by sorting 64-bit keys in shared memory, shared by the
-// fused screens and the exact re-rank (decode_fused.cu).
+// Top-k selection over 64-bit keys in shared memory (decode_fused.cu): a
+// bitonic sort for the fused screens, ranks for the exact re-rank.
 //
 // A key's high word orders the fp32 score descending and its low word is
 // the slot's pool index, so an ascending sort of the keys puts the larger
@@ -11,6 +11,7 @@
 
 #include <cuda_runtime.h>
 
+#include <math.h>
 #include <stdint.h>
 
 namespace repro_torch {
@@ -63,6 +64,92 @@ __device__ inline void bitonic_sort(unsigned long long* keys, int n) {
       __syncthreads();
     }
   }
+}
+
+// One merge step (``size``) of bitonic_sort's network on the 64 keys a
+// warp holds in registers: lane l holds keys l (a) and l + 32 (b). Stride
+// 32 pairs a lane's two keys; strides 16 .. 1 pair lanes l and l ^ stride.
+// A key is kept as min or max by its pair's direction (ascending where the
+// key's position has bit ``size`` clear), as in bitonic_sort. All 32
+// lanes call it together.
+__device__ __forceinline__ void merge_step64(unsigned long long& a,
+                                             unsigned long long& b, int lane,
+                                             int size) {
+  int stride = min(size >> 1, 32);
+  if (stride == 32) {
+    if ((a > b) == ((lane & size) == 0)) {
+      const unsigned long long t = a;
+      a = b;
+      b = t;
+    }
+    stride = 16;
+  }
+  for (; stride > 0; stride >>= 1) {
+    const bool lower = (lane & stride) == 0;
+    const unsigned long long oa = __shfl_xor_sync(0xffffffffu, a, stride);
+    const unsigned long long ob = __shfl_xor_sync(0xffffffffu, b, stride);
+    const bool min_a = lower == ((lane & size) == 0);
+    const bool min_b = lower == (((lane + 32) & size) == 0);
+    a = (a < oa) == min_a ? a : oa;
+    b = (b < ob) == min_b ? b : ob;
+  }
+}
+
+// Sorts the 64 keys a warp holds (lane l: keys l and l + 32) ascending, in
+// registers, with no block barrier.
+__device__ __forceinline__ void warp_sort64(unsigned long long& a,
+                                            unsigned long long& b,
+                                            int lane) {
+#pragma unroll
+  for (int size = 2; size <= 64; size <<= 1) merge_step64(a, b, lane, size);
+}
+
+// How many of the 64 ascending keys of run lie below x (a binary search).
+__device__ __forceinline__ int count_below64(const unsigned long long* run,
+                                             unsigned long long x) {
+  int c = 0;
+#pragma unroll
+  for (int step = 32; step > 0; step >>= 1)
+    if (run[c + step - 1] < x) c += step;
+  return c + (run[c] < x);
+}
+
+// The first k of n keys in ascending order, by rank. The keys are unique
+// (their low word is a slot index), so a key's rank — how many keys lie
+// below it — is its place in the sorted order: each warp sorts 64-key runs
+// of src in registers, padded past n with -inf keys whose indices lie past
+// the n (as bitonic_sort's callers pad to a power of two), and a key's rank
+// is its place in its run plus, for every other run, how many of that
+// run's keys lie below it. One block barrier, not one per stride of a
+// sort. keys: n_runs * 64 slots of shared memory, n_runs = ceil(n / 64).
+// Calls emit(rank, key) for every key ranked below k. Ends synchronized.
+template <typename Emit>
+__device__ inline void select_by_rank(unsigned long long* keys,
+                                      const unsigned long long* src, int n,
+                                      int n_runs, int k, Emit emit) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int base = warp * 64; base < n_runs * 64;
+       base += (blockDim.x >> 5) * 64) {
+    unsigned long long a =
+        base + lane < n ? src[base + lane] : make_key(-INFINITY, base + lane);
+    unsigned long long b = base + lane + 32 < n
+                               ? src[base + lane + 32]
+                               : make_key(-INFINITY, base + lane + 32);
+    warp_sort64(a, b, lane);
+    keys[base + lane] = a;
+    keys[base + lane + 32] = b;
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < n_runs * 64; p += blockDim.x) {
+    const unsigned long long x = keys[p];
+    const int own = p >> 6;
+    int rank = p & 63;
+    for (int j = 0; j < n_runs; ++j)
+      if (j != own) rank += count_below64(keys + 64 * j, x);
+    if (rank < k) emit(rank, x);
+  }
+  __syncthreads();
 }
 
 }  // namespace repro_torch

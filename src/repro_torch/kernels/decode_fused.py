@@ -10,7 +10,10 @@
   sum (the device function ``pq_lut_score`` uses) plus its cluster's coarse
   score, and the top-r of the pool ∪ exact overflow scores.
 * :func:`rerank_select` — the exact fp32 re-rank of the r screening
-  survivors against the database rows, and their top-k.
+  survivors against the database rows, and their top-k: a score kernel
+  spread over (query, chunk of survivors) blocks writes one sort key per
+  survivor into a workspace that shares one allocation with the outputs,
+  and a select kernel sorts each query's keys. One C call enqueues both.
 * :func:`tail_gather_argmax` — the Algorithm-2 finish: tail rows gathered
   and scored against h, perturbed by the truncated-Gumbel heights, and the
   first-occurrence argmax over S ∪ tail.
@@ -30,12 +33,14 @@ from repro_torch.kernels.ivf_gather_score import check_tables
 from repro_torch.kernels.pq_lut_score import check_codes
 
 __all__ = ["ivf_screen_select", "pq_screen_select", "rerank_select",
-           "tail_gather_argmax", "launches"]
+           "tail_gather_argmax", "launches", "rerank_workspace_ints"]
 
 launches = {"ivf_screen_select": 0, "pq_screen_select": 0,
             "rerank_select": 0, "tail_gather_argmax": 0}
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
+RERANK_ROWS = 32  # survivors one rerank_select score block takes (the
+#   kernel's kRerankRows; the card tests probe r around it)
 
 
 def _cuda(name: str, *ts):
@@ -139,9 +144,15 @@ def pq_screen_select(member_codes, member_ids, coarse, overflow_scores,
     return vals, ids
 
 
+def rerank_workspace_ints(b: int, r: int) -> int:
+    """Int32 words of ``rerank_select``'s key workspace: one 64-bit sort key
+    per (query, survivor)."""
+    return 2 * b * r
+
+
 def rerank_select(db, cand, lut_vals, q, *, k: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel -> (values (b, k) f32, ids (b, k) i32)."""
+    """Launch the kernels -> (values (b, k) f32, ids (b, k) i32)."""
     _cuda("rerank_select", db, cand, lut_vals, q)
     if db.dim() != 2 or cand.dim() != 2:
         raise ValueError("rerank_select: db (n, d) and cand (b, r) expected")
@@ -159,22 +170,25 @@ def rerank_select(db, cand, lut_vals, q, *, k: int
     db = db.contiguous()
     if db.data_ptr() % 16:
         raise ValueError("rerank_select: db must be 16-byte aligned")
-    r_pow2 = _pow2(r)
     fn_smem = build.bind("decode_fused", "rerank_select_smem",
                          [build.I] * 2, restype=ctypes.c_longlong)
-    if fn_smem(d, r_pow2) > _SMEM_LIMIT:
+    if fn_smem(d, r) > _SMEM_LIMIT:
         raise ValueError(f"rerank_select: r={r} at d={d} exceeds one "
                          "block's shared memory")
     cand = cand.to(torch.int32).contiguous()
     lut_vals = lut_vals.to(torch.float32).contiguous()
     q = q.contiguous()
-    vals = torch.empty((b, k), dtype=torch.float32, device=q.device)
-    ids = torch.empty((b, k), dtype=torch.int32, device=q.device)
+    # values, ids, then the keys (8-byte aligned: 2 * b * k words before)
+    n_out = b * k
+    buf = torch.empty(2 * n_out + rerank_workspace_ints(b, r),
+                      dtype=torch.int32, device=q.device)
+    vals = buf[:n_out].view(torch.float32).view(b, k)
+    ids = buf[n_out:2 * n_out].view(b, k)
     fn = build.bind("decode_fused", "rerank_select_launch",
-                    [build.P] * 6 + [build.I] * 6 + [build.P])
+                    [build.P] * 7 + [build.I] * 5 + [build.P])
     err = fn(build.ptr(db), build.ptr(cand), build.ptr(lut_vals), build.ptr(q),
-             build.ptr(vals), build.ptr(ids), n, d, b, r, k, r_pow2,
-             build.stream())
+             build.ptr(vals), build.ptr(ids), buf.data_ptr() + 8 * n_out, n, d,
+             b, r, k, build.stream())
     build.check(err, "rerank_select")
     launches["rerank_select"] += 1
     return vals, ids

@@ -389,6 +389,104 @@ def test_rerank_select_kernel(gen, d):
     assert (i[2] == -1).all() and torch.isneginf(v[2]).all()
 
 
+def _rerank_inputs(gen, b, r, d, n=3000, values="ints"):
+    """A table of n rows, b queries and r survivors a query, ~10 % of them
+    dead (id -1 or a -inf screening value)."""
+    if values == "ints":
+        db, q = _ints(gen, (n, d)), _ints(gen, (b, d))
+    else:
+        db = torch.randn((n, d), generator=gen, device="cuda")
+        q = torch.randn((b, d), generator=gen, device="cuda")
+    cand = torch.randint(0, n, (b, r), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lut_vals = torch.randn((b, r), generator=gen, device="cuda")
+    dead = torch.rand((b, r), generator=gen, device="cuda")
+    cand[dead < 0.05] = -1
+    lut_vals[dead > 0.95] = float("-inf")
+    return db, cand, lut_vals, q
+
+
+@pytest.mark.parametrize("d", [30, 2048])
+@pytest.mark.parametrize("b", [1, 4, 256])
+@pytest.mark.parametrize("r", [1, decode_fused.RERANK_ROWS - 1,
+                               decode_fused.RERANK_ROWS,
+                               decode_fused.RERANK_ROWS + 1, 1152])
+def test_rerank_select_split_edges(gen, r, b, d):
+    """r around the score kernel's chunk of survivors (1, chunk - 1, chunk,
+    chunk + 1, and the serving path's 1,152), k = 1 and k = r, 1 to 256
+    queries, d not a multiple of 4 and tinyllama's 2,048: small-integer
+    values, so kernel and plain version agree bit for bit, ties
+    included."""
+    args = _rerank_inputs(gen, b, r, d)
+    for k in sorted({1, r}):
+        v, i = decode_fused.rerank_select(*args, k=k)
+        wv, wi = ref.rerank_select_ref(*args, k)
+        assert torch.equal(i, wi) and torch.equal(v, wv), (k, b, r, d)
+
+
+def test_rerank_select_special_survivors(gen):
+    """An all-dead query, one with fewer live survivors than k, duplicate
+    candidate ids and ids >= n (clamped to the last row, as a gather)."""
+    n, d, b, r, k = 50, 64, 5, 100, 40
+    db, cand, lut_vals, q = _rerank_inputs(gen, b, r, d, n=n)
+    cand[0] = -1  # all dead
+    lut_vals[1, :10] = 0.0
+    lut_vals[1, 10:] = float("-inf")  # 10 live survivors, k = 40
+    cand[1, :10] = torch.arange(10, device="cuda", dtype=torch.int32)
+    cand[2, 50:] = cand[2, :50]  # every id twice
+    cand[2, cand[2] < 0] = 7
+    lut_vals[2] = 0.0
+    cand[3, ::2] = n + 5  # past the table, the only live survivors
+    lut_vals[3, ::2] = 0.0
+    lut_vals[3, 1::2] = float("-inf")
+    v, i = decode_fused.rerank_select(db, cand, lut_vals, q, k=k)
+    wv, wi = ref.rerank_select_ref(db, cand, lut_vals, q, k)
+    assert torch.equal(i, wi) and torch.equal(v, wv)
+    assert (i[0] == -1).all() and torch.isneginf(v[0]).all()
+    assert (i[1, 10:] == -1).all() and torch.isfinite(v[1, :10]).all()
+    assert (i[3] == n + 5).all()  # the id is emitted as given
+
+
+def test_rerank_select_every_query_names_the_same_rows(gen):
+    """256 queries re-rank the same survivors, on random fp32 rows: each
+    query alone equals its row of the batch bit for bit."""
+    b, r, d, k = 256, 300, 2048, 100
+    db, cand, lut_vals, q = _rerank_inputs(gen, b, r, d, n=1000,
+                                           values="random")
+    cand[:] = cand[0]
+    lut_vals[:] = lut_vals[0]
+    v, i = decode_fused.rerank_select(db, cand, lut_vals, q, k=k)
+    for j in (0, b // 2, b - 1):
+        va, ia = decode_fused.rerank_select(db, cand[j:j + 1],
+                                            lut_vals[j:j + 1], q[j:j + 1],
+                                            k=k)
+        assert torch.equal(va[0], v[j]) and torch.equal(ia[0], i[j])
+    wv, wi = ref.rerank_select_ref(db, cand, lut_vals, q, k)
+    fin = wv[torch.isfinite(wv)]
+    torch.testing.assert_close(v, wv, rtol=1e-5,
+                               atol=1e-5 * fin.abs().max().item())
+
+
+def test_rerank_select_query_alone_equals_batch(gen):
+    """Random fp32 at tinyllama's width: a query re-ranked alone equals its
+    row of a 256-query batch bit for bit, two launches agree, and both are
+    within rtol 1e-5 and an atol of 1e-5 times the largest |score| of the
+    plain version (2,048-term dot products summed in another order)."""
+    b, r, d, k = 256, 1152, 2048, 576
+    args = _rerank_inputs(gen, b, r, d, n=5000, values="random")
+    v, i = decode_fused.rerank_select(*args, k=k)
+    v2, i2 = decode_fused.rerank_select(*args, k=k)
+    assert torch.equal(v, v2) and torch.equal(i, i2)
+    for j in (0, 1, 77, 255):
+        va, ia = decode_fused.rerank_select(
+            args[0], *(a[j:j + 1] for a in args[1:]), k=k)
+        assert torch.equal(va[0], v[j]) and torch.equal(ia[0], i[j])
+    wv, _ = ref.rerank_select_ref(*args, k)
+    fin = wv[torch.isfinite(wv)]
+    torch.testing.assert_close(v, wv, rtol=1e-5,
+                               atol=1e-5 * fin.abs().max().item())
+
+
 @pytest.mark.parametrize("k", [32, 700], ids=["k32", "k_past_pool"])
 def test_ivfpq_screen_select_equals_topk_batch_on_card(gen, k):
     """The IVF-PQ index on the card: ``screen_select`` (pq_screen_select +

@@ -1,15 +1,18 @@
-"""The inputs the split ``flash_decode`` and the cluster-major
-``ivf_gather_score`` kernels have to get right, held on the CPU: the plain
-versions (what the CPU runs in place of the kernels) against the JAX
-package at lengths around the kernel's split of the sequence and at probe
-sets with repeated and piled-up clusters, and the wrappers' workspace sizes
-against a brute-force listing of what the kernels write there.
+"""The inputs the split ``flash_decode``, the cluster-major
+``ivf_gather_score`` and the split ``rerank_select`` kernels have to get
+right, held on the CPU: the plain versions (what the CPU runs in place of
+the kernels) against the JAX package at lengths around the kernel's split of
+the sequence, at probe sets with repeated and piled-up clusters, and at
+survivor counts around the re-rank's chunk of survivors (dead, duplicate
+and out-of-range ids among them), and the wrappers' workspace sizes against
+a brute-force listing of what the kernels write there.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 
 Tolerances: ids exact; fp32 values rtol=atol=1e-5 (XLA-CPU and PyTorch
 reduce in different orders).
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -17,7 +20,8 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_decode import flash_decode as jax_flash_decode
 from repro.kernels.ivf_gather_score import ivf_gather_score as jax_ivf_gather_score
-from repro_torch.kernels import flash_decode, ivf_gather_score, ref
+from repro_torch.kernels import decode_fused, flash_decode, ivf_gather_score
+from repro_torch.kernels import ref
 
 torch.set_num_threads(1)
 
@@ -129,3 +133,57 @@ def test_flash_decode_workspace_holds_one_record_per_split(s):
     b, hq, hd = 3, 8, 64
     splits = len(range(0, s, SPLIT))
     assert flash_decode.workspace_floats(b, s, hq, hd) == b * hq * splits * (hd + 2)
+
+
+CHUNK = decode_fused.RERANK_ROWS
+
+
+@pytest.mark.parametrize("r", [1, CHUNK - 1, CHUNK, CHUNK + 1, 3 * CHUNK + 5])
+@pytest.mark.parametrize("values", ["ints", "random"])
+def test_rerank_select_ref_at_chunk_edges_matches_jax(r, values):
+    """Survivor counts around the score kernel's chunk, k = 1 and k = r,
+    with dead survivors (id -1, a -inf screening value), ids past the table
+    (clamped, as both gathers do) and an all-dead query; small integers
+    also with duplicate ids (exact sums, ties broken by survivor position).
+    On random values the ids are distinct, since two frameworks may round
+    one row's score differently at two positions."""
+    rng = np.random.default_rng(6 + r)
+    b = 5
+    if values == "ints":
+        n, d = 40, 30
+        db = rng.integers(-2, 3, (n, d)).astype(np.float32)
+        q = rng.integers(-2, 3, (b, d)).astype(np.float32)
+        cand = rng.integers(0, n, (b, r)).astype(np.int32)
+        cand[1, ::2] = n + 3
+        cand[2, r // 2:] = cand[2, :r - r // 2]
+    else:
+        n, d = 400, 30
+        db = rng.standard_normal((n, d), dtype=np.float32)
+        q = rng.standard_normal((b, d), dtype=np.float32)
+        cand = np.stack([rng.permutation(n - 1)[:r]
+                         for _ in range(b)]).astype(np.int32)
+        cand[1, 0] = n + 3  # the only survivor on the last row
+    lut_vals = rng.standard_normal((b, r)).astype(np.float32)
+    cand[rng.random((b, r)) < 0.1] = -1
+    lut_vals[rng.random((b, r)) < 0.1] = -np.inf
+    cand[4] = -1
+    for k in sorted({1, r}):
+        want_v, want_i = jref.rerank_select_ref(jnp.asarray(db), cand,
+                                                lut_vals, q, k)
+        got_v, got_i = ref.rerank_select_ref(_t(db), _t(cand), _t(lut_vals),
+                                             _t(q), k)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), **TOL)
+        assert (got_i[4] == -1).all() and torch.isneginf(got_v[4]).all()
+
+
+@pytest.mark.parametrize("b,r,k", [(1, 1, 1), (4, 1152, 576), (256, 1152, 576),
+                                   (3, CHUNK + 1, 2)])
+def test_rerank_select_workspace_holds_one_key_per_survivor(b, r, k):
+    """The score kernel writes one 64-bit key per (query, survivor) at word
+    offset 2 (query * r + survivor), after the 2 b k words of the values and
+    ids, which keeps the keys 8-byte aligned."""
+    words = {2 * (i * r + c) + w for i in range(b) for c in range(r)
+             for w in (0, 1)}
+    assert words == set(range(decode_fused.rerank_workspace_ints(b, r)))
+    assert (4 * 2 * b * k) % 8 == 0
