@@ -485,6 +485,35 @@ def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
     return out
 
 
+def estimator_inputs(torch, gen, n: int, d: int, t: int, k: int,
+                     s_ids: str = "popular"):
+    """One head chunk's ``fused_estimator`` inputs (emb, ids, h, log_w):
+    fp32 rows, m = 2k slots a token. S, the first k slots: ids from a
+    popular head of 2,000 rows, shared across tokens as top-k sets are
+    ("popular"), uniform over the table ("uniform"), or one set of k ids
+    for every token ("shared"); T: uniform tail draws of weight
+    log((n - k) / k). ~10 % of S slots dead, and token 7 all dead (log_z
+    -inf, expv NaN, as the Pallas kernel gives)."""
+    emb = torch.randn((n, d), generator=gen, device="cuda") * 0.02
+    h = torch.randn((t, d), generator=gen, device="cuda")
+    if s_ids == "popular":
+        s = torch.randint(0, 2000, (t, k), generator=gen, device="cuda")
+    elif s_ids == "uniform":
+        s = torch.randint(0, n, (t, k), generator=gen, device="cuda")
+    else:
+        s = torch.randint(0, n, (1, k), generator=gen,
+                          device="cuda").expand(t, k)
+    ids = torch.cat([s, torch.randint(0, n, (t, k), generator=gen,
+                                      device="cuda")], dim=1).int()
+    log_w = torch.cat([torch.zeros((t, k), device="cuda"),
+                       torch.full((t, k), math.log((n - k) / k),
+                                  device="cuda")], dim=1)
+    log_w[:, :k][torch.rand((t, k), generator=gen, device="cuda") < 0.1] = \
+        float("-inf")
+    log_w[7] = float("-inf")
+    return emb, ids, h, log_w
+
+
 def train_kernel_checks(torch, g: Geometry, timer: Timer,
                         records: list[dict]) -> None:
     """The training path's kernels at its shapes: ``fused_estimator`` and
@@ -503,29 +532,19 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
     gen.manual_seed(4321)
     t, k = HEAD_CHUNK, g.k
     m = 2 * k
-    # S: ids from a popular head of the vocabulary, shared across tokens as
-    # top-k sets are; T: uniform tail draws. ~10 % of S slots dead, and one
-    # all-dead token (log_z -inf, expv NaN, as the Pallas kernel gives).
-    emb = torch.randn((g.n, g.d), generator=gen, device="cuda") * 0.02
-    h = torch.randn((t, g.d), generator=gen, device="cuda")
-    ids = torch.cat([
-        torch.randint(0, 2000, (t, k), generator=gen, device="cuda"),
-        torch.randint(0, g.n, (t, k), generator=gen, device="cuda")],
-        dim=1).int()
-    log_w = torch.cat([torch.zeros((t, k), device="cuda"),
-                       torch.full((t, k), math.log((g.n - k) / k),
-                                  device="cuda")], dim=1)
-    log_w[:, :k][torch.rand((t, k), generator=gen, device="cuda") < 0.1] = \
-        float("-inf")
-    log_w[7] = float("-inf")
+    emb, ids, h, log_w = estimator_inputs(torch, gen, g.n, g.d, t, k)
     args = (emb, ids, h, log_w)
     got_z, got_v = kfe.fused_estimator(*args)
+    again_z, again_v = kfe.fused_estimator(*args)
     want_z, want_v = ref.fused_estimator_ref(*args)
     torch.cuda.synchronize()
     check(close(torch, got_z, want_z) and close(torch, got_v, want_v),
           "fused_estimator disagrees with its plain version")
     check(bool(torch.isneginf(got_z[7])) and bool(torch.isnan(got_v[7]).all()),
           "fused_estimator: the all-dead token lost the -1e30 sentinel")
+    check(torch.equal(got_z.nan_to_num(7.0), again_z.nan_to_num(7.0))
+          and torch.equal(got_v.nan_to_num(7.0), again_v.nan_to_num(7.0)),
+          "fused_estimator is not bitwise repeatable")
     live = torch.isfinite(log_w)
     err = max((got_z - want_z)[live.any(1)].abs().max().item(),
               (got_v - want_v)[live.any(1)].abs().max().item())

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times the ``flash_decode``, ``ivf_gather_score`` and ``rerank_select``
-kernels of one source tree on one NVIDIA GPU, at the shapes ``chip_smoke.py``
-checks them at, with ``chip_smoke.py``'s device-time :class:`Timer` — so two
-trees (a change and its parent) can be compared on the same card, in turns:
+"""Times the ``flash_decode``, ``ivf_gather_score``, ``rerank_select`` and
+``fused_estimator`` kernels of one source tree on one NVIDIA GPU, at the
+shapes ``chip_smoke.py`` checks them at, with ``chip_smoke.py``'s
+device-time :class:`Timer` — so two trees (a change and its parent) can be
+compared on the same card, in turns:
 
     git archive <parent> | tar -x -C build/parent   # build/ is git-ignored
     for t in build/parent . . build/parent; do python3 kernel_ab.py --tree $t; done
@@ -13,7 +14,8 @@ checks each kernel against the tree's plain version on the same inputs
 atol of 1e-5 times the largest |score|, ivf_gather_score's ids exact), and
 prints one JSON line: per shape, the median device ms per call (L2 flushed,
 host issue outside the events), the median host issue time in us, the
-device us of each kernel a call launches (profiler), and the bound ms from
+device us of each kernel a call launches (profiler; a kernel from the end
+of the one before it), and the bound ms from
 the shape's bytes; ``sdpa_ms`` is one ``scaled_dot_product_attention`` call
 (GQA, masked) on the same inputs.
 
@@ -27,6 +29,15 @@ their survivors in a similar order (as a training batch's hidden states
 from one model can). Each of its shapes also prints ``digest``, the SHA-256 of the
 output values' and ids' bytes: two trees whose kernels agree bit for bit
 print the same digests.
+
+``fused_estimator`` runs at one training head chunk (t 256 tokens x m =
+1,152 candidates, d 2,048, a 32,000-row fp32 table) on three input sets
+(``chip_smoke.estimator_inputs``): S from a popular head of 2,000 rows
+(``chip_smoke.py``'s inputs), S uniform over the table, and one S for
+every token (near-identical tokens). Each prints ``max_abs_err`` against
+the tree's plain version (over tokens with a live slot), ``digest`` of
+its outputs and ``repeatable``, whether two launches agree bit for bit:
+trees that sum in another order print other digests.
 
 Inputs come from ``--seed``, so every tree sees the same data. Exits
 non-zero without CUDA.
@@ -42,13 +53,17 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-KERNELS = ("flash_decode", "ivf_gather_score", "rerank_select")
+KERNELS = ("flash_decode", "ivf_gather_score", "rerank_select",
+           "fused_estimator")
 
 
 def kernel_breakdown(torch, timer, fn, calls: int = 10) -> dict:
-    """Mean device us per call of each kernel ``fn`` launches, from
+    """Device us per call of each kernel ``fn`` launches, from
     torch.profiler over ``calls`` calls, L2 flushed before each (the
-    flush's own kernel left out)."""
+    flush's own kernel left out). A kernel is charged from the later of its
+    start and the end of the kernel before it: a dependent launch is on the
+    device, waiting, while its predecessor runs, and its own duration would
+    count that time twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -59,12 +74,17 @@ def kernel_breakdown(torch, timer, fn, calls: int = 10) -> dict:
             timer.flush.zero_()
             fn()
         torch.cuda.synchronize()
-    out: dict[str, float] = {}
+    spans = []
     for e in prof.events():
         m = re.search(r"::(\w+_kernel)\b", e.name)
         if e.device_type == DeviceType.CUDA and m and "at::" not in e.name:
-            out[m.group(1)] = (out.get(m.group(1), 0.0)
-                               + e.time_range.elapsed_us() / calls)
+            spans.append((e.time_range.start, e.time_range.end, m.group(1)))
+    out: dict[str, float] = {}
+    last = float("-inf")
+    for start, end, name in sorted(spans):
+        own = max(0.0, end - max(start, last))
+        out[name] = out.get(name, 0.0) + own / calls
+        last = max(last, end)
     return out
 
 
@@ -94,7 +114,8 @@ def main() -> int:
 
     sources = {"flash_decode": "flash_decode",
                "ivf_gather_score": "ivf_gather_score",
-               "rerank_select": "decode_fused"}
+               "rerank_select": "decode_fused",
+               "fused_estimator": "fused_estimator"}
     build.build_all(tuple(sources[k] for k in args.kernels))
     timer = Timer(torch, args.iters)
     out = {"tree": str(tree), "card": subprocess.run(
@@ -263,9 +284,45 @@ def rerank_select_case(torch, timer, gen, out: dict, args) -> None:
                                  FP32_FLOPS)[0]}
 
 
+def fused_estimator_case(torch, timer, gen, out: dict, args) -> None:
+    from chip_smoke import FP32_FLOPS, bound_ms, estimator_inputs, nbytes
+    from repro_torch.kernels import fused_estimator as kfe
+    from repro_torch.kernels import ref
+
+    n, d, t, k = 32000, 2048, 256, 576  # tinyllama's head chunk, k = l
+    for kind in ("popular", "uniform", "shared"):
+        emb, ids, h, log_w = estimator_inputs(torch, gen, n, d, t, k, kind)
+        call = (emb, ids, h, log_w)
+        got_z, got_v = kfe.fused_estimator(*call)
+        again_z, again_v = kfe.fused_estimator(*call)
+        want_z, want_v = ref.fused_estimator_ref(*call)
+        torch.cuda.synchronize()
+        live = torch.isfinite(log_w)
+        tok = live.any(1)
+        err = max((got_z - want_z)[tok].abs().max().item(),
+                  (got_v - want_v)[tok].abs().max().item())
+        rows = torch.unique(ids[live]).numel()
+        ms, host = timer.both(lambda: kfe.fused_estimator(*call),
+                              f"fused_estimator {kind}")
+        first = digest(got_z, got_v)
+        out[f"fused_estimator_{kind}"] = {
+            "ms": ms, "host_us": host, "distinct_rows": rows,
+            "max_abs_err": err, "digest": first,
+            "repeatable": first == digest(again_z, again_v),
+            "kernels_us": kernel_breakdown(
+                torch, timer, lambda: kfe.fused_estimator(*call)),
+            "plain_ms": timer(lambda: ref.fused_estimator_ref(*call),
+                              f"fused_estimator {kind} plain"),
+            "bound_ms": bound_ms(rows * d * 4 + nbytes(ids, log_w, h)
+                                 + t * 4 + t * d * 4,
+                                 4.0 * d * int(live.sum().item()),
+                                 FP32_FLOPS)[0]}
+
+
 CASES = {"flash_decode": flash_decode_case,
          "ivf_gather_score": ivf_gather_score_case,
-         "rerank_select": rerank_select_case}
+         "rerank_select": rerank_select_case,
+         "fused_estimator": fused_estimator_case}
 
 
 if __name__ == "__main__":

@@ -532,6 +532,64 @@ def test_fused_estimator_kernel(gen, dtype, d):
     assert torch.isfinite(log_z[[0, 1, 3, 4, 5]]).all()
 
 
+def _chunk_inputs(gen, case):
+    """Inputs of the forward's edge cases: (emb, ids, h, log_w), with an
+    all-dead token 7 wherever t > 7."""
+    n, d, t, m, dtype = 32000, 2048, 256, 1152, torch.float32
+    if case in ("shared_rows", "duplicates"):
+        n, t, m = 500, 64, 100
+    elif case in ("d36", "d200", "bf16"):
+        n, t, m = 3000, 40, 300
+        d = {"d36": 36, "d200": 200, "bf16": 520}[case]
+        dtype = torch.bfloat16 if case == "bf16" else dtype
+    elif case == "t1":
+        t = 1
+    elif case == "t300":
+        n, d, t, m = 5000, 256, 300, 200
+    emb = (torch.randn((n, d), generator=gen, device="cuda") * 0.02).to(dtype)
+    h = torch.randn((t, d), generator=gen, device="cuda")
+    k = m // 2
+    # S: a popular head of 2,000 ids shared across tokens; T: uniform
+    ids = torch.cat([
+        torch.randint(0, min(2000, n), (t, k), generator=gen, device="cuda"),
+        torch.randint(0, n, (t, m - k), generator=gen, device="cuda")], 1)
+    log_w = torch.cat([torch.zeros((t, k), device="cuda"),
+                       torch.full((t, m - k), 3.0, device="cuda")], 1)
+    log_w[:, :k][torch.rand((t, k), generator=gen, device="cuda") < 0.1] = \
+        float("-inf")
+    if case == "shared_rows":  # every token names the same m rows
+        ids = ids[:1].expand(t, m).contiguous()
+    if case == "duplicates":  # repeats within a token, ids past the table
+        ids[:, 1::3] = ids[:, 0:1]
+        ids[:, 2::7] = n + 5
+        ids[:, 5::11] = -4
+    if t > 7:
+        log_w[7] = float("-inf")
+    return emb, ids.int(), h, log_w
+
+
+@pytest.mark.parametrize("case", ["chunk", "shared_rows", "duplicates",
+                                  "d36", "d200", "bf16", "t1", "t300"])
+def test_fused_estimator_edge_cases(gen, case):
+    """The forward at the training chunk (t 256, m 1,152, d 2,048, S from a
+    popular head of 2,000 rows), every token naming the same rows, repeated
+    and out-of-range ids, d = 36 and d = 200 (not a multiple of 64), bf16
+    rows, t = 1 and t = 300 (past one 256-token head chunk): the plain
+    version's values (the all-dead token -inf / NaN) and two launches
+    bitwise equal."""
+    emb, ids, h, log_w = _chunk_inputs(gen, case)
+    log_z, expv = fused_estimator.fused_estimator(emb, ids, h, log_w)
+    want_z, want_v = ref.fused_estimator_ref(emb, ids.clamp(0, emb.shape[0] - 1),
+                                             h, log_w)
+    torch.testing.assert_close(log_z, want_z, equal_nan=True, **TOL)
+    torch.testing.assert_close(expv, want_v, equal_nan=True, **TOL)
+    if ids.shape[0] > 7:
+        assert torch.isneginf(log_z[7]) and torch.isnan(expv[7]).all()
+    again_z, again_v = fused_estimator.fused_estimator(emb, ids, h, log_w)
+    assert torch.equal(log_z.nan_to_num(7.0), again_z.nan_to_num(7.0))
+    assert torch.equal(expv.nan_to_num(7.0), again_v.nan_to_num(7.0))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,t,m", [(300, 64, 6, 40), (3, 2048, 8, 100),
                                      (1000, 36, 5, 17)])

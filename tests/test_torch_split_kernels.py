@@ -1,11 +1,13 @@
 """The inputs the split ``flash_decode``, the cluster-major
-``ivf_gather_score`` and the split ``rerank_select`` kernels have to get
-right, held on the CPU: the plain versions (what the CPU runs in place of
-the kernels) against the JAX package at lengths around the kernel's split of
-the sequence, at probe sets with repeated and piled-up clusters, and at
-survivor counts around the re-rank's chunk of survivors (dead, duplicate
-and out-of-range ids among them), and the wrappers' workspace sizes against
-a brute-force listing of what the kernels write there.
+``ivf_gather_score``, the split ``rerank_select`` and the ``fused_estimator``
+kernels have to get right, held on the CPU: the plain versions (what the
+CPU runs in place of the kernels) against the JAX package at lengths around
+the kernel's split of the sequence, at probe sets with repeated and
+piled-up clusters, at survivor counts around the re-rank's chunk of
+survivors (dead, duplicate and out-of-range ids among them), and at the
+estimator's candidate sets that share, repeat or clamp rows; and the
+wrappers' workspace sizes against a brute-force listing of what the kernels
+write there.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 
@@ -19,6 +21,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_decode import flash_decode as jax_flash_decode
+from repro.kernels.fused_estimator import fused_estimator as jax_fused_estimator
 from repro.kernels.ivf_gather_score import ivf_gather_score as jax_ivf_gather_score
 from repro_torch.kernels import decode_fused, flash_decode, ivf_gather_score
 from repro_torch.kernels import ref
@@ -187,3 +190,47 @@ def test_rerank_select_workspace_holds_one_key_per_survivor(b, r, k):
              for w in (0, 1)}
     assert words == set(range(decode_fused.rerank_workspace_ints(b, r)))
     assert (4 * 2 * b * k) % 8 == 0
+
+
+@pytest.mark.parametrize("case", ["shared_row", "duplicates", "clamped",
+                                  "zero_queries", "d36"])
+def test_fused_estimator_ref_edge_cases_match_pallas(case):
+    """The estimator's plain version against the Pallas kernel (interpret
+    mode) where candidate sets share, repeat or clamp rows: every slot of
+    every token naming one row; each token naming rows twice and thrice;
+    ids below 0 and past the table (both packages' ``stratified_logz``
+    raise a -1 pad to 0 before the kernel, as done here; an id past the
+    table the Pallas gather clamps to the last row, and the port's kernel
+    clamps to [0, n)); zero query rows (the padded last head chunk: y =
+    log_w); d = 36. Dead slots throughout and an all-dead token (log_z
+    -inf, expv NaN in both)."""
+    rng = np.random.default_rng(["shared_row", "duplicates", "clamped",
+                                 "zero_queries", "d36"].index(case))
+    n, d, t, m = 50, 36 if case == "d36" else 64, 6, 24
+    emb = 0.3 * rng.standard_normal((n, d), dtype=np.float32)
+    h = 0.3 * rng.standard_normal((t, d), dtype=np.float32)
+    ids = rng.integers(0, n, (t, m)).astype(np.int32)
+    log_w = rng.standard_normal((t, m)).astype(np.float32)
+    log_w[:, ::5] = -np.inf
+    log_w[3] = -np.inf
+    if case == "shared_row":
+        ids[:] = 7
+    elif case == "duplicates":
+        ids[:, 1::2] = ids[:, ::2]
+        ids[:, 2::6] = ids[:, ::6]
+    elif case == "clamped":
+        ids[:, :4] = -3
+        ids[:, 4:8] = n + 9
+    elif case == "zero_queries":
+        h[-2:] = 0.0
+    ids = np.maximum(ids, 0)  # the callers' clamp of -1 pads
+    want_z, want_v = jax_fused_estimator(emb, ids, h, log_w, interpret=True)
+    got_z, got_v = ref.fused_estimator_ref(_t(emb), _t(np.clip(ids, 0, n - 1)),
+                                           _t(h), _t(log_w))
+    np.testing.assert_allclose(got_z.numpy(), np.asarray(want_z), **TOL)
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), **TOL)
+    assert np.isneginf(got_z[3].item()) and np.isnan(got_v[3].numpy()).all()
+    if case == "zero_queries":
+        lw = torch.from_numpy(log_w[-2:])
+        np.testing.assert_allclose(got_z[-2:].numpy(),
+                                   torch.logsumexp(lw, 1).numpy(), **TOL)
