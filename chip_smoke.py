@@ -3,7 +3,8 @@
 GPU: builds the CUDA kernels from ``src/repro_torch/csrc``, holds each one
 against its plain PyTorch version at the shapes of the paths that run it
 (``flash_decode`` also at tinyllama's 2,048-position context,
-``ivf_gather_score`` also at 256 queries with skewed probes) and times it
+``ivf_gather_score`` and ``ivf_screen_select`` also at 256 queries with
+skewed probes) and times it
 by device time alone (:class:`Timer`), beside its host issue time, then,
 for each head index (IVF, then IVF-PQ)
 
@@ -119,7 +120,10 @@ KERNEL_SYMBOLS = {
     "ivf_gather_score": (("ivf_gather_score_kernel",
                           "ivf_gather_score_small_kernel"),
                          ("ivf_gather_score_plan_kernel",)),
-    "ivf_screen_select": (("ivf_screen_select_kernel",), ()),
+    "ivf_screen_select": (("ivf_screen_topk_kernel",),
+                          ("ivf_screen_score_small_kernel",
+                           "ivf_screen_plan_kernel",
+                           "ivf_screen_score_kernel")),
     "tail_gather_argmax": (("tail_gather_argmax_kernel",), ()),
     "fused_estimator": (("fused_estimator_fwd_kernel",), ()),
     "fused_estimator_bwd": (("fused_estimator_bwd_kernel",), ()),
@@ -421,8 +425,11 @@ def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
     o_sc = int_valued(torch, gen, (b, g.o_cap), -200, 200)
     args = (mv, mids, o_sc, o_ids, probe, qv)
     got_v, got_i = kdf.ivf_screen_select(*args, k=g.k)
+    again_v, again_i = kdf.ivf_screen_select(*args, k=g.k)
     want_v, want_i = ref.ivf_screen_select_ref(*args, g.k)
     torch.cuda.synchronize()
+    check(torch.equal(got_v, again_v) and torch.equal(got_i, again_i),
+          "ivf_screen_select: two launches differ")
     err = (got_v - want_v).abs().nan_to_num(0.0).max().item()
     check(torch.equal(torch.isneginf(got_v), torch.isneginf(want_v))
           and torch.allclose(got_v.nan_to_num(neginf=0.0),
@@ -522,7 +529,8 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
     at the training probe's 256 queries (extra keys ``train_*`` of its
     record), then at 256 queries whose probes pile onto popular clusters,
     over random fp32 rows (keys ``skew_*``), where the fused IVF screen must
-    also equal it plus a top-k bit for bit."""
+    also equal it plus a top-k bit for bit, two launches agree, and the
+    screen is timed at that batch (keys ``skew_*`` of its record)."""
     from repro_torch.kernels import decode_fused as kdf
     from repro_torch.kernels import fused_estimator as kfe
     from repro_torch.kernels import ivf_gather_score as kigs
@@ -639,7 +647,9 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
     o_ids = torch.randint(0, g.n, (g.o_cap,), generator=gen, device="cuda",
                           dtype=torch.int32)
     o_sc = torch.randn((b, g.o_cap), generator=gen, device="cuda") * 30
-    v, i = kdf.ivf_screen_select(mv, mids, o_sc, o_ids, probe, qv, k=g.k)
+    sargs = (mv, mids, o_sc, o_ids, probe, qv)
+    v, i = kdf.ivf_screen_select(*sargs, k=g.k)
+    v2, i2 = kdf.ivf_screen_select(*sargs, k=g.k)
     pool_s = torch.cat([got_s.reshape(b, -1), o_sc], 1)
     pool_i = torch.cat([got_i.reshape(b, -1), o_ids[None].expand(b, -1)], 1)
     pool_s = torch.where(pool_i >= 0, pool_s, float("-inf"))
@@ -647,11 +657,16 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
     check(torch.equal(v, wv) and torch.equal(i, wi),
           "ivf_screen_select != ivf_gather_score + top-k on random fp32 "
           "rows, skewed probes, b=256")
-    del pool_s, pool_i, got_s, got_i
+    check(torch.equal(v, v2) and torch.equal(i, i2),
+          "ivf_screen_select, skewed b=256: two launches differ")
+    del pool_s, pool_i, got_s, got_i, v2, i2
     hot = torch.bincount(probe.flatten().long(), minlength=g.n_c).max().item()
     rec["skew_max_err"] = err
     rec["skew_hottest_cluster_queries"] = hot
     gather_record(torch, g, timer, rec, "skew_", mv, mids, probe, qv)
+    screen_record(torch, g, timer,
+                  next(r for r in records if r["name"] == "ivf_screen_select"),
+                  "skew_", sargs)
 
 
 def gather_record(torch, g: Geometry, timer: Timer, rec: dict, tag: str,
@@ -678,6 +693,37 @@ def gather_record(torch, g: Geometry, timer: Timer, rec: dict, tag: str,
                 f"{tag}bound_by": b_by,
                 f"{tag}distinct_clusters": uniq.numel()})
     print(f"[kernel] ivf_gather_score {tag}b={b}: ok ms={ms:.4f} "
+          f"host_us={host:.1f} plain_ms={plain:.4f} bound_ms={b_ms:.4f} "
+          f"({b_by}) distinct clusters {uniq.numel()}", flush=True)
+
+
+def screen_record(torch, g: Geometry, timer: Timer, rec: dict, tag: str,
+                  sargs) -> None:
+    """``ivf_screen_select``'s keys ``<tag>*`` at ``sargs``' batch: device
+    and host time, the plain version's time, and the bound (each distinct
+    probed tile's live rows and ids once, overflow scores and ids, probe
+    and q in, values and ids out; a 2d dot per live probed member)."""
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import ref
+
+    mv, mids, o_sc, o_ids, probe, qv = sargs
+    b = probe.shape[0]
+    uniq = torch.unique(probe)
+    live_rows = int((mids[probe.long()] >= 0).sum().item())
+    live_uniq = int((mids[uniq.long()] >= 0).sum().item())
+    b_ms, b_by = bound_ms(
+        live_uniq * g.d * 4 + uniq.numel() * g.cap * 4
+        + nbytes(o_sc, o_ids, probe, qv) + b * g.k * 8,
+        2.0 * g.d * live_rows, FP32_FLOPS)
+    ms, host = timer.both(lambda: kdf.ivf_screen_select(*sargs, k=g.k),
+                          f"ivf_screen_select {tag}")
+    plain = timer(lambda: ref.ivf_screen_select_ref(*sargs, g.k),
+                  f"ivf_screen_select {tag}plain")
+    rec.update({f"{tag}queries": b, f"{tag}ms": ms, f"{tag}host_us": host,
+                f"{tag}plain_ms": plain, f"{tag}bound_ms": b_ms,
+                f"{tag}bound_by": b_by,
+                f"{tag}distinct_clusters": uniq.numel()})
+    print(f"[kernel] ivf_screen_select {tag}b={b}: ok ms={ms:.4f} "
           f"host_us={host:.1f} plain_ms={plain:.4f} bound_ms={b_ms:.4f} "
           f"({b_by}) distinct clusters {uniq.numel()}", flush=True)
 

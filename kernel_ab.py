@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the ``flash_decode``, ``ivf_gather_score``, ``rerank_select`` and
-``fused_estimator`` kernels of one source tree on one NVIDIA GPU, at the
+"""Times the ``flash_decode``, ``ivf_gather_score``, ``ivf_screen_select``,
+``rerank_select`` and ``fused_estimator`` kernels of one source tree on one
+NVIDIA GPU, at the
 shapes ``chip_smoke.py`` checks them at, with ``chip_smoke.py``'s
 device-time :class:`Timer` — so two trees (a change and its parent) can be
 compared on the same card, in turns:
@@ -17,7 +18,8 @@ host issue outside the events), the median host issue time in us, the
 device us of each kernel a call launches (profiler; a kernel from the end
 of the one before it), and the bound ms from
 the shape's bytes; ``sdpa_ms`` is one ``scaled_dot_product_attention`` call
-(GQA, masked) on the same inputs.
+(GQA, masked) on the same inputs. ``ivf_gather_score``'s shapes print
+``digest`` too (its outputs over random fp32 rows).
 
 ``rerank_select`` runs at the serving path's 4 queries and the training
 probe's 256, over one fixed set of 1,152 survivors a query against a
@@ -29,6 +31,18 @@ their survivors in a similar order (as a training batch's hidden states
 from one model can). Each of its shapes also prints ``digest``, the SHA-256 of the
 output values' and ids' bytes: two trees whose kernels agree bit for bit
 print the same digests.
+
+``ivf_screen_select`` runs at tinyllama's IVF geometry (178 clusters x
+544 slots x d 2,048, 8 probes, 2,000 overflow slots, k 576): at the
+serving path's 4 queries on ``chip_smoke.py``'s inputs (small-integer
+rows, members as sparse as the index's, half the overflow dead; exact
+against the plain version), and at 256 queries over random fp32 rows with
+uniform probes, probes piled onto popular clusters (popularity ~ 1 /
+rank) and near-identical probes (one shared set of 8, the last slot each
+query's own), each bitwise equal to the tree's ``ivf_gather_score`` plus a
+top-k. ``*_sort_only`` runs the 4- and 256-query calls at probe width 0, so
+no member row is read: what is left is the keys' fill and the select. Each
+shape prints ``digest`` and ``repeatable``.
 
 ``fused_estimator`` runs at one training head chunk (t 256 tokens x m =
 1,152 candidates, d 2,048, a 32,000-row fp32 table) on three input sets
@@ -53,8 +67,8 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-KERNELS = ("flash_decode", "ivf_gather_score", "rerank_select",
-           "fused_estimator")
+KERNELS = ("flash_decode", "ivf_gather_score", "ivf_screen_select",
+           "rerank_select", "fused_estimator")
 
 
 def kernel_breakdown(torch, timer, fn, calls: int = 10) -> dict:
@@ -114,6 +128,7 @@ def main() -> int:
 
     sources = {"flash_decode": "flash_decode",
                "ivf_gather_score": "ivf_gather_score",
+               "ivf_screen_select": "decode_fused",
                "rerank_select": "decode_fused",
                "fused_estimator": "fused_estimator"}
     build.build_all(tuple(sources[k] for k in args.kernels))
@@ -209,6 +224,7 @@ def ivf_gather_score_case(torch, timer, gen, out: dict, args) -> None:
             f"ivf_gather_score {name}")
         out[f"ivf_gather_score_{name}"] = {
             "ms": ms, "host_us": host, "distinct_clusters": uniq,
+            "digest": digest(got_s, got_i),
             "kernels_us": kernel_breakdown(
                 torch, timer,
                 lambda: kigs.ivf_gather_score(mv, mids, probe, qv)),
@@ -223,6 +239,98 @@ def digest(*ts) -> str:
     for t in ts:
         h.update(t.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def ivf_screen_select_case(torch, timer, gen, out: dict, args) -> None:
+    from chip_smoke import FP32_FLOPS, bound_ms, int_valued, nbytes, values_close
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import ivf_gather_score as kigs
+    from repro_torch.kernels import ref
+
+    n, n_c, cap, d, n_probe, o_cap, k = 32000, 178, 544, 2048, 8, 2000, 576
+    mv = int_valued(torch, gen, (n_c, cap, d))
+    fill = torch.rand((n_c, cap), generator=gen, device="cuda")
+    mids = torch.randint(0, n, (n_c, cap), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    mids = torch.where(fill < n / (n_c * cap), mids, torch.full_like(mids, -1))
+    o_ids = torch.randint(0, n, (o_cap,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    o_ids[torch.rand((o_cap,), generator=gen, device="cuda") < 0.5] = -1
+    pop = 1.0 / torch.arange(1, n_c + 1, device="cuda", dtype=torch.float32)
+    perm = torch.randperm(n_c, generator=gen, device="cuda")
+    shapes = [("b4", 4, "uniform"), ("b4_sort_only", 4, "uniform"),
+              ("b256", 256, "uniform"), ("b256_skewed", 256, "skewed"),
+              ("b256_shared", 256, "shared"),
+              ("b256_sort_only", 256, "uniform")]
+    for name, b, kind in shapes:
+        if b == 256 and kind == "uniform" and name == "b256":
+            mv.normal_(generator=gen)  # random fp32 rows from here on
+        if kind == "skewed":
+            probe = perm[torch.multinomial(pop.expand(b, -1), n_probe,
+                                           generator=gen)].int()
+        elif kind == "shared":
+            probe = torch.randperm(n_c, generator=gen, device="cuda")[
+                :n_probe].int().expand(b, -1).clone()
+            probe[:, -1] = torch.randint(0, n_c, (b,), generator=gen,
+                                         device="cuda", dtype=torch.int32)
+        else:
+            probe = torch.stack([torch.randperm(n_c, generator=gen,
+                                                device="cuda")[:n_probe]
+                                 for _ in range(b)]).int()
+        if b == 4:
+            qv = int_valued(torch, gen, (b, d))
+            o_sc = int_valued(torch, gen, (b, o_cap), -200, 200)
+        else:
+            qv = torch.randn((b, d), generator=gen, device="cuda")
+            o_sc = torch.randn((b, o_cap), generator=gen, device="cuda") * 30
+        width = None
+        if name.endswith("sort_only"):
+            width = torch.zeros((b,), dtype=torch.int32, device="cuda")
+        call = (mv, mids, o_sc, o_ids, probe, qv)
+        got_v, got_i = kdf.ivf_screen_select(*call, k=k, probe_width=width)
+        again_v, again_i = kdf.ivf_screen_select(*call, k=k,
+                                                 probe_width=width)
+        want_v, want_i = ref.ivf_screen_select_ref(*call, k,
+                                                   probe_width=width)
+        torch.cuda.synchronize()
+        if b == 4 and not (torch.equal(got_v, want_v)
+                           and torch.equal(got_i, want_i)):
+            raise SystemExit(f"ivf_screen_select {name} disagrees with its "
+                             "plain version on small-integer rows")
+        if not values_close(torch, got_v, want_v, scaled=True):
+            raise SystemExit(f"ivf_screen_select {name} disagrees with its "
+                             "plain version")
+        del want_v, want_i
+        if width is None:  # the unfused kernel probe + top-k, bit for bit
+            s, i = kigs.ivf_gather_score(mv, mids, probe, qv)
+            pool_s = torch.cat([s.reshape(b, -1), o_sc], 1)
+            pool_i = torch.cat([i.reshape(b, -1), o_ids[None].expand(b, -1)],
+                               1)
+            pool_s = torch.where(pool_i >= 0, pool_s, float("-inf"))
+            wv, wi = ref.topk_select_ref(pool_s, pool_i, k)
+            if not (torch.equal(got_v, wv) and torch.equal(got_i, wi)):
+                raise SystemExit(f"ivf_screen_select {name} != "
+                                 "ivf_gather_score + top-k")
+            del s, i, pool_s, pool_i
+        uniq = torch.unique(probe) if width is None else probe[:, :0]
+        live_rows = 0 if width is not None else int(
+            (mids[probe.long()] >= 0).sum().item())
+        live_uniq = int((mids[uniq.long()] >= 0).sum().item())
+        fn = (lambda: kdf.ivf_screen_select(*call, k=k, probe_width=width))
+        ms, host = timer.both(fn, f"ivf_screen_select {name}")
+        first = digest(got_v, got_i)
+        out[f"ivf_screen_select_{name}"] = {
+            "ms": ms, "host_us": host, "distinct_clusters": uniq.numel(),
+            "live_rows": live_rows, "digest": first,
+            "repeatable": first == digest(again_v, again_i),
+            "kernels_us": kernel_breakdown(torch, timer, fn),
+            "plain_ms": timer(lambda: ref.ivf_screen_select_ref(
+                *call, k, probe_width=width),
+                f"ivf_screen_select {name} plain"),
+            "bound_ms": bound_ms(live_uniq * d * 4 + uniq.numel() * cap * 4
+                                 + nbytes(o_sc, o_ids, probe, qv) + b * k * 8,
+                                 2.0 * d * live_rows, FP32_FLOPS)[0]}
+        torch.cuda.empty_cache()
 
 
 def rerank_select_case(torch, timer, gen, out: dict, args) -> None:
@@ -321,6 +429,7 @@ def fused_estimator_case(torch, timer, gen, out: dict, args) -> None:
 
 CASES = {"flash_decode": flash_decode_case,
          "ivf_gather_score": ivf_gather_score_case,
+         "ivf_screen_select": ivf_screen_select_case,
          "rerank_select": rerank_select_case,
          "fused_estimator": fused_estimator_case}
 

@@ -241,9 +241,12 @@ class IVFIndex:
 
     def screen_select(self, q: torch.Tensor, k: int, *,
                       n_probe: int | None = None) -> TopK:
-        """Fused probe: gather-score AND top-k selection in one kernel
-        (``ivf_screen_select``) — the (b, n_probe·cap + o_cap) pool never
-        reaches device memory. Equal to :meth:`topk_batch` with
+        """Fused probe: gather-score AND top-k selection in one kernel call
+        (``ivf_screen_select``): a score pass over the whole card writes one
+        64-bit sort key per probed member slot, (b, n_probe·cap) of them in
+        device memory (the scores and ids of :meth:`topk_batch`'s pool are
+        never materialized), and a select kernel takes each query's top k
+        of those keys and the overflow's. Equal to :meth:`topk_batch` with
         ``use_kernel`` (same scores, same tie-break, -inf picks as id -1,
         which are the pool's dead ids anyway)."""
         st = self.state

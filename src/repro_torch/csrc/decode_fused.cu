@@ -8,24 +8,46 @@
 // by iterative first-occurrence argmax: descending values, the lower pool
 // index first among ties, id -1 for every -inf pick).
 //
-// What bounds it on an H100: bytes. A query streams n_probe (cap, d) fp32
-// cluster tiles (8 * 544 * 2048 * 4 = 36 MB at tinyllama's vocab) for half
-// a flop per byte; the pool itself never leaves the SM.
+// What bounds it on an H100: bytes. A query streams its probed clusters'
+// live (cap, d) fp32 rows (~1,350 of the 8 * 544 slots, 11 MB, at
+// tinyllama's vocab; 44 MB of distinct rows for 4 queries) for half a flop
+// per byte. One block a query (the first port) left them to 4 SMs at one
+// SM's rate and then bitonic-sorted 8,192 keys in shared memory (91 block
+// barriers): 0.436 ms at 4 queries on an H100 80GB HBM3 at 700 W.
 //
-// Design: one block of 1024 threads per query. Warps score the member rows
-// with repro_torch::warp_row_dot — made of the row_dot.cuh pieces whose
-// order ivf_gather_score.cu folds its sums in, so every live score is
-// bitwise the unfused kernel's — and write a
-// 64-bit sort key per pool slot into shared memory: the high word orders
-// the fp32 score descending, the low word is the pool index, so an
-// ascending sort of the keys is exactly the Pallas kernel's emission order.
-// Dead slots (id < 0, or a stage at or past probe_width) are never read from
-// device memory and get a -inf key. The overflow scores come from the
-// caller (one matmul outside the kernel, as in the reference). The pool is
-// padded to a power of two with -inf keys whose indices lie past the pool,
-// bitonic-sorted in shared memory (~64 KB at the default geometry, hence the
-// dynamic shared memory attribute), and the first k keys are emitted; ids
-// are re-read from the member/overflow tables for the k winners only.
+// Design: two stages, enqueued by one C call.
+//
+//   * The score pass is ivf_gather_score's cluster-major code
+//     (ivf_score.cuh: the small kernel for at most 4 queries, the plan and
+//     its score kernel beyond), on every SM, each live row read once per
+//     chunk of queries that probe its cluster, with a sink (KeySink) that
+//     writes one 64-bit sort key per pool slot into a (b, n_probe * cap)
+//     workspace: the high word orders the fp32 score descending, the low
+//     word is the pool index, so the keys are unique and an ascending order
+//     of them is exactly the Pallas kernel's emission order. Dead members
+//     (id < 0) are never read and get a -inf key; stages at or past a
+//     query's probe_width are never listed, written or read. Its scores are
+//     ivf_gather_score's bit for bit: the same code computes them.
+//   * ivf_screen_topk_kernel, one block a query, a programmatic dependent
+//     launch (pdl.cuh): before it waits for the scores it builds the keys
+//     that do not need them — the overflow slots (the caller's exact
+//     scores, one matmul outside the kernel as in the reference; -inf where
+//     the id is dead), dead stages, and the padding up to pool_pow2 (-inf,
+//     indices past the pool) — holding up to 16 keys a thread in
+//     registers; then it loads the members' keys and radix-selects the k-th
+//     smallest key, 8 bits a pass from the top, with a shared histogram per
+//     pass (two block barriers a pass; a pass ends the search once the k-th
+//     key's bucket holds exactly the keys still wanted — 3-4 passes on
+//     random float scores; a tie at the k-th value takes the index's two
+//     live bytes as well). The keys are unique, so exactly k keys lie at or
+//     below it: they are compacted into shared memory and ordered by rank
+//     (select_by_rank: 64-key runs sorted in registers, binary searches; 9
+//     runs at k 576), and the winners' ids are read back from the member /
+//     overflow tables, id -1 for a -inf pick.
+//
+// Every key is the one the one-block kernel built, and any exact selection
+// of unique keys emits the same values and ids, so the outputs equal that
+// kernel's bit for bit; no float atomics, and two launches agree.
 //
 // ---------------------------------------------------------------------------
 // pq_screen_select replaces the Pallas TPU kernel
@@ -39,13 +61,13 @@
 // member (8 * 544 * 12 = 52 KB), an 8 KB LUT and the overflow scores; no
 // flop beyond one add per code.
 //
-// Design: one block of 1024 threads per query, as ivf_screen_select. The
-// query's LUT goes into shared memory; each thread scores live members with
+// Design: one block of 1024 threads per query. The query's LUT goes into shared memory; each thread scores live members with
 // repro_torch::lut_sum (pq_lut.cuh) — the device function pq_lut_score.cu
 // uses — then adds the coarse term after the sum, as the unfused path adds
 // pq_lut_score's output and the coarse scores; so every live key is bitwise
-// the unfused screen's score. Keys, padding, sort and emission are
-// ivf_screen_select's (8192 keys, 64 KB, at tinyllama's 6352-slot pool).
+// the unfused screen's score. Keys and padding are ivf_screen_select's;
+// the keys are bitonic-sorted in shared memory (8192 keys, 64 KB, at
+// tinyllama's 6352-slot pool) and the first r emitted.
 //
 // ---------------------------------------------------------------------------
 // rerank_select replaces the Pallas TPU kernel
@@ -130,6 +152,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ivf_score.cuh"
 #include "pdl.cuh"
 #include "pq_lut.cuh"
 #include "row_dot.cuh"
@@ -145,18 +168,35 @@ using repro_torch::key_index;
 using repro_torch::key_value;
 using repro_torch::make_key;
 
-// Keys of a screen pool's overflow slots (n_mem .. n_mem + o_cap: the
-// caller's exact scores, -inf where the id is dead) and of the padding up
-// to pool_pow2 (-inf, indices past the pool).
+// The key of screen pool slot p >= n_mem: an overflow slot's (n_mem ..
+// n_mem + o_cap: the caller's exact score, -inf where the id is dead) or
+// the padding's up to pool_pow2 (-inf, an index past the pool).
+__device__ __forceinline__ unsigned long long tail_key(
+    int p, const float* __restrict__ os, const int* __restrict__ overflow_ids,
+    int n_mem, int o_cap) {
+  const int o = p - n_mem;
+  return make_key(o < o_cap && overflow_ids[o] >= 0 ? os[o] : -INFINITY, p);
+}
+
+// The keys of a screen pool's overflow slots and padding (tail_key).
 __device__ void fill_overflow_keys(unsigned long long* keys,
                                    const float* __restrict__ os,
                                    const int* __restrict__ overflow_ids,
                                    int n_mem, int o_cap, int pool_pow2) {
-  for (int o = threadIdx.x; o < o_cap; o += blockDim.x)
-    keys[n_mem + o] =
-        make_key(overflow_ids[o] >= 0 ? os[o] : -INFINITY, n_mem + o);
-  for (int p = n_mem + o_cap + threadIdx.x; p < pool_pow2; p += blockDim.x)
-    keys[p] = make_key(-INFINITY, p);
+  for (int p = n_mem + threadIdx.x; p < pool_pow2; p += blockDim.x)
+    keys[p] = tail_key(p, os, overflow_ids, n_mem, o_cap);
+}
+
+// Slot p's id in a screen pool: the member id of its stage's (clamped)
+// cluster, or an overflow id.
+__device__ __forceinline__ int pool_id(int p, const int* __restrict__ pr,
+                                       const int* __restrict__ member_ids,
+                                       const int* __restrict__ overflow_ids,
+                                       int n_c, int cap, int n_mem) {
+  if (p >= n_mem) return overflow_ids[p - n_mem];
+  const int j = p / cap;
+  const int cl = min(max(pr[j], 0), n_c - 1);
+  return member_ids[static_cast<size_t>(cl) * cap + (p - j * cap)];
 }
 
 // The first k keys of a sorted screen pool -> values and ids; the ids are
@@ -171,63 +211,205 @@ __device__ void emit_pool(const unsigned long long* keys, int k,
   for (int i = threadIdx.x; i < k; i += blockDim.x) {
     const int p = key_index(keys[i]);
     const float v = key_value(keys[i]);
-    int id = -1;
-    if (v != -INFINITY) {
-      if (p < n_mem) {
-        const int j = p / cap;
-        const int cl = min(max(pr[j], 0), n_c - 1);
-        id = member_ids[static_cast<size_t>(cl) * cap + (p - j * cap)];
-      } else {
-        id = overflow_ids[p - n_mem];
-      }
-    }
     vals[i] = v;
-    ids[i] = id;
+    ids[i] = v != -INFINITY
+                 ? pool_id(p, pr, member_ids, overflow_ids, n_c, cap, n_mem)
+                 : -1;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) ivf_screen_select_kernel(
-    const float* __restrict__ member_vecs, const int* __restrict__ member_ids,
+// ivf_screen_select's score pass writes through this sink: one sort key per
+// pool slot of a live stage, at (query * n_probe + stage) * cap + row of the
+// (b, n_probe * cap) workspace, its low word the pool index stage * cap +
+// row; a dead member's key is -inf.
+struct KeySink {
+  static constexpr bool kSkipDead = true;
+  unsigned long long* keys;
+  int cap;
+  int n_probe;
+
+  __device__ __forceinline__ void copy_ids(const int*, int, const int*, int,
+                                           int) const {}
+  __device__ __forceinline__ void store(int pair, int row, float s,
+                                        bool live) const {
+    keys[static_cast<size_t>(pair) * cap + row] =
+        make_key(live ? s : -INFINITY, (pair % n_probe) * cap + row);
+  }
+};
+
+__global__ void __launch_bounds__(repro_torch::ivf::kPlanThreads)
+    ivf_screen_plan_kernel(const int* __restrict__ probe,
+                           const int* __restrict__ width, int P, int n_c,
+                           int n_probe, int qc, int* __restrict__ count,
+                           int* __restrict__ pairs, int* __restrict__ items,
+                           int* __restrict__ n_items) {
+  repro_torch::ivf::plan_body(probe, width, P, n_c, n_probe, qc, count,
+                              pairs, items, n_items);
+}
+
+__global__ void __launch_bounds__(repro_torch::ivf::kThreads, 1)
+    ivf_screen_score_kernel(const float* __restrict__ member_vecs,
+                            const int* __restrict__ member_ids,
+                            const float* __restrict__ q,
+                            const int* __restrict__ pairs,
+                            const int* __restrict__ items,
+                            const int* __restrict__ n_items, KeySink sink,
+                            int cap, int d, int n_probe) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  repro_torch::ivf::item_body(member_vecs, member_ids, q, pairs, items,
+                              n_items, sink, cap, d, n_probe,
+                              reinterpret_cast<float*>(smem_raw));
+}
+
+__global__ void __launch_bounds__(repro_torch::ivf::kThreads, 2)
+    ivf_screen_score_small_kernel(const float* __restrict__ member_vecs,
+                                  const int* __restrict__ member_ids,
+                                  const int* __restrict__ probe,
+                                  const int* __restrict__ width,
+                                  const float* __restrict__ q, KeySink sink,
+                                  int n_c, int cap, int d, int n_probe, int P,
+                                  int qc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  repro_torch::ivf::small_body(member_vecs, member_ids, probe, width, q, sink,
+                               n_c, cap, d, n_probe, P, qc,
+                               reinterpret_cast<float*>(smem_raw));
+}
+
+// ivf_screen_topk_kernel: pool keys a thread holds in registers, so a pool
+// of up to kTopkKeys * kThreads = 16,384 slots.
+constexpr int kTopkKeys = 16;
+constexpr unsigned long long kNoKey = ~0ull;  // a register past the pool
+
+__global__ void __launch_bounds__(kThreads) ivf_screen_topk_kernel(
+    const unsigned long long* __restrict__ ws,
+    const int* __restrict__ member_ids,
     const float* __restrict__ overflow_scores,
     const int* __restrict__ overflow_ids, const int* __restrict__ probe,
-    const int* __restrict__ probe_width, const float* __restrict__ q,
-    float* __restrict__ out_vals, int* __restrict__ out_ids, int n_c, int cap,
-    int d, int n_probe, int o_cap, int k, int d_pad, int pool_pow2) {
+    const int* __restrict__ probe_width, float* __restrict__ out_vals,
+    int* __restrict__ out_ids, int n_c, int cap, int n_probe, int o_cap,
+    int k, int pool_pow2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sq = reinterpret_cast<float*>(smem_raw);
-  unsigned long long* keys =
-      reinterpret_cast<unsigned long long*>(sq + d_pad);
+  unsigned long long* sel = reinterpret_cast<unsigned long long*>(smem_raw);
+  __shared__ int hist[2][256];
+  __shared__ int s_digit, s_before, s_count, s_taken;
+  const unsigned full = 0xffffffffu;
   const int bi = blockIdx.x;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int width =
       probe_width ? min(max(probe_width[bi], 0), n_probe) : n_probe;
   const int n_mem = n_probe * cap;
   const int* pr = probe + static_cast<size_t>(bi) * n_probe;
+  const float* os = overflow_scores + static_cast<size_t>(bi) * o_cap;
+  const unsigned long long* wk = ws + static_cast<size_t>(bi) * n_mem;
 
-  repro_torch::load_query(sq, q + static_cast<size_t>(bi) * d, d);
-  __syncthreads();
-
-  for (int row = warp; row < n_mem; row += kWarps) {
-    const int j = row / cap;
-    const int r = row - j * cap;
-    float s = -INFINITY;
-    if (j < width) {
-      const int cl = min(max(pr[j], 0), n_c - 1);
-      const size_t slot = static_cast<size_t>(cl) * cap + r;
-      if (member_ids[slot] >= 0)  // uniform across the warp
-        s = repro_torch::warp_row_dot(member_vecs + slot * d, sq, d, lane);
-    }
-    if (lane == 0) keys[row] = make_key(s, row);
+  // the keys that need no score: overflow, dead stages, padding (thread t
+  // holds slots t, t + kThreads, ...)
+  for (int i = tid; i < 2 * 256; i += kThreads) (&hist[0][0])[i] = 0;
+  if (tid == 0) s_taken = 0;
+  unsigned long long key[kTopkKeys];
+#pragma unroll
+  for (int t = 0; t < kTopkKeys; ++t) {
+    const int p = tid + t * kThreads;
+    key[t] = p >= pool_pow2 ? kNoKey
+             : p < n_mem    ? make_key(-INFINITY, p)
+                            : tail_key(p, os, overflow_ids, n_mem, o_cap);
   }
-  fill_overflow_keys(keys, overflow_scores + static_cast<size_t>(bi) * o_cap,
-                     overflow_ids, n_mem, o_cap, pool_pow2);
+  // launched early (programmatic dependent launch): wait until the score
+  // grid has finished and its keys are visible
+  repro_torch::wait_for_previous_grid();
+#pragma unroll
+  for (int t = 0; t < kTopkKeys; ++t) {
+    const int p = tid + t * kThreads;
+    if (p < n_mem && p / cap < width) key[t] = wk[p];
+  }
   __syncthreads();
-  bitonic_sort(keys, pool_pow2);
-  emit_pool(keys, k, pr, member_ids, overflow_ids, n_c, cap, n_mem,
-            out_vals + static_cast<size_t>(bi) * k,
-            out_ids + static_cast<size_t>(bi) * k);
+
+  // radix select of the k-th smallest key, 8 bits a pass from the top:
+  // prefix holds the bits fixed so far, kk the k-th key's rank among the
+  // keys that share them. Bits 16-31 of every key are 0 (a pool index
+  // below 2^14), so after the value's four passes the index's start at 8.
+  unsigned long long prefix = 0;
+  int kk = k;
+  int shift = 56;
+  for (int pass = 0;; ++pass, shift = shift == 32 ? 8 : shift - 8) {
+    int* h = hist[pass & 1];
+    const unsigned long long fixed = shift == 56 ? 0ull : ~0ull << (shift + 8);
+#pragma unroll
+    for (int t = 0; t < kTopkKeys; ++t) {
+      if (t * kThreads < pool_pow2) {  // block-uniform
+        const bool in =
+            key[t] != kNoKey && ((key[t] ^ prefix) & fixed) == 0;
+        const int dg = in ? static_cast<int>((key[t] >> shift) & 255) : -1;
+        const unsigned peers = __match_any_sync(full, dg);
+        if (in && lane == __ffs(peers) - 1) atomicAdd(h + dg, __popc(peers));
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {  // the bucket of the kk-th key: lane l scans 8l..8l+7
+      int c[8];
+      int sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c[j] = h[8 * lane + j];
+        sum += c[j];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(full, incl, o);
+        if (lane >= o) incl += v;
+      }
+      int run = incl - sum;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (run < kk && kk <= run + c[j]) {
+          s_digit = 8 * lane + j;
+          s_before = run;
+          s_count = c[j];
+        }
+        run += c[j];
+      }
+    } else {  // the next pass's histogram
+      int* nh = hist[(pass + 1) & 1];
+      for (int i = tid - 32; i < 256; i += kThreads - 32) nh[i] = 0;
+    }
+    __syncthreads();
+    kk -= s_before;
+    prefix |= static_cast<unsigned long long>(s_digit) << shift;
+    // the bucket's keys are exactly the ones still wanted: all are taken
+    if (s_count == kk || shift == 0) break;  // block-uniform
+  }
+
+  // the k keys at or below the k-th (unique keys: exactly k) into sel, in
+  // any order, then sel padded to 64-key runs with keys above them all
+  const unsigned long long last = prefix >> shift;
+#pragma unroll
+  for (int t = 0; t < kTopkKeys; ++t) {
+    if (t * kThreads < pool_pow2) {  // block-uniform
+      const bool take = key[t] != kNoKey && (key[t] >> shift) <= last;
+      const unsigned m = __ballot_sync(full, take);
+      int at = 0;
+      if (lane == 0 && m) at = atomicAdd(&s_taken, __popc(m));
+      at = __shfl_sync(full, at, 0) + __popc(m & ((1u << lane) - 1u));
+      if (take) sel[at] = key[t];
+    }
+  }
+  const int runs = (k + 63) / 64;
+  for (int i = k + tid; i < 64 * runs; i += kThreads) sel[i] = kNoKey - i;
+  __syncthreads();
+
+  float* vals = out_vals + static_cast<size_t>(bi) * k;
+  int* ids = out_ids + static_cast<size_t>(bi) * k;
+  repro_torch::select_by_rank(
+      sel, sel, 64 * runs, runs, k, [&](int i, unsigned long long x) {
+        const float v = key_value(x);
+        vals[i] = v;
+        ids[i] = v != -INFINITY ? pool_id(key_index(x), pr, member_ids,
+                                          overflow_ids, n_c, cap, n_mem)
+                                : -1;
+      });
 }
 
 __global__ void __launch_bounds__(kThreads) pq_screen_select_kernel(
@@ -421,36 +603,58 @@ int round_up4(int d) { return (d + 3) & ~3; }
 
 }  // namespace
 
-// Shared memory a launch of ivf_screen_select needs, in bytes; the caller
-// checks it against the card's per-block limit before launching.
-extern "C" long long ivf_screen_select_smem(int d, int pool_pow2) {
-  return static_cast<long long>(sizeof(float)) * round_up4(d) +
-         static_cast<long long>(sizeof(unsigned long long)) * pool_pow2;
+// Shared memory of one ivf_screen_select topk block, in bytes: the k
+// selected keys in 64-key runs and the two histograms (the score pass
+// stages at most ivf_score.cuh's budget); the caller checks it against the
+// card's per-block limit before launching.
+extern "C" long long ivf_screen_select_smem(int k) {
+  return static_cast<long long>(sizeof(unsigned long long)) * 64 *
+             ((k + 63) / 64) +
+         static_cast<long long>(sizeof(int)) * (2 * 256 + 4);
 }
 
 // Shapes: member_vecs (n_c, cap, d) f32, member_ids (n_c, cap) i32,
 // overflow_scores (b, o_cap) f32, overflow_ids (o_cap,) i32,
 // probe (b, n_probe) i32, probe_width (b,) i32 or NULL (full width),
 // q (b, d) f32 -> out_vals (b, k) f32, out_ids (b, k) i32.
-// pool_pow2 is a power of two >= max(n_probe * cap + o_cap, k).
-// Returns the CUDA error code of the launch (0 = success).
+// keys: b * n_probe * cap 64-bit keys of workspace, 8-byte aligned; ws:
+// ws_len int32 of the score pass's plan workspace (ivf::workspace_ints).
+// pool_pow2 is a power of two >= max(n_probe * cap + o_cap, k), at most
+// kTopkKeys * 1024.
+// Enqueues the score pass and the topk kernel; returns the CUDA error code
+// of the launches (0 = success).
 extern "C" int ivf_screen_select_launch(
     const float* member_vecs, const int* member_ids,
     const float* overflow_scores, const int* overflow_ids, const int* probe,
     const int* probe_width, const float* q, float* out_vals, int* out_ids,
-    int n_c, int cap, int d, int b, int n_probe, int o_cap, int k,
-    int pool_pow2, void* stream) {
+    unsigned long long* keys, int* ws, long long ws_len, int n_c, int cap,
+    int d, int b, int n_probe, int o_cap, int k, int pool_pow2,
+    void* stream) {
   if (b == 0 || k == 0) return 0;
-  const size_t smem = static_cast<size_t>(ivf_screen_select_smem(d, pool_pow2));
-  const int e = set_smem(reinterpret_cast<const void*>(ivf_screen_select_kernel),
-                         smem);
+  if (pool_pow2 > kTopkKeys * kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool scored = n_probe > 0 && cap > 0;
+  int e = repro_torch::ivf::launch_scores(
+      ivf_screen_score_small_kernel, ivf_screen_plan_kernel,
+      ivf_screen_score_kernel, KeySink{keys, cap, n_probe}, member_vecs,
+      member_ids, probe, probe_width, q, ws, ws_len, n_c, cap, d, b, n_probe,
+      s);
   if (e) return e;
-  ivf_screen_select_kernel<<<b, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      member_vecs, member_ids, overflow_scores, overflow_ids, probe,
-      probe_width, q, out_vals, out_ids, n_c, cap, d, n_probe, o_cap, k,
-      round_up4(d), pool_pow2);
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = sizeof(unsigned long long) * 64 * ((k + 63) / 64);
+  e = set_smem(reinterpret_cast<const void*>(ivf_screen_topk_kernel), smem);
+  if (e) return e;
+  const unsigned long long* wk = keys;
+  if (!scored) {  // no score grid to depend on
+    ivf_screen_topk_kernel<<<b, kThreads, smem, s>>>(
+        wk, member_ids, overflow_scores, overflow_ids, probe, probe_width,
+        out_vals, out_ids, n_c, cap, n_probe, o_cap, k, pool_pow2);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return repro_torch::launch_dependent(
+      ivf_screen_topk_kernel, dim3(b), dim3(kThreads), smem, s, wk,
+      member_ids, overflow_scores, overflow_ids, probe, probe_width, out_vals,
+      out_ids, n_c, cap, n_probe, o_cap, k, pool_pow2);
 }
 
 // Shapes: emb (n, d) f32, pos (t, m_cap) i32, m_used (t,) i32,

@@ -3,9 +3,11 @@
 (``csrc/decode_fused.cu``; counterpart of ``repro/kernels/decode_fused.py``).
 
 * :func:`ivf_screen_select` — IVF gather-score of the probed clusters and
-  the top-k of the pool ∪ overflow, the pool held in shared memory. Members
-  are scored by the device function ``ivf_gather_score`` uses, so its
-  values are bitwise that kernel's.
+  the top-k of the pool ∪ overflow: a score pass over the whole card (the
+  cluster-major code ``ivf_gather_score`` runs, so its values are bitwise
+  that kernel's) writes one sort key per member slot into a workspace that
+  shares one allocation with the outputs, and a select kernel takes each
+  query's first k keys by a radix select. One C call enqueues both.
 * :func:`pq_screen_select` — the IVF-PQ screen: each probed member's LUT
   sum (the device function ``pq_lut_score`` uses) plus its cluster's coarse
   score, and the top-r of the pool ∪ exact overflow scores.
@@ -29,11 +31,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ivf_gather_score import check_tables
+from repro_torch.kernels.ivf_gather_score import check_tables, workspace_ints
 from repro_torch.kernels.pq_lut_score import check_codes
 
 __all__ = ["ivf_screen_select", "pq_screen_select", "rerank_select",
-           "tail_gather_argmax", "launches", "rerank_workspace_ints"]
+           "tail_gather_argmax", "launches", "rerank_workspace_ints",
+           "screen_workspace_ints"]
 
 launches = {"ivf_screen_select": 0, "pq_screen_select": 0,
             "rerank_select": 0, "tail_gather_argmax": 0}
@@ -41,6 +44,8 @@ launches = {"ivf_screen_select": 0, "pq_screen_select": 0,
 _SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
 RERANK_ROWS = 32  # survivors one rerank_select score block takes (the
 #   kernel's kRerankRows; the card tests probe r around it)
+SCREEN_POOL_MAX = 16_384  # the widest pool ivf_screen_select's select
+#   kernel holds: 16 keys in each of its 1,024 threads' registers
 
 
 def _cuda(name: str, *ts):
@@ -71,10 +76,16 @@ def _check_overflow(name, overflow_scores, overflow_ids, probe_width, b):
             overflow_ids.to(torch.int32).contiguous(), probe_width)
 
 
+def screen_workspace_ints(b: int, n_probe: int, cap: int) -> int:
+    """Int32 words of ``ivf_screen_select``'s key workspace: one 64-bit sort
+    key per (query, probed member slot)."""
+    return 2 * b * n_probe * cap
+
+
 def ivf_screen_select(member_vecs, member_ids, overflow_scores, overflow_ids,
                       probe, q, *, k: int, probe_width=None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel -> (values (b, k) f32, ids (b, k) i32)."""
+    """Launch the kernels -> (values (b, k) f32, ids (b, k) i32)."""
     member_vecs, member_ids, probe, q = check_tables(
         member_vecs, member_ids, probe, q, "ivf_screen_select")
     n_c, cap, d = member_vecs.shape
@@ -83,20 +94,32 @@ def ivf_screen_select(member_vecs, member_ids, overflow_scores, overflow_ids,
     overflow_scores, overflow_ids, probe_width = _check_overflow(
         "ivf_screen_select", overflow_scores, overflow_ids, probe_width, b)
     pool_pow2 = _pow2(max(n_probe * cap + o_cap, k))
-    fn_smem = build.bind("decode_fused", "ivf_screen_select_smem",
-                         [build.I, build.I], restype=ctypes.c_longlong)
-    if fn_smem(d, pool_pow2) > _SMEM_LIMIT:
-        raise ValueError(f"ivf_screen_select: pool of {pool_pow2} slots at "
-                         f"d={d} exceeds one block's shared memory")
-    vals = torch.empty((b, k), dtype=torch.float32, device=q.device)
-    ids = torch.empty((b, k), dtype=torch.int32, device=q.device)
+    if pool_pow2 > SCREEN_POOL_MAX:
+        raise ValueError(f"ivf_screen_select: pool of {pool_pow2} slots "
+                         f"exceeds the select kernel's {SCREEN_POOL_MAX}")
+    fn_smem = build.bind("decode_fused", "ivf_screen_select_smem", [build.I],
+                         restype=ctypes.c_longlong)
+    if fn_smem(k) > _SMEM_LIMIT:
+        raise ValueError(f"ivf_screen_select: k={k} exceeds one block's "
+                         "shared memory")
+    # values, ids, the keys (8-byte aligned: 2 * b * k words before), then
+    # the score pass's plan
+    n_out = b * k
+    n_keys = screen_workspace_ints(b, n_probe, cap)
+    n_plan = workspace_ints(n_c, b, n_probe)
+    buf = torch.empty(2 * n_out + n_keys + n_plan, dtype=torch.int32,
+                      device=q.device)
+    vals = buf[:n_out].view(torch.float32).view(b, k)
+    ids = buf[n_out:2 * n_out].view(b, k)
+    keys = buf.data_ptr() + 8 * n_out
     fn = build.bind("decode_fused", "ivf_screen_select_launch",
-                    [build.P] * 9 + [build.I] * 8 + [build.P])
+                    [build.P] * 11 + [ctypes.c_longlong] + [build.I] * 8
+                    + [build.P])
     err = fn(build.ptr(member_vecs), build.ptr(member_ids),
              build.ptr(overflow_scores), build.ptr(overflow_ids),
              build.ptr(probe), build.ptr(probe_width), build.ptr(q),
-             build.ptr(vals), build.ptr(ids), n_c, cap, d, b, n_probe, o_cap,
-             k, pool_pow2, build.stream())
+             build.ptr(vals), build.ptr(ids), keys, keys + 4 * n_keys, n_plan,
+             n_c, cap, d, b, n_probe, o_cap, k, pool_pow2, build.stream())
     build.check(err, "ivf_screen_select")
     launches["ivf_screen_select"] += 1
     return vals, ids

@@ -5,7 +5,10 @@ not a multiple of 4, lengths 0, 1 and full, dead candidate slots, all-dead
 tokens, row segments longer than a backward tile, PQ subspace counts 4, 8
 and 16, codebooks narrower than 256; flash_decode lengths around its split
 of the sequence, query-group sizes 1 to 32 and head dims 16 to 256;
-duplicate, out-of-range and piled-up IVF probes). Marked ``cuda``: they skip without
+duplicate, out-of-range and piled-up IVF probes; the split IVF screen at
+1 to 256 queries, pools at and past a power of two and up to its 16,384
+slots, k from 1 to past the pool, probe widths 0 to past n_probe, dead
+cluster tails). Marked ``cuda``: they skip without
 an NVIDIA GPU; run them on one with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -238,6 +241,151 @@ def test_screen_select_bitwise_equals_gather_score_plus_topk(gen, d, b, skew):
     ws = ref.ivf_gather_score_ref(mv, mids, probe, q)[0].reshape(b, -1)
     torch.testing.assert_close(s, ws, rtol=1e-5,
                                atol=1e-5 * ws.abs().max().item())
+
+
+def _screen_equals_gather_topk(args, k, width=None):
+    """The split screen against the unfused kernel probe + a top-k, values
+    and ids bit for bit (stages at or past a query's width dead, dead ids at
+    -inf, -inf picks id -1), and against a second launch; returns (values,
+    ids)."""
+    mv, mids, o_sc, o_ids, probe, q = args
+    b, n_probe = probe.shape
+    v, i = decode_fused.ivf_screen_select(*args, k=k, probe_width=width)
+    s, ids = ops.ivf_gather_score(mv, mids, probe, q)
+    if width is not None:
+        stage = torch.arange(n_probe, device="cuda")
+        live = (stage[None] < width.clamp(0, n_probe)[:, None])
+        live = live.repeat_interleave(mv.shape[1], 1)
+        s = torch.where(live, s, float("-inf"))
+        ids = torch.where(live, ids, -1)
+    pool_s = torch.cat([s, o_sc], 1)
+    pool_i = torch.cat([ids, o_ids[None].expand(b, -1)], 1)
+    pool_s = torch.where(pool_i >= 0, pool_s, float("-inf"))
+    wv, wi = ref.topk_select_ref(pool_s, pool_i, k)
+    assert torch.equal(v, wv) and torch.equal(i, wi)
+    v2, i2 = decode_fused.ivf_screen_select(*args, k=k, probe_width=width)
+    assert torch.equal(v2, v) and torch.equal(i2, i)
+    return v, i
+
+
+def _random_tables(gen, n_c=12, cap=40, d=64, b=5, n_probe=4, o_cap=24):
+    """_tables with random fp32 rows, queries and overflow scores."""
+    mv, mids, _, o_ids, probe, _ = _tables(gen, n_c, cap, d, b, n_probe,
+                                           o_cap)
+    mv = torch.randn(mv.shape, generator=gen, device="cuda")
+    q = torch.randn((b, d), generator=gen, device="cuda")
+    o_sc = torch.randn((b, o_cap), generator=gen, device="cuda") * 10
+    return mv, mids, o_sc, o_ids, probe, q
+
+
+@pytest.mark.parametrize("b", [1, 4, 5, 64, 256])
+def test_ivf_screen_select_batch_sizes(gen, b):
+    """Batches on both sides of the score pass's small kernel (at most 4
+    queries) and its plan (5 and up), random fp32: bitwise the unfused
+    probe + top-k, two launches equal, a query screened alone equal to its
+    row of the batch; values within rtol 1e-5 and an atol of 1e-5 times the
+    largest |score| of the plain version's (another order of sums)."""
+    args = _random_tables(gen, b=b)
+    v, i = _screen_equals_gather_topk(args, 50)
+    for j in sorted({0, b // 2, b - 1}):
+        va, ia = decode_fused.ivf_screen_select(
+            args[0], args[1], args[2][j:j + 1], args[3], args[4][j:j + 1],
+            args[5][j:j + 1], k=50)
+        assert torch.equal(va[0], v[j]) and torch.equal(ia[0], i[j])
+    wv, _ = ref.ivf_screen_select_ref(*args, 50)
+    fin = torch.isfinite(wv)
+    assert torch.equal(fin, torch.isfinite(v))
+    torch.testing.assert_close(v[fin], wv[fin], rtol=1e-5,
+                               atol=1e-5 * wv[fin].abs().max().item())
+
+
+@pytest.mark.parametrize("case", ["k1", "k_pool", "k_past_pool", "pool_pow2",
+                                  "pool_pow2_plus1", "pool_max",
+                                  "pool_max_k_pool"])
+def test_ivf_screen_select_k_and_pool_edges(gen, case):
+    """k = 1, k = the pool, k past the pool (padding picks: -inf, id -1); a
+    pool of exactly 256 slots and one of 257 (padded to 512); the widest
+    pool the select holds, 16,384 slots, at k 600 and k = the pool.
+    Small-integer rows, so also exact against the plain version."""
+    kw = dict(n_c=12, cap=48, d=36, b=5, n_probe=4, o_cap=24)
+    pool = 4 * 48 + 24
+    k = {"k1": 1, "k_pool": pool, "k_past_pool": pool + 9}.get(case, 50)
+    if case.startswith("pool_pow2"):
+        kw["o_cap"] = 256 - 4 * 48 + (case == "pool_pow2_plus1")
+    if case.startswith("pool_max"):
+        kw.update(n_c=10, cap=1800, n_probe=8, o_cap=16384 - 8 * 1800, b=4)
+        k = 16384 if case == "pool_max_k_pool" else 600
+    args = _tables(gen, **kw)
+    v, i = _screen_equals_gather_topk(args, k)
+    wv, wi = ref.ivf_screen_select_ref(*args, k)
+    assert torch.equal(v, wv) and torch.equal(i, wi)
+    if case == "k_past_pool":
+        assert torch.isneginf(v[:, pool:]).all() and (i[:, pool:] == -1).all()
+
+
+def test_ivf_screen_select_rejects_a_pool_past_its_select(gen):
+    """A pool wider than the select kernel's 16,384 register-held keys is
+    refused before any launch."""
+    args = _tables(gen, n_c=4, cap=8, d=16, b=2, n_probe=2, o_cap=16)
+    with pytest.raises(ValueError, match="pool"):
+        decode_fused.ivf_screen_select(*args,
+                                       k=decode_fused.SCREEN_POOL_MAX + 1)
+
+
+@pytest.mark.parametrize("case", ["zero", "mixed", "full"])
+@pytest.mark.parametrize("b", [4, 6])
+def test_ivf_screen_select_probe_width_edges(gen, case, b):
+    """probe_width 0 for every query (the overflow alone), mixed widths
+    (0, 1, all, negative and past n_probe, which clamp), and the full width
+    given explicitly; on the small kernel (4 queries) and the plan (6)."""
+    args = _random_tables(gen, b=b)
+    n_probe = args[4].shape[1]
+    width = {"zero": [0] * b, "full": [n_probe] * b,
+             "mixed": [0, 1, n_probe, -3, n_probe + 5, 2][:b]}[case]
+    width = torch.tensor(width, device="cuda", dtype=torch.int32)
+    v, i = _screen_equals_gather_topk(args, 50, width)
+    if case == "full":
+        v0, i0 = decode_fused.ivf_screen_select(*args, k=50)
+        assert torch.equal(v0, v) and torch.equal(i0, i)
+
+
+@pytest.mark.parametrize("case", ["all_dead", "duplicates", "out_of_range",
+                                  "dead_tails"])
+@pytest.mark.parametrize("b", [3, 5])
+def test_ivf_screen_select_special_probes(gen, case, b):
+    """A query whose probed members and overflow are all dead (every pick
+    -inf, id -1); queries naming one cluster in several slots (each slot
+    scored, ties by pool index); probe ids out of range (clamped, as a
+    gather does); members dead past each cluster's size, as the index packs
+    them, so whole row chunks of the score pass hold no live row."""
+    args = _random_tables(gen, n_c=12, cap=100, b=b)
+    mv, mids, o_sc, o_ids, probe, q = args
+    if case == "all_dead":
+        mids[probe[0].long()] = -1
+        o_ids = torch.full_like(o_ids, -1)
+    if case == "duplicates":
+        probe[:, 1] = probe[:, 0]
+        probe[1, :] = probe[1, 2]
+    if case == "out_of_range":
+        probe[0, 0], probe[1, 2], probe[2, 3] = -5, 12, 10 ** 6
+    if case == "dead_tails":
+        sizes = torch.randint(0, 101, (12,), generator=gen, device="cuda")
+        sizes[0], sizes[1] = 0, 100
+        dead = torch.arange(100, device="cuda")[None] >= sizes[:, None]
+        mids[dead] = -1
+    args = (mv, mids, o_sc, o_ids, probe, q)
+    v, i = _screen_equals_gather_topk(args, 60)
+    if case == "all_dead":
+        assert torch.isneginf(v[0]).all() and (i[0] == -1).all()
+
+
+@pytest.mark.parametrize("d", [36, 2048])
+@pytest.mark.parametrize("b", [4, 5])
+def test_ivf_screen_select_widths(gen, d, b):
+    """d 36 and tinyllama's 2,048 on random fp32 rows, both score paths:
+    bitwise the unfused probe + top-k, two launches equal."""
+    _screen_equals_gather_topk(_random_tables(gen, n_c=16, cap=48, d=d, b=b,
+                                              n_probe=5, o_cap=10), 64)
 
 
 @pytest.mark.parametrize("d", [64, 30])

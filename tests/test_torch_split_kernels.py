@@ -1,9 +1,10 @@
 """The inputs the split ``flash_decode``, the cluster-major
-``ivf_gather_score``, the split ``rerank_select`` and the ``fused_estimator``
-kernels have to get right, held on the CPU: the plain versions (what the
-CPU runs in place of the kernels) against the JAX package at lengths around
-the kernel's split of the sequence, at probe sets with repeated and
-piled-up clusters, at survivor counts around the re-rank's chunk of
+``ivf_gather_score``, the split ``ivf_screen_select`` and ``rerank_select``
+and the ``fused_estimator`` kernels have to get right, held on the CPU: the
+plain versions (what the CPU runs in place of the kernels) against the JAX
+package at lengths around the kernel's split of the sequence, at probe sets
+with repeated and piled-up clusters, at screen pools at and past a power of
+two and as wide as k, at survivor counts around the re-rank's chunk of
 survivors (dead, duplicate and out-of-range ids among them), and at the
 estimator's candidate sets that share, repeat or clamp rows; and the
 wrappers' workspace sizes against a brute-force listing of what the kernels
@@ -136,6 +137,80 @@ def test_flash_decode_workspace_holds_one_record_per_split(s):
     b, hq, hd = 3, 8, 64
     splits = len(range(0, s, SPLIT))
     assert flash_decode.workspace_floats(b, s, hq, hd) == b * hq * splits * (hd + 2)
+
+
+def _screen_inputs(rng, n_c, cap, d, b, n_probe, o_cap):
+    """IVF tables (30 % of the members dead), random probes, queries and an
+    overflow a third dead, random fp32."""
+    mv = rng.standard_normal((n_c, cap, d), dtype=np.float32)
+    mids = rng.integers(0, 1000, (n_c, cap)).astype(np.int32)
+    mids[rng.random((n_c, cap)) < 0.3] = -1
+    probe = np.stack([rng.permutation(n_c)[:n_probe]
+                      for _ in range(b)]).astype(np.int32)
+    q = rng.standard_normal((b, d), dtype=np.float32)
+    osc = rng.standard_normal((b, o_cap), dtype=np.float32)
+    oids = rng.integers(0, 1000, (o_cap,)).astype(np.int32)
+    oids[::3] = -1
+    return mv, mids, osc, oids, probe, q
+
+
+@pytest.mark.parametrize("case", ["duplicates", "pool_is_k", "pool_pow2",
+                                  "pool_pow2_plus1", "width0"])
+def test_ivf_screen_select_ref_pool_edges_match_jax(case):
+    """The screen's plain version against the JAX oracle where the split
+    kernel's select has edges: each query naming a cluster two and three
+    times (both slots filled, ties broken by pool index), k equal to the
+    pool, a pool of exactly 2^7 slots and one of 2^7 + 1 (the kernel pads
+    to the next power of two), and every query's probe width 0 (the
+    overflow alone, against the oracle on an empty probe)."""
+    rng = np.random.default_rng(["duplicates", "pool_is_k", "pool_pow2",
+                                 "pool_pow2_plus1", "width0"].index(case))
+    n_c, cap, d, b, n_probe, o_cap, k = 10, 24, 36, 5, 4, 32, 40
+    if case in ("pool_pow2", "pool_pow2_plus1"):
+        o_cap = 128 - n_probe * cap + (case == "pool_pow2_plus1")
+    mv, mids, osc, oids, probe, q = _screen_inputs(rng, n_c, cap, d, b,
+                                                   n_probe, o_cap)
+    if case == "duplicates":
+        probe[:, 1] = probe[:, 0]
+        probe[2, :3] = probe[2, 3]
+        osc[2] = -100.0  # query 2: one cluster in all four slots
+    if case == "pool_is_k":
+        k = n_probe * cap + o_cap
+    width = None
+    want_probe = probe
+    if case == "width0":
+        width = np.zeros(b, np.int32)
+        want_probe = probe[:, :0]
+    want_v, want_i = jref.ivf_screen_select_ref(mv, mids, osc, oids,
+                                                want_probe, q, k)
+    got_v, got_i = ref.ivf_screen_select_ref(
+        _t(mv), _t(mids), _t(osc), _t(oids), _t(probe), _t(q), k,
+        probe_width=None if width is None else _t(width))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), **TOL)
+    if case == "duplicates":  # a member in four slots: picked four times
+        assert (got_i[2, :4] == got_i[2, 0]).all() and got_i[2, 0] >= 0
+        assert (got_v[2, :4] == got_v[2, 0]).all()
+    if case == "width0":
+        assert set(got_i.numpy().ravel()) <= set(oids.tolist()) | {-1}
+
+
+@pytest.mark.parametrize("b,n_probe,cap,k", [(1, 1, 8, 1), (4, 8, 544, 576),
+                                             (5, 8, 544, 576),
+                                             (256, 8, 544, 576),
+                                             (3, 2, 33, 7)])
+def test_ivf_screen_select_workspace_holds_one_key_per_member_slot(
+        b, n_probe, cap, k):
+    """The score pass writes one 64-bit key per (query, probed member
+    slot) at word offset 2 ((query * n_probe + stage) * cap + row), after
+    the 2 b k words of the values and ids, which keeps the keys 8-byte
+    aligned; the plan's ints follow the keys."""
+    words = {2 * ((i * n_probe + j) * cap + r) + w for i in range(b)
+             for j in range(n_probe) for r in range(cap) for w in (0, 1)}
+    assert words == set(range(decode_fused.screen_workspace_ints(
+        b, n_probe, cap)))
+    assert (4 * 2 * b * k) % 8 == 0
+    assert decode_fused.screen_workspace_ints(b, n_probe, cap) % 2 == 0
 
 
 CHUNK = decode_fused.RERANK_ROWS
