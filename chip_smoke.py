@@ -126,7 +126,7 @@ KERNEL_SYMBOLS = {
                            "ivf_screen_score_kernel")),
     "tail_gather_argmax": (("tail_gather_argmax_kernel",), ()),
     "fused_estimator": (("fused_estimator_fwd_kernel",), ()),
-    "fused_estimator_bwd": (("fused_estimator_bwd_kernel",), ()),
+    "fused_estimator_bwd": (("fused_estimator_bwd_spmm_kernel",), ()),
     "pq_lut_score": (("pq_lut_score_kernel",), ()),
     "pq_screen_select": (("pq_screen_select_kernel",), ()),
     "rerank_select": (("rerank_score_kernel",), ("rerank_select_kernel",)),
@@ -523,14 +523,16 @@ def estimator_inputs(torch, gen, n: int, d: int, t: int, k: int,
 
 def train_kernel_checks(torch, g: Geometry, timer: Timer,
                         records: list[dict]) -> None:
-    """The training path's kernels at its shapes: ``fused_estimator`` and
-    ``fused_estimator_bwd`` over one head chunk (256 tokens, k + l = 1152
-    candidates, the 32000 x 2048 output embedding), and ``ivf_gather_score``
-    at the training probe's 256 queries (extra keys ``train_*`` of its
-    record), then at 256 queries whose probes pile onto popular clusters,
-    over random fp32 rows (keys ``skew_*``), where the fused IVF screen must
-    also equal it plus a top-k bit for bit, two launches agree, and the
-    screen is timed at that batch (keys ``skew_*`` of its record)."""
+    """The training path's kernels at its shapes: ``fused_estimator`` (with
+    the scores y the backward takes) and ``fused_estimator_bwd`` from those
+    scores, as the path runs them, over one head chunk (256 tokens, k + l =
+    1152 candidates, the 32000 x 2048 output embedding), and
+    ``ivf_gather_score`` at the training probe's 256 queries (extra keys
+    ``train_*`` of its record), then at 256 queries whose probes pile onto
+    popular clusters, over random fp32 rows (keys ``skew_*``), where the
+    fused IVF screen must also equal it plus a top-k bit for bit, two
+    launches agree, and the screen is timed at that batch (keys ``skew_*``
+    of its record)."""
     from repro_torch.kernels import decode_fused as kdf
     from repro_torch.kernels import fused_estimator as kfe
     from repro_torch.kernels import ivf_gather_score as kigs
@@ -542,31 +544,41 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
     m = 2 * k
     emb, ids, h, log_w = estimator_inputs(torch, gen, g.n, g.d, t, k)
     args = (emb, ids, h, log_w)
-    got_z, got_v = kfe.fused_estimator(*args)
-    again_z, again_v = kfe.fused_estimator(*args)
-    want_z, want_v = ref.fused_estimator_ref(*args)
+    # as the training path calls it: the scores y written for the backward
+    got_z, got_v, got_y = kfe.fused_estimator(*args, return_y=True)
+    again_z, again_v, again_y = kfe.fused_estimator(*args, return_y=True)
+    want_z, want_v, want_y = ref.fused_estimator_ref(*args, return_y=True)
     torch.cuda.synchronize()
-    check(close(torch, got_z, want_z) and close(torch, got_v, want_v),
+    live = torch.isfinite(log_w)
+    check(close(torch, got_z, want_z) and close(torch, got_v, want_v)
+          and close(torch, got_y[live], want_y[live]),
           "fused_estimator disagrees with its plain version")
+    check(torch.equal(torch.isneginf(got_y), ~live),
+          "fused_estimator: y is not -inf on exactly the dead slots")
     check(bool(torch.isneginf(got_z[7])) and bool(torch.isnan(got_v[7]).all()),
           "fused_estimator: the all-dead token lost the -1e30 sentinel")
     check(torch.equal(got_z.nan_to_num(7.0), again_z.nan_to_num(7.0))
-          and torch.equal(got_v.nan_to_num(7.0), again_v.nan_to_num(7.0)),
+          and torch.equal(got_v.nan_to_num(7.0), again_v.nan_to_num(7.0))
+          and torch.equal(got_y, again_y),
           "fused_estimator is not bitwise repeatable")
-    live = torch.isfinite(log_w)
     err = max((got_z - want_z)[live.any(1)].abs().max().item(),
-              (got_v - want_v)[live.any(1)].abs().max().item())
+              (got_v - want_v)[live.any(1)].abs().max().item(),
+              (got_y - want_y)[live].abs().max().item())
     rows_live = int(torch.unique(ids[live]).numel())
     n_live = int(live.sum().item())
     # bytes: each live distinct row once, ids / log_w / h in, log_z / expv
-    # out; operations: a 2d dot and a 2d weighted sum per live candidate
+    # / y out; operations: a 2d dot and a 2d weighted sum per live candidate
     records.append(make_record(
         "fused_estimator", err,
-        timer.both(lambda: kfe.fused_estimator(*args), "fused_estimator"),
-        timer(lambda: ref.fused_estimator_ref(*args), "fused_estimator plain"),
+        timer.both(lambda: kfe.fused_estimator(*args, return_y=True),
+                   "fused_estimator"),
+        timer(lambda: ref.fused_estimator_ref(*args, return_y=True),
+              "fused_estimator plain"),
         None,
-        rows_live * g.d * 4 + nbytes(ids, log_w, h) + t * 4 + t * g.d * 4,
+        rows_live * g.d * 4 + nbytes(ids, log_w, h) + t * 4 + t * g.d * 4
+        + t * m * 4,
         4.0 * g.d * n_live, FP32_FLOPS))
+    del want_y, again_y
 
     # an O(1) cotangent, so that p and d_emb are far above rounding
     gvec = 0.5 + torch.rand((t,), generator=gen, device="cuda")
@@ -574,8 +586,10 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
     live_tok[7] = False  # keep the all-dead token's NaNs out of d_emb
     bargs = (emb, ids[live_tok], h[live_tok], log_w[live_tok],
              want_z[live_tok], gvec[live_tok])
-    got_d, got_p = kfe.fused_estimator_bwd(*bargs)
-    again_d, again_p = kfe.fused_estimator_bwd(*bargs)
+    yb = got_y[live_tok]  # the forward's scores, as the path passes them
+    got_d, got_p = kfe.fused_estimator_bwd(*bargs, y=yb)
+    again_d, again_p = kfe.fused_estimator_bwd(*bargs, y=yb)
+    # held against the plain version that re-scores the rows itself
     want_d, want_p = ref.fused_estimator_bwd_ref(*bargs)
     torch.cuda.synchronize()
     check(close(torch, got_d, want_d) and close(torch, got_p, want_p),
@@ -588,19 +602,19 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
     err = max((got_d - want_d).abs().max().item(),
               (got_p - want_p).abs().max().item())
     bl = torch.isfinite(bargs[3])
-    rows_live = int(torch.unique(bargs[1][bl]).numel())
     tb = int(live_tok.sum().item())
-    # bytes: each live distinct row and h once, ids / log_w / log_z / g in,
-    # the dense (n, d) d_emb and p out; operations as the forward's
+    # bytes: ids / y / h / log_z / g in once, the dense (n, d) d_emb and p
+    # out; operations: p · h, a 2d fma per live candidate
     records.append(make_record(
         "fused_estimator_bwd", err,
-        timer.both(lambda: kfe.fused_estimator_bwd(*bargs),
+        timer.both(lambda: kfe.fused_estimator_bwd(*bargs, y=yb),
                    "fused_estimator_bwd"),
-        timer(lambda: ref.fused_estimator_bwd_ref(*bargs),
+        timer(lambda: ref.fused_estimator_bwd_ref(*bargs, y=yb),
               "fused_estimator_bwd plain"), None,
-        rows_live * g.d * 4 + nbytes(*bargs[1:]) + g.n * g.d * 4 + tb * m * 4,
-        4.0 * g.d * int(bl.sum().item()), FP32_FLOPS))
-    del emb, args, bargs, want_d, got_d, again_d
+        nbytes(bargs[1], bargs[2], *bargs[4:], yb) + g.n * g.d * 4
+        + tb * m * 4,
+        2.0 * g.d * int(bl.sum().item()), FP32_FLOPS))
+    del emb, args, bargs, want_d, got_d, again_d, got_y, yb
 
     # ---- ivf_gather_score at the training probe's 256 queries: uniform
     # probes over small-integer rows (keys ``train_*``), then skewed probes

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Times the ``flash_decode``, ``ivf_gather_score``, ``ivf_screen_select``,
-``rerank_select`` and ``fused_estimator`` kernels of one source tree on one
-NVIDIA GPU, at the
-shapes ``chip_smoke.py`` checks them at, with ``chip_smoke.py``'s
-device-time :class:`Timer` — so two trees (a change and its parent) can be
-compared on the same card, in turns:
+``rerank_select``, ``fused_estimator`` and ``fused_estimator_bwd`` kernels
+of one source tree on one NVIDIA GPU, at the shapes ``chip_smoke.py``
+checks them at, with ``chip_smoke.py``'s device-time :class:`Timer` — so
+two trees (a change and its parent) can be compared on the same card, in
+turns:
 
     git archive <parent> | tar -x -C build/parent   # build/ is git-ignored
     for t in build/parent . . build/parent; do python3 kernel_ab.py --tree $t; done
@@ -53,6 +53,18 @@ the tree's plain version (over tokens with a live slot), ``digest`` of
 its outputs and ``repeatable``, whether two launches agree bit for bit:
 trees that sum in another order print other digests.
 
+``fused_estimator_bwd`` runs on the same three input sets, the all-dead
+token left out, for an upstream gradient in [0.5, 1.5). A tree whose
+backward takes the forward's scores (``y=``) gets them from its forward
+(``return_y=True``), as the training path does; an older tree's backward
+re-scores the rows. Each prints ``ms`` of the backward alone, ``path_ms``
+of the forward recomputed plus the backward (the training path's cost per
+head chunk), ``digest`` of (``d_emb``, ``p``) and ``repeatable``,
+``max_abs_err`` against the plain version that re-scores,
+``kernels_us`` with PyTorch's own kernels of the call (the id sort and the
+segment search), ``plain_ms`` of the tree's plain version of the same call
+and ``bound_ms`` of its bytes (the dense ``d_emb`` write among them).
+
 Inputs come from ``--seed``, so every tree sees the same data. Exits
 non-zero without CUDA.
 """
@@ -68,36 +80,49 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 KERNELS = ("flash_decode", "ivf_gather_score", "ivf_screen_select",
-           "rerank_select", "fused_estimator")
+           "rerank_select", "fused_estimator", "fused_estimator_bwd")
 
 
-def kernel_breakdown(torch, timer, fn, calls: int = 10) -> dict:
+def kernel_breakdown(torch, timer, fn, calls: int = 10,
+                     library: bool = False) -> dict:
     """Device us per call of each kernel ``fn`` launches, from
     torch.profiler over ``calls`` calls, L2 flushed before each (the
-    flush's own kernel left out). A kernel is charged from the later of its
-    start and the end of the kernel before it: a dependent launch is on the
-    device, waiting, while its predecessor runs, and its own duration would
-    count that time twice."""
+    flush's own fill left out; PyTorch's own kernels too unless
+    ``library``, keyed then by the first 40 characters of their names). A
+    kernel is charged from the later of its start and the end of the
+    kernel before it: a dependent launch is on the device, waiting, while
+    its predecessor runs, and its own duration would count that time
+    twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            timer.flush.zero_()
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without its kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                timer.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA and "FillFunctor" not in e.name
+               for e in prof.events()):
+            break
     spans = []
     for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
         m = re.search(r"::(\w+_kernel)\b", e.name)
-        if e.device_type == DeviceType.CUDA and m and "at::" not in e.name:
+        if m and "at::" not in e.name:
             spans.append((e.time_range.start, e.time_range.end, m.group(1)))
+        elif library:  # the L2 flush's fill keeps its full name
+            name = e.name if "FillFunctor" in e.name else e.name[:40]
+            spans.append((e.time_range.start, e.time_range.end, name))
     out: dict[str, float] = {}
     last = float("-inf")
     for start, end, name in sorted(spans):
         own = max(0.0, end - max(start, last))
-        out[name] = out.get(name, 0.0) + own / calls
+        if "FillFunctor" not in name:  # the L2 flush
+            out[name] = out.get(name, 0.0) + own / calls
         last = max(last, end)
     return out
 
@@ -130,7 +155,8 @@ def main() -> int:
                "ivf_gather_score": "ivf_gather_score",
                "ivf_screen_select": "decode_fused",
                "rerank_select": "decode_fused",
-               "fused_estimator": "fused_estimator"}
+               "fused_estimator": "fused_estimator",
+               "fused_estimator_bwd": "fused_estimator"}
     build.build_all(tuple(sources[k] for k in args.kernels))
     timer = Timer(torch, args.iters)
     out = {"tree": str(tree), "card": subprocess.run(
@@ -427,11 +453,80 @@ def fused_estimator_case(torch, timer, gen, out: dict, args) -> None:
                                  FP32_FLOPS)[0]}
 
 
+def fused_estimator_bwd_case(torch, timer, gen, out: dict, args) -> None:
+    import inspect
+
+    from chip_smoke import FP32_FLOPS, bound_ms, estimator_inputs, nbytes
+    from repro_torch.kernels import fused_estimator as kfe
+    from repro_torch.kernels import ref
+
+    # a tree whose backward takes the forward's scores (``y=``) gets them
+    # from the forward, as the training path does; an older one recomputes
+    from_y = "y" in inspect.signature(kfe.fused_estimator_bwd).parameters
+    n, d, t, k = 32000, 2048, 256, 576
+    for kind in ("popular", "uniform", "shared"):
+        emb, ids, h, log_w = estimator_inputs(torch, gen, n, d, t, k, kind)
+        gvec = 0.5 + torch.rand((t,), generator=gen, device="cuda")
+        live_tok = torch.isfinite(log_w).any(1)  # the all-dead token out
+        fargs = (emb, ids[live_tok], h[live_tok], log_w[live_tok])
+        g = gvec[live_tok]
+        if from_y:
+            log_z, _, y = kfe.fused_estimator(*fargs, return_y=True)
+            kw = {"y": y}
+        else:
+            log_z, _ = kfe.fused_estimator(*fargs)
+            kw = {}
+        bargs = (*fargs, log_z, g)
+
+        def bwd():
+            return kfe.fused_estimator_bwd(*bargs, **kw)
+
+        def path():  # the checkpoint's recomputed forward, then the backward
+            if from_y:
+                lz, _, yy = kfe.fused_estimator(*fargs, return_y=True)
+                return kfe.fused_estimator_bwd(*fargs, lz, g, y=yy)
+            lz, _ = kfe.fused_estimator(*fargs)
+            return kfe.fused_estimator_bwd(*fargs, lz, g)
+
+        got_d, got_p = bwd()
+        again_d, again_p = bwd()
+        want_d, want_p = ref.fused_estimator_bwd_ref(*bargs)
+        torch.cuda.synchronize()
+        err = max((got_d - want_d).abs().max().item(),
+                  (got_p - want_p).abs().max().item())
+        del want_d, want_p
+        live = torch.isfinite(fargs[3])
+        tb = int(live_tok.sum().item())
+        ms, host = timer.both(bwd, f"fused_estimator_bwd {kind}")
+        first = digest(got_d, got_p)
+        # bytes: ids, h, log_z, g and y (or log_w and each live distinct
+        # row) in, the dense d_emb and p out; operations: p · h per live
+        # pair, and where the tree recomputes y, its 2d dot too
+        read = (nbytes(y) if from_y else nbytes(fargs[3])
+                + torch.unique(fargs[1][live]).numel() * d * 4)
+        out[f"fused_estimator_bwd_{kind}"] = {
+            "ms": ms, "host_us": host, "from_y": from_y,
+            "path_ms": timer(path, f"fused_estimator fwd+bwd {kind}"),
+            "max_abs_err": err, "digest": first,
+            "repeatable": first == digest(again_d, again_p),
+            "kernels_us": kernel_breakdown(torch, timer, bwd, library=True),
+            "plain_ms": timer(lambda: ref.fused_estimator_bwd_ref(*bargs, **kw),
+                              f"fused_estimator_bwd {kind} plain"),
+            "bound_ms": bound_ms(
+                read + nbytes(fargs[1], fargs[2], log_z, g) + n * d * 4
+                + tb * 2 * k * 4,
+                (2.0 if from_y else 4.0) * d * int(live.sum().item()),
+                FP32_FLOPS)[0]}
+        del got_d, again_d
+        torch.cuda.empty_cache()
+
+
 CASES = {"flash_decode": flash_decode_case,
          "ivf_gather_score": ivf_gather_score_case,
          "ivf_screen_select": ivf_screen_select_case,
          "rerank_select": rerank_select_case,
-         "fused_estimator": fused_estimator_case}
+         "fused_estimator": fused_estimator_case,
+         "fused_estimator_bwd": fused_estimator_bwd_case}
 
 
 if __name__ == "__main__":

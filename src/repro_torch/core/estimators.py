@@ -231,19 +231,21 @@ class _FusedLogZ(torch.autograd.Function):
     the reference's custom VJP (``estimators.py::_fused_logz``): d_h =
     g · expv (Algorithm 4's estimate); d_emb, the scatter of p · h, and p,
     the log_w cotangent, from the ``fused_estimator_bwd`` kernel, which
-    recomputes the scores. Only ids, log_w, log_z, expv and references to
-    emb and h are saved — never the (t, m, d) rows."""
+    takes the scores y the forward wrote (t × m fp32). Only ids, log_w,
+    log_z, expv, y and references to emb and h are saved — never the
+    (t, m, d) rows."""
 
     @staticmethod
     def forward(ctx, emb, h, ids, log_w):
-        log_z, expv = ops.fused_estimator(emb, ids, h, log_w)
-        ctx.save_for_backward(emb, h, ids, log_w, log_z, expv)
+        log_z, expv, y = ops.fused_estimator(emb, ids, h, log_w,
+                                             return_y=True)
+        ctx.save_for_backward(emb, h, ids, log_w, log_z, expv, y)
         return log_z
 
     @staticmethod
     def backward(ctx, g):
-        emb, h, ids, log_w, log_z, expv = ctx.saved_tensors
-        d_emb, p = ops.fused_estimator_bwd(emb, ids, h, log_w, log_z, g)
+        emb, h, ids, log_w, log_z, expv, y = ctx.saved_tensors
+        d_emb, p = ops.fused_estimator_bwd(emb, ids, h, log_w, log_z, g, y=y)
         d_h = (g[:, None] * expv).to(h.dtype)
         return d_emb.to(emb.dtype), d_h, None, p.to(log_w.dtype)
 

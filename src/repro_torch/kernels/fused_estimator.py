@@ -7,9 +7,11 @@ of ``repro/kernels/fused_estimator.py`` and of the backward of
   ``expv = Σ_j softmax_j · emb[ids_j]`` with ``y_j = emb[ids_j] · h +
   log_w_j``, by an online softmax over the candidate rows streamed by id.
 * :func:`fused_estimator_bwd` — ``p = exp(y - log_z) · g`` and the dense
-  ``d_emb[r] = Σ_{ids_tj = r} p_tj · h_t``, without float atomics: the flat
-  candidate ids are sorted once (stably) and one block per table row walks
-  its segment in order, so the result is bitwise repeatable.
+  ``d_emb[r] = Σ_{ids_tj = r} p_tj · h_t``, from the scores ``y`` the
+  forward wrote (``return_y=True``), without float atomics: the flat
+  candidate ids are sorted once (stably) and each row's segment is folded
+  in order from d-slices of h held in shared memory, so the result is
+  bitwise repeatable.
 
 Their plain versions are ``ref.fused_estimator_ref`` and
 ``ref.fused_estimator_bwd_ref``.
@@ -60,54 +62,68 @@ def _check(name: str, emb, ids, h, log_w):
 
 
 def fused_estimator(emb: torch.Tensor, ids: torch.Tensor, h: torch.Tensor,
-                    log_w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                    log_w: torch.Tensor, *, return_y: bool = False):
     """Launch the forward kernel: emb (n, d) f32/bf16, ids (t, m), h (t, d),
-    log_w (t, m) -> (log_z (t,) f32, expv (t, d) f32)."""
+    log_w (t, m) -> (log_z (t,) f32, expv (t, d) f32), and with
+    ``return_y`` also the scores y (t, m) f32 (-inf on dead slots), which
+    :func:`fused_estimator_bwd` takes."""
     emb, ids, h, log_w = _check("fused_estimator", emb, ids, h, log_w)
     n, d = emb.shape
     t, m = ids.shape
     log_z = torch.empty((t,), dtype=torch.float32, device=h.device)
     expv = torch.empty((t, d), dtype=torch.float32, device=h.device)
+    y = (torch.empty((t, m), dtype=torch.float32, device=h.device)
+         if return_y else None)
     fn = build.bind("fused_estimator", "fused_estimator_launch",
-                    [build.P] * 6 + [build.I] * 5 + [build.P])
+                    [build.P] * 7 + [build.I] * 5 + [build.P])
     err = fn(build.ptr(emb), build.ptr(ids), build.ptr(h), build.ptr(log_w),
-             build.ptr(log_z), build.ptr(expv), n, d, t, m,
+             build.ptr(log_z), build.ptr(expv), build.ptr(y), n, d, t, m,
              int(emb.dtype == torch.bfloat16), build.stream())
     build.check(err, "fused_estimator")
     launches["fused_estimator"] += 1
-    return log_z, expv
+    return (log_z, expv, y) if return_y else (log_z, expv)
 
 
 def fused_estimator_bwd(emb: torch.Tensor, ids: torch.Tensor,
                         h: torch.Tensor, log_w: torch.Tensor,
-                        log_z: torch.Tensor, g: torch.Tensor
+                        log_z: torch.Tensor, g: torch.Tensor, *,
+                        y: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the backward kernel -> (d_emb (n, d) f32, p (t, m) f32), the
     cotangents of emb and log_w for an upstream gradient ``g`` (t,) of
-    log_z. The cotangent of h is ``g · expv`` (no kernel needed)."""
+    log_z. The cotangent of h is ``g · expv`` (no kernel needed). ``y``
+    is the forward's scores (``fused_estimator(..., return_y=True)``);
+    without it one forward launch computes them. The kernel reads no row of
+    emb: n comes from its shape."""
     emb, ids, h, log_w = _check("fused_estimator_bwd", emb, ids, h, log_w)
     n, d = emb.shape
     t, m = ids.shape
     if log_z.shape != (t,) or g.shape != (t,):
         raise ValueError("fused_estimator_bwd: log_z and g must be (t,)")
-    if not (log_z.is_cuda and g.is_cuda):
+    if y is not None and y.shape != (t, m):
+        raise ValueError(f"fused_estimator_bwd: y must be {(t, m)}")
+    if not (log_z.is_cuda and g.is_cuda and (y is None or y.is_cuda)):
         raise ValueError("fused_estimator_bwd kernel needs CUDA tensors")
+    if y is None:
+        y = fused_estimator(emb, ids, h, log_w, return_y=True)[2]
+    y = y.float().contiguous()
+    if h.data_ptr() % 16:  # the kernel reads h's rows as float4 groups
+        h = h.clone()
     log_z = log_z.float().contiguous()
     g = g.float().contiguous()
-    flat = ids.reshape(-1)
-    sorted_ids, order = torch.sort(flat, stable=True)
+    # 16-bit keys where the ids fit: half the radix sort's passes
+    kt = torch.int16 if n < 2 ** 15 - 1 else torch.int32
+    sorted_ids, order = torch.sort(ids.reshape(-1).to(kt), stable=True)
     offsets = torch.searchsorted(
-        sorted_ids, torch.arange(n + 1, dtype=torch.int32, device=h.device),
+        sorted_ids, torch.arange(n + 1, dtype=kt, device=h.device),
         out_int32=True)
-    order = order.to(torch.int32)
     d_emb = torch.empty((n, d), dtype=torch.float32, device=h.device)
     p = torch.empty((t, m), dtype=torch.float32, device=h.device)
     fn = build.bind("fused_estimator", "fused_estimator_bwd_launch",
-                    [build.P] * 9 + [build.I] * 4 + [build.P])
-    err = fn(build.ptr(emb), build.ptr(order), build.ptr(offsets),
-             build.ptr(h), build.ptr(log_w), build.ptr(log_z), build.ptr(g),
-             build.ptr(d_emb), build.ptr(p), n, d, m,
-             int(emb.dtype == torch.bfloat16), build.stream())
+                    [build.P] * 8 + [build.I] * 4 + [build.P])
+    err = fn(build.ptr(order), build.ptr(offsets), build.ptr(h),
+             build.ptr(y), build.ptr(log_z), build.ptr(g), build.ptr(d_emb),
+             build.ptr(p), n, d, t, m, build.stream())
     build.check(err, "fused_estimator_bwd")
     launches["fused_estimator_bwd"] += 1
     return d_emb, p

@@ -127,16 +127,18 @@ def tail_gather_argmax(emb, pos, m_used, pert_s, s_ids, heights, h
                                       heights, h)
 
 
-def fused_estimator(emb, ids, h, log_w) -> tuple[torch.Tensor, torch.Tensor]:
-    """Alg-3/4 stratified estimator -> (log_z (t,), expv (t, d))."""
+def fused_estimator(emb, ids, h, log_w, *, return_y: bool = False):
+    """Alg-3/4 stratified estimator -> (log_z (t,), expv (t, d)), and with
+    ``return_y`` the scores y (t, m) as a third output."""
     if _on_cuda(h, "fused_estimator"):
-        return _fe.fused_estimator(emb, ids, h, log_w)
-    return ref.fused_estimator_ref(emb, ids, h, log_w)
+        return _fe.fused_estimator(emb, ids, h, log_w, return_y=return_y)
+    return ref.fused_estimator_ref(emb, ids, h, log_w, return_y=return_y)
 
 
-def fused_estimator_bwd(emb, ids, h, log_w, log_z, g
+def fused_estimator_bwd(emb, ids, h, log_w, log_z, g, *, y=None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Its backward for upstream ``g`` (t,) -> (d_emb (n, d), p (t, m))."""
+    """Its backward for upstream ``g`` (t,) -> (d_emb (n, d), p (t, m)),
+    from the forward's scores ``y`` where given."""
     if _on_cuda(h, "fused_estimator_bwd"):
-        return _fe.fused_estimator_bwd(emb, ids, h, log_w, log_z, g)
-    return ref.fused_estimator_bwd_ref(emb, ids, h, log_w, log_z, g)
+        return _fe.fused_estimator_bwd(emb, ids, h, log_w, log_z, g, y=y)
+    return ref.fused_estimator_bwd_ref(emb, ids, h, log_w, log_z, g, y=y)

@@ -169,28 +169,32 @@ def tail_gather_argmax_ref(emb, pos, m_used, pert_s, s_ids, heights, h
             torch.gather(pert, 1, best)[:, 0])
 
 
-def fused_estimator_ref(emb, ids, h, log_w) -> tuple[torch.Tensor, torch.Tensor]:
+def fused_estimator_ref(emb, ids, h, log_w, return_y: bool = False):
     """Stratified logsumexp + weighted expectation (Algorithms 3 + 4):
-    (n,d), (t,m), (t,d), (t,m) -> (log_z (t,) f32, expv (t,d) f32). Rows
-    upcast to fp32; an all-dead token (every log_w -inf) gives log_z -inf
-    and expv NaN, as the kernel and the Pallas kernel do."""
+    (n,d), (t,m), (t,d), (t,m) -> (log_z (t,) f32, expv (t,d) f32), and
+    with ``return_y`` the scores y (t,m) f32 too. Rows upcast to fp32; an
+    all-dead token (every log_w -inf) gives log_z -inf and expv NaN, as the
+    kernel and the Pallas kernel do."""
     rows = emb[ids.long()].float()  # (t, m, d)
     y = torch.einsum("tmd,td->tm", rows, h.float()) + log_w.float()
     log_z = torch.logsumexp(y, dim=1)
     p = torch.exp(y - log_z[:, None])
-    return log_z, torch.einsum("tm,tmd->td", p, rows)
+    expv = torch.einsum("tm,tmd->td", p, rows)
+    return (log_z, expv, y) if return_y else (log_z, expv)
 
 
-def fused_estimator_bwd_ref(emb, ids, h, log_w, log_z, g
+def fused_estimator_bwd_ref(emb, ids, h, log_w, log_z, g, y=None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Backward of :func:`fused_estimator_ref`'s log_z for an upstream
     gradient ``g`` (t,), as the reference's custom VJP computes it
-    (``repro/core/estimators.py::_fused_logz_bwd``): the candidate rows
-    gathered again, ``p = exp(y - log_z) · g`` and ``d_emb`` the scatter-add
-    of ``p · h``. -> (d_emb (n, d) f32, p (t, m) f32)."""
+    (``repro/core/estimators.py::_fused_logz_bwd``): ``p = exp(y - log_z)
+    · g`` and ``d_emb`` the scatter-add of ``p · h``. The scores ``y`` come
+    from the forward (``return_y=True``) or, without them, from the
+    candidate rows gathered again. -> (d_emb (n, d) f32, p (t, m) f32)."""
     hf = h.float()
-    rows = emb[ids.long()].float()
-    y = torch.einsum("tmd,td->tm", rows, hf) + log_w.float()
+    if y is None:
+        rows = emb[ids.long()].float()
+        y = torch.einsum("tmd,td->tm", rows, hf) + log_w.float()
     p = torch.exp(y - log_z.float()[:, None]) * g.float()[:, None]
     contrib = (p[..., None] * hf[:, None, :]).reshape(-1, hf.shape[1])
     d_emb = torch.zeros(emb.shape, dtype=torch.float32, device=emb.device)

@@ -2,7 +2,8 @@
 small shapes with the edge cases the serving and training paths can produce
 (pools narrower than k, dead rows, exact ties, probe widths, empty tails, d
 not a multiple of 4, lengths 0, 1 and full, dead candidate slots, all-dead
-tokens, row segments longer than a backward tile, PQ subspace counts 4, 8
+tokens, row segments of hundreds of entries, token counts past the
+backward's tile of h, one table row, PQ subspace counts 4, 8
 and 16, codebooks narrower than 256; flash_decode lengths around its split
 of the sequence, query-group sizes 1 to 32 and head dims 16 to 256;
 duplicate, out-of-range and piled-up IVF probes; the split IVF screen at
@@ -742,8 +743,9 @@ def test_fused_estimator_edge_cases(gen, case):
 @pytest.mark.parametrize("n,d,t,m", [(300, 64, 6, 40), (3, 2048, 8, 100),
                                      (1000, 36, 5, 17)])
 def test_fused_estimator_bwd_kernel(gen, dtype, n, d, t, m):
-    """n=3 with 800 candidates gives row segments of ~266 entries, past one
-    256-entry tile; n=1000 leaves most rows untouched (exact zeros)."""
+    """n=3 with 800 candidates gives row segments of ~266 entries, many
+    32-entry batches of p; n=1000 leaves most rows untouched (exact
+    zeros)."""
     emb, ids, h, log_w = _estimator_inputs(gen, dtype, n=n, d=d, t=t, m=m,
                                            all_dead=n > 3)
     log_z, _ = ref.fused_estimator_ref(emb, ids, h, log_w)
@@ -762,6 +764,80 @@ def test_fused_estimator_bwd_kernel(gen, dtype, n, d, t, m):
     assert torch.equal(p.nan_to_num(7.0), p2.nan_to_num(7.0))
 
 
+def _bwd_inputs(gen, case):
+    """The backward's edge cases: (emb, ids, h, log_w), dead slots and an
+    all-dead token (2) as ``_estimator_inputs`` makes them — none where
+    every token names the same rows, whose p would all be NaN."""
+    n, d, t, m, dtype = 300, 64, 6, 40, torch.float32
+    if case == "t1000":  # past one token tile of h's 128-column slice
+        n, d, t, m = 5000, 2048, 1000, 64
+    elif case in ("d36", "d132", "d4096"):  # d not a multiple of 128; 4096
+        d = int(case[1:])
+        n, t, m = (2000, 16, 100) if d == 4096 else (1000, 9, 50)
+    elif case == "shared":  # one S for every token: segments of t entries
+        n, d, t, m = 3000, 256, 300, 64
+    elif case == "n1":  # one row: every entry in one segment
+        n, d, t, m = 1, 128, 20, 30
+    elif case == "untouched":  # most rows named by no candidate
+        n = 20000
+    elif case == "bf16":
+        n, d, dtype = 500, 520, torch.bfloat16
+    emb, ids, h, log_w = _estimator_inputs(
+        gen, dtype, n=n, d=d, t=t, m=m, all_dead=case not in ("shared", "n1"))
+    if case == "shared":
+        ids = ids[:1].expand(t, m).contiguous()
+    return emb, ids, h, log_w
+
+
+@pytest.mark.parametrize("case", ["small", "t1000", "d36", "d132", "d4096",
+                                  "shared", "n1", "untouched", "bf16"])
+def test_fused_estimator_bwd_from_scores(gen, case):
+    """The backward from the forward kernel's scores y: the plain version's
+    values, exact zeros on rows no candidate names, two launches bitwise
+    equal, and bitwise the wrapper's own y (one forward launch) — the
+    training path passes y, other callers may not."""
+    emb, ids, h, log_w = _bwd_inputs(gen, case)
+    n, t = emb.shape[0], ids.shape[0]
+    log_z, _, y = fused_estimator.fused_estimator(emb, ids, h, log_w,
+                                                  return_y=True)
+    g = torch.randn((t,), generator=gen, device="cuda")
+    d_emb, p = fused_estimator.fused_estimator_bwd(emb, ids, h, log_w, log_z,
+                                                   g, y=y)
+    want_d, want_p = ref.fused_estimator_bwd_ref(emb, ids, h, log_w, log_z, g)
+    torch.testing.assert_close(p, want_p, equal_nan=True, **TOL)
+    torch.testing.assert_close(d_emb, want_d, equal_nan=True, **TOL)
+    touched = torch.zeros(n, dtype=torch.bool, device="cuda")
+    touched[ids.long().reshape(-1)] = True
+    assert torch.equal(d_emb[~touched], torch.zeros_like(d_emb[~touched]))
+    if case == "untouched":
+        assert (~touched).sum() > n // 2
+    for kw in ({"y": y}, {}):
+        d2, p2 = fused_estimator.fused_estimator_bwd(emb, ids, h, log_w,
+                                                     log_z, g, **kw)
+        assert torch.equal(d_emb.nan_to_num(7.0), d2.nan_to_num(7.0))
+        assert torch.equal(p.nan_to_num(7.0), p2.nan_to_num(7.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [36, 2048])
+def test_fused_estimator_scores_output(gen, dtype, d):
+    """The forward's y: -inf on exactly the dead slots, the plain version's
+    scores elsewhere, two launches bitwise equal; log_z and expv bitwise
+    the same with and without it."""
+    emb, ids, h, log_w = _estimator_inputs(gen, dtype, d=d)
+    log_z, expv, y = fused_estimator.fused_estimator(emb, ids, h, log_w,
+                                                     return_y=True)
+    _, _, want_y = ref.fused_estimator_ref(emb, ids, h, log_w, return_y=True)
+    dead = torch.isneginf(log_w)
+    assert torch.equal(torch.isneginf(y), dead)
+    torch.testing.assert_close(y[~dead], want_y[~dead], **TOL)
+    z2, v2 = fused_estimator.fused_estimator(emb, ids, h, log_w)
+    _, _, y2 = fused_estimator.fused_estimator(emb, ids, h, log_w,
+                                               return_y=True)
+    assert torch.equal(log_z, z2) and torch.equal(y, y2)
+    assert torch.equal(expv.nan_to_num(7.0), v2.nan_to_num(7.0))
+
+
 def test_fused_estimator_rejects_bad_inputs(gen):
     emb, ids, h, log_w = _estimator_inputs(gen, torch.float32)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -776,6 +852,9 @@ def test_fused_estimator_rejects_bad_inputs(gen):
     with pytest.raises(ValueError, match="must be"):
         fused_estimator.fused_estimator_bwd(emb, ids, h, log_w, log_z[:2],
                                             log_z)
+    with pytest.raises(ValueError, match="y must be"):
+        fused_estimator.fused_estimator_bwd(emb, ids, h, log_w, log_z, log_z,
+                                            y=log_w[:, :3])
 
 
 def test_stratified_logz_kernel_path_equals_plain_path(gen):

@@ -1,8 +1,9 @@
 """The port's learning-side estimator against the JAX package: the
 ``fused_estimator`` plain version against the Pallas kernel (interpret
-mode), the complement draw with its ``n_excluded`` rule, the S ∪ T
-candidates, the stratified ``log Ẑ`` with its gradients (plain and kernel
-paths), and ``head_loss`` in all three modes. JAX's randomness is passed in
+mode), the forward's scores y and the backward from them, the complement
+draw with its ``n_excluded`` rule, the S ∪ T candidates, the stratified
+``log Ẑ`` with its gradients (plain and kernel paths), and ``head_loss``
+in all three modes. JAX's randomness is passed in
 as data: the tests derive the reference's per-token uniforms with its own
 key splits (``estimators.py:779-805`` chunk keys, ``estimators.py:250-262``
 per-token ``fold_in``, ``complement.py:53`` ``randint``) and hand them to
@@ -162,6 +163,86 @@ def test_ops_dispatch_cpu_to_plain_versions():
     d1, p1 = ops.fused_estimator_bwd(emb, ids, h, log_w, z1, g)
     d2, p2 = ref.fused_estimator_bwd_ref(emb, ids, h, log_w, z1, g)
     assert torch.equal(d1, d2) and torch.equal(p1, p2)
+
+
+def test_fused_estimator_ref_scores_match_jax():
+    """The plain forward's scores y (``return_y=True``, what the backward
+    takes) against the reference's: the gathered rows' dot with h plus
+    log_w, -inf on exactly the dead slots; log_z and expv unchanged by the
+    request."""
+    emb, ids, h, log_w = _estimator_case(8)
+    je, jh = jnp.asarray(emb), jnp.asarray(h)
+    want = np.asarray(jnp.einsum("tmd,td->tm", je[jnp.asarray(ids)], jh)
+                      + jnp.asarray(log_w))
+    args = tuple(map(_t, (emb, ids, h, log_w)))
+    log_z, expv, y = ref.fused_estimator_ref(*args, return_y=True)
+    dead = np.isneginf(log_w)
+    assert np.array_equal(np.isneginf(y.numpy()), dead)
+    np.testing.assert_allclose(y.numpy()[~dead], want[~dead], **EST_TOL)
+    z2, v2 = ref.fused_estimator_ref(*args)
+    assert torch.equal(log_z, z2) and torch.equal(expv.nan_to_num(7.0),
+                                                  v2.nan_to_num(7.0))
+
+
+def test_fused_estimator_bwd_ref_from_scores():
+    """The plain backward from the forward's scores against the reference's
+    custom VJP (cotangents of emb and log_w) and, bit for bit, against the
+    plain backward that re-scores the rows."""
+    emb, ids, h, log_w = _estimator_case(9, n=120, d=24, t=6, m=30,
+                                         all_dead=False)
+    ids[2, 5:9] = ids[2, 4]  # repeats of one row within a token
+    g = np.random.default_rng(10).standard_normal(ids.shape[0]).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda e, hh, lw: jest._fused_logz(e, jnp.asarray(ids),
+                                                          hh, lw),
+                     *map(jnp.asarray, (emb, h, log_w)))
+    want_e, _, want_w = vjp(jnp.asarray(g))
+    args = tuple(map(_t, (emb, ids, h, log_w)))
+    log_z, _, y = ref.fused_estimator_ref(*args, return_y=True)
+    d_emb, p = ref.fused_estimator_bwd_ref(*args, log_z, _t(g), y=y)
+    np.testing.assert_allclose(d_emb.numpy(), np.asarray(want_e), **TOL)
+    np.testing.assert_allclose(p.numpy(), np.asarray(want_w), **TOL)
+    d2, p2 = ref.fused_estimator_bwd_ref(*args, log_z, _t(g))
+    assert torch.equal(d_emb, d2) and torch.equal(p, p2)
+
+
+def test_fused_logz_backward_takes_forward_scores(monkeypatch):
+    """``_FusedLogZ`` on the CPU (``use_kernel=True``) hands the forward's
+    scores to the backward, and its value and gradients w.r.t. emb, h and
+    log_w match the reference's kernel path, with -1 pads (no all-dead
+    token: its NaN p would reach every row it names)."""
+    emb, ids, h, log_w = _estimator_case(11, n=150, d=40, t=9, m=30,
+                                         all_dead=False)
+    ids[4, :6] = -1
+    ids[7, 10:] = -1
+    log_w[ids < 0] = -np.inf
+    g = np.random.default_rng(12).standard_normal(ids.shape[0]).astype(
+        np.float32)
+
+    def jloss(e, hh, lw):
+        lz = jest.stratified_logz(e, hh, jnp.asarray(ids), lw, use_kernel=True)
+        return jnp.sum(lz * g), lz
+
+    (_, want_z), want_grads = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(*map(jnp.asarray,
+                                                     (emb, h, log_w)))
+    seen = []
+    plain_bwd = ref.fused_estimator_bwd_ref
+
+    def spy(*a, y=None):
+        seen.append(y)
+        return plain_bwd(*a, y=y)
+
+    monkeypatch.setattr(ref, "fused_estimator_bwd_ref", spy)
+    te, th, tw = (_t(x).requires_grad_(True) for x in (emb, h, log_w))
+    lz = estimators.stratified_logz(te, th, _t(ids).long(), tw,
+                                    use_kernel=True)
+    (lz * _t(g)).sum().backward()
+    assert len(seen) == 1 and seen[0] is not None
+    assert seen[0].shape == ids.shape
+    np.testing.assert_allclose(lz.detach().numpy(), np.asarray(want_z), **TOL)
+    for got, want in zip((te.grad, th.grad, tw.grad), want_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 # ---------------------------------------------------- candidates (Alg 3)
