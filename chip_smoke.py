@@ -124,11 +124,12 @@ KERNEL_SYMBOLS = {
                           ("ivf_screen_score_small_kernel",
                            "ivf_screen_plan_kernel",
                            "ivf_screen_score_kernel")),
-    "tail_gather_argmax": (("tail_gather_argmax_kernel",), ()),
+    "tail_gather_argmax": (("tail_argmax_kernel",), ("tail_score_kernel",)),
     "fused_estimator": (("fused_estimator_fwd_kernel",), ()),
     "fused_estimator_bwd": (("fused_estimator_bwd_spmm_kernel",), ()),
     "pq_lut_score": (("pq_lut_score_kernel",), ()),
-    "pq_screen_select": (("pq_screen_select_kernel",), ()),
+    "pq_screen_select": (("pq_screen_topk_kernel",),
+                         ("pq_screen_score_kernel",)),
     "rerank_select": (("rerank_score_kernel",), ("rerank_select_kernel",)),
 }
 
@@ -479,6 +480,24 @@ def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
     check(torch.allclose(got_v, want_v, rtol=1e-5, atol=1e-5),
           f"tail_gather_argmax max_val disagrees: {err}")
     check(torch.equal(got_i, want_i), "tail_gather_argmax index disagrees")
+    # random fp32 rows: two launches, and each token alone, bit for bit
+    emb_r = torch.randn((g.n, g.d), generator=gen, device="cuda")
+    h_r = torch.randn((t, g.d), generator=gen, device="cuda")
+    rargs = (emb_r, pos, m_used, pert_s * 0.15, s_ids, heights * 4, h_r)
+    ri, rv = kdf.tail_gather_argmax(*rargs)
+    again_i, again_v = kdf.tail_gather_argmax(*rargs)
+    alone = [kdf.tail_gather_argmax(emb_r, *(a[j:j + 1] for a in rargs[1:]))
+             for j in range(t)]
+    wri, wrv = ref.tail_gather_argmax_ref(*rargs)
+    torch.cuda.synchronize()
+    check(torch.equal(ri, again_i) and torch.equal(rv, again_v),
+          "tail_gather_argmax: two launches differ")
+    check(all(torch.equal(a[0][0], ri[j]) and torch.equal(a[1][0], rv[j])
+              for j, a in enumerate(alone)),
+          "tail_gather_argmax: a token alone differs from the batch")
+    check(torch.equal(ri, wri) and values_close(torch, rv, wrv, scaled=True),
+          f"tail_gather_argmax disagrees on random rows: {max_err(rv, wrv)}")
+    del emb_r, alone
     live = torch.arange(g.m_cap, device="cuda")[None] < m_used[:, None]
     rows = int(torch.unique(pos[live]).numel())
     record("tail_gather_argmax", err,
@@ -795,7 +814,9 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
     reference's PQConfig defaults and r = 2k: ``pq_lut_score`` and
     ``pq_screen_select`` over random codes at the index geometry, bitwise
     on small-integer LUTs and within rtol 1e-5 on random ones, probe widths
-    below n_probe (0 included) and an all-dead query; ``rerank_select``
+    below n_probe (0 included) and an all-dead query (and, on random LUTs,
+    two launches and the last query screened alone bitwise equal to the
+    batch's outputs); ``rerank_select``
     over the screen's survivors against a 32000 x 2048 table of small
     integers (and one of random fp32 for the second check, where two
     launches and the last query re-ranked alone must equal the batch's
@@ -852,6 +873,11 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
         want_v, want_i = ref.pq_screen_select_ref(*sargs, g.r,
                                                   probe_width=width)
         rv, ri = kdf.pq_screen_select(*rand, r=g.r)
+        again_v, again_i = kdf.pq_screen_select(*rand, r=g.r)
+        j = b - 1  # the last query, screened alone
+        alone_v, alone_i = kdf.pq_screen_select(
+            rand[0], rand[1], rand[2][j:], rand[3][j:], rand[4],
+            rand[5][j:], rand[6][j:], r=g.r)
         wrv, wri = ref.pq_screen_select_ref(*rand, g.r)
         # the fused screen == pq_lut_score + coarse + pool top-r, bit for bit
         s2 = (kpls.pq_lut_score(rand[0], rand[5], rand[6])
@@ -874,6 +900,11 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
               f"{max_err(rv, wrv)}")
         check(torch.equal(rv, v3) and torch.equal(ri, i3),
               f"pq_screen_select b={b} != pq_lut_score + top-r")
+        check(torch.equal(rv, again_v) and torch.equal(ri, again_i),
+              f"pq_screen_select b={b}: two launches differ")
+        check(torch.equal(alone_v[0], rv[j])
+              and torch.equal(alone_i[0], ri[j]),
+              f"pq_screen_select b={b}: a query alone differs from the batch")
         check(torch.equal(di, wdi) and torch.equal(dv, wdv)
               and bool((di[2] == -1).all()),
               f"pq_screen_select b={b}: the all-dead query differs")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Times the ``flash_decode``, ``ivf_gather_score``, ``ivf_screen_select``,
-``rerank_select``, ``fused_estimator`` and ``fused_estimator_bwd`` kernels
+``rerank_select``, ``fused_estimator``, ``fused_estimator_bwd``,
+``tail_gather_argmax``, ``pq_screen_select`` and ``pq_lut_score`` kernels
 of one source tree on one NVIDIA GPU, at the shapes ``chip_smoke.py``
 checks them at, with ``chip_smoke.py``'s device-time :class:`Timer` — so
 two trees (a change and its parent) can be compared on the same card, in
@@ -17,7 +18,7 @@ prints one JSON line: per shape, the median device ms per call (L2 flushed,
 host issue outside the events), the median host issue time in us, the
 device us of each kernel a call launches (profiler; a kernel from the end
 of the one before it), and the bound ms from
-the shape's bytes; ``sdpa_ms`` is one ``scaled_dot_product_attention`` call
+the shape's bytes; ``--iters`` sets the calls each median takes. ``sdpa_ms`` is one ``scaled_dot_product_attention`` call
 (GQA, masked) on the same inputs. ``ivf_gather_score``'s shapes print
 ``digest`` too (its outputs over random fp32 rows).
 
@@ -65,6 +66,23 @@ head chunk), ``digest`` of (``d_emb``, ``p``) and ``repeatable``,
 segment search), ``plain_ms`` of the tree's plain version of the same call
 and ``bound_ms`` of its bytes (the dense ``d_emb`` write among them).
 
+``tail_gather_argmax`` runs at tinyllama's head (32,000 x 2,048 rows, k
+576, m_cap 728): 4 tokens on ``chip_smoke.py``'s inputs (small-integer
+rows, m_used from 0 to m_cap; exact against the plain version), 4 tokens
+with every m_used near l = 576 over random fp32 rows (the serving path's
+shape), and 600 tokens, a batch that fills the card on its own. Each prints
+``digest`` (index and value) and ``repeatable``.
+
+``pq_screen_select`` runs at tinyllama's IVF-PQ geometry (178 clusters x
+544 slots, 8 x 256 codewords, 2,000 overflow slots, r 1,152) over random
+fp32 LUTs (``chip_smoke.pq_inputs``) at 4 and 256 queries, each bitwise
+equal to the tree's ``pq_lut_score`` + coarse + top-r, and at probe width
+0 (``*_sort_only``: the select alone). Each prints ``digest`` and
+``repeatable``. ``pq_lut_score`` runs on the same inputs at 4 and 256
+queries, bitwise against the tree's plain version, with ``digest`` and
+``repeatable``. These three kernels' shapes also print ``host_burst_us``,
+the host's issue cost per call over bursts of back-to-back calls.
+
 Inputs come from ``--seed``, so every tree sees the same data. Exits
 non-zero without CUDA.
 """
@@ -76,11 +94,13 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 KERNELS = ("flash_decode", "ivf_gather_score", "ivf_screen_select",
-           "rerank_select", "fused_estimator", "fused_estimator_bwd")
+           "rerank_select", "fused_estimator", "fused_estimator_bwd",
+           "tail_gather_argmax", "pq_screen_select", "pq_lut_score")
 
 
 def kernel_breakdown(torch, timer, fn, calls: int = 10,
@@ -156,7 +176,10 @@ def main() -> int:
                "ivf_screen_select": "decode_fused",
                "rerank_select": "decode_fused",
                "fused_estimator": "fused_estimator",
-               "fused_estimator_bwd": "fused_estimator"}
+               "fused_estimator_bwd": "fused_estimator",
+               "tail_gather_argmax": "decode_fused",
+               "pq_screen_select": "decode_fused",
+               "pq_lut_score": "pq_lut_score"}
     build.build_all(tuple(sources[k] for k in args.kernels))
     timer = Timer(torch, args.iters)
     out = {"tree": str(tree), "card": subprocess.run(
@@ -257,6 +280,24 @@ def ivf_gather_score_case(torch, timer, gen, out: dict, args) -> None:
             "bound_ms": bound_ms(uniq * cap * (d + 1) * 4 + nbytes(probe, qv)
                                  + b * n_probe * cap * 8,
                                  2.0 * b * n_probe * cap * d, FP32_FLOPS)[0]}
+
+
+def host_burst_us(torch, timer, fn, calls: int = 50, bursts: int = 7
+                  ) -> float:
+    """Least mean host time to issue ``fn()`` over ``calls`` back-to-back
+    calls, of ``bursts`` bursts, the stream held busy meanwhile so no call
+    waits on the device: the issue cost, with less of a shared host's noise
+    than the median of single calls (``host_us``)."""
+    best = float("inf")
+    for _ in range(bursts):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(calls * 300 * timer.cycles_per_us))
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, 1e6 * (time.perf_counter() - t0) / calls)
+    torch.cuda.synchronize()
+    return best
 
 
 def digest(*ts) -> str:
@@ -521,12 +562,179 @@ def fused_estimator_bwd_case(torch, timer, gen, out: dict, args) -> None:
         torch.cuda.empty_cache()
 
 
+def tail_gather_argmax_case(torch, timer, gen, out: dict, args) -> None:
+    from chip_smoke import FP32_FLOPS, bound_ms, int_valued, nbytes, values_close
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import ref
+
+    n, d, k, m_cap = 32000, 2048, 576, 728  # tinyllama's head, l = k
+    emb = int_valued(torch, gen, (n, d))
+    for name, t in (("b4", 4), ("b4_full", 4), ("b600", 600)):
+        if name == "b4_full":
+            emb.normal_(generator=gen)  # random fp32 rows from here on
+        pos = torch.randint(0, n, (t, m_cap), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        s_ids = torch.randint(0, n, (t, k), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        if name == "b4":  # chip_smoke.py's tail inputs
+            h = int_valued(torch, gen, (t, d))
+            m_used = torch.randint(0, m_cap + 1, (t,), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+            m_used[0], m_used[-1] = 0, m_cap
+            pert_s = int_valued(torch, gen, (t, k), -300, 300)
+            pert_s[:, ::7] = float("-inf")
+            heights = int_valued(torch, gen, (t, m_cap), 0, 40) * 0.25
+        else:  # y ~ N(0, d): S values and heights on its scale
+            h = torch.randn((t, d), generator=gen, device="cuda")
+            m_used = torch.randint(560, 600, (t,), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+            pert_s = torch.randn((t, k), generator=gen, device="cuda") * 45
+            heights = torch.rand((t, m_cap), generator=gen,
+                                 device="cuda") * 90
+        call = (emb, pos, m_used, pert_s, s_ids, heights, h)
+        got_i, got_v = kdf.tail_gather_argmax(*call)
+        again_i, again_v = kdf.tail_gather_argmax(*call)
+        want_i, want_v = ref.tail_gather_argmax_ref(*call)
+        torch.cuda.synchronize()
+        if name == "b4" and not (torch.equal(got_i, want_i)
+                                 and torch.equal(got_v, want_v)):
+            raise SystemExit("tail_gather_argmax b4 disagrees with its plain "
+                             "version on small-integer rows")
+        if not values_close(torch, got_v, want_v, scaled=True):
+            raise SystemExit(f"tail_gather_argmax {name} disagrees with its "
+                             "plain version")
+        live = torch.arange(m_cap, device="cuda")[None] < m_used[:, None]
+        rows = torch.unique(pos[live]).numel()
+        fn = (lambda: kdf.tail_gather_argmax(*call))
+        ms, host = timer.both(fn, f"tail_gather_argmax {name}")
+        burst = host_burst_us(torch, timer, fn)
+        first = digest(got_i, got_v)
+        out[f"tail_gather_argmax_{name}"] = {
+            "ms": ms, "host_us": host, "host_burst_us": burst,
+            "distinct_rows": rows, "digest": first,
+            "repeatable": first == digest(again_i, again_v),
+            "index_agrees_with_plain": float(
+                (got_i == want_i).float().mean().item()),
+            "kernels_us": kernel_breakdown(torch, timer, fn),
+            "plain_ms": timer(lambda: ref.tail_gather_argmax_ref(*call),
+                              f"tail_gather_argmax {name} plain"),
+            "bound_ms": bound_ms(rows * d * 4 + nbytes(pos, m_used, pert_s,
+                                                       s_ids, heights, h)
+                                 + t * 8, 2.0 * d * int(m_used.sum().item()),
+                                 FP32_FLOPS)[0]}
+        torch.cuda.empty_cache()
+
+
+def pq_head():
+    """tinyllama's IVF-PQ head (the fields ``chip_smoke.pq_inputs`` reads)."""
+    from chip_smoke import Geometry
+
+    return Geometry(slots=4, max_seq=512, hq=32, hkv=4, hd=64, n=32000,
+                    d=2048, n_c=178, cap=544, o_cap=2000, n_probe=8, k=576,
+                    m_cap=728, m_sub=8, ksub=256, r=1152)
+
+
+def pq_screen_select_case(torch, timer, gen, out: dict, args) -> None:
+    from chip_smoke import FP32_FLOPS, bound_ms, nbytes, pq_inputs, values_close
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import pq_lut_score as kpls
+    from repro_torch.kernels import ref
+
+    g = pq_head()
+    for name, b in (("b4", 4), ("b4_sort_only", 4), ("b256", 256),
+                    ("b256_sort_only", 256)):
+        call = pq_inputs(torch, gen, g, b, False)
+        codes, mids, coarse, o_sc, o_ids, probe, lut = call
+        width = None
+        if name.endswith("sort_only"):
+            width = torch.zeros((b,), dtype=torch.int32, device="cuda")
+        got_v, got_i = kdf.pq_screen_select(*call, r=g.r, probe_width=width)
+        again_v, again_i = kdf.pq_screen_select(*call, r=g.r,
+                                                probe_width=width)
+        want_v, _ = ref.pq_screen_select_ref(*call, g.r, probe_width=width)
+        torch.cuda.synchronize()
+        if not values_close(torch, got_v, want_v):
+            raise SystemExit(f"pq_screen_select {name} disagrees with its "
+                             "plain version")
+        if width is None:  # the unfused kernel screen + top-r, bit for bit
+            s2 = (kpls.pq_lut_score(codes, probe, lut)
+                  + coarse[..., None]).reshape(b, -1)
+            pool_i = torch.cat([mids[probe.long()].reshape(b, -1),
+                                o_ids[None].expand(b, -1)], 1)
+            pool_s = torch.where(pool_i >= 0, torch.cat([s2, o_sc], 1),
+                                 float("-inf"))
+            wv, wi = ref.topk_select_ref(pool_s, pool_i, g.r)
+            if not (torch.equal(got_v, wv) and torch.equal(got_i, wi)):
+                raise SystemExit(f"pq_screen_select {name} != pq_lut_score "
+                                 "+ top-r")
+        live = mids[probe.long()] >= 0
+        tiles = torch.unique(probe) if width is None else probe[:, :0]
+        live_slots = 0 if width is not None else torch.unique(
+            (probe.long()[:, :, None] * g.cap
+             + torch.arange(g.cap, device="cuda")[None, None, :])[live]
+        ).numel()
+        n_live = 0 if width is not None else int(live.sum().item())
+        fn = (lambda: kdf.pq_screen_select(*call, r=g.r, probe_width=width))
+        ms, host = timer.both(fn, f"pq_screen_select {name}")
+        burst = host_burst_us(torch, timer, fn)
+        first = digest(got_v, got_i)
+        out[f"pq_screen_select_{name}"] = {
+            "ms": ms, "host_us": host, "host_burst_us": burst,
+            "digest": first,
+            "repeatable": first == digest(again_v, again_i),
+            "kernels_us": kernel_breakdown(torch, timer, fn),
+            "plain_ms": timer(lambda: ref.pq_screen_select_ref(
+                *call, g.r, probe_width=width), f"pq_screen_select {name} plain"),
+            "bound_ms": bound_ms(tiles.numel() * g.cap * 4
+                                 + live_slots * g.m_sub
+                                 + nbytes(lut, coarse, probe, o_sc, o_ids)
+                                 + b * g.r * 8,
+                                 float(n_live * (g.m_sub + 1)), FP32_FLOPS)[0]}
+        torch.cuda.empty_cache()
+
+
+def pq_lut_score_case(torch, timer, gen, out: dict, args) -> None:
+    from chip_smoke import FP32_FLOPS, bound_ms, nbytes, pq_inputs
+    from repro_torch.kernels import pq_lut_score as kpls
+    from repro_torch.kernels import ref
+
+    g = pq_head()
+    for name, b in (("b4", 4), ("b256", 256)):
+        codes, _, _, _, _, probe, lut = pq_inputs(torch, gen, g, b, False)
+        got = kpls.pq_lut_score(codes, probe, lut)
+        again = kpls.pq_lut_score(codes, probe, lut)
+        want = ref.pq_lut_score_ref(codes, probe, lut)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"pq_lut_score {name} differs from its plain "
+                             "version")
+        fn = (lambda: kpls.pq_lut_score(codes, probe, lut))
+        ms, host = timer.both(fn, f"pq_lut_score {name}")
+        burst = host_burst_us(torch, timer, fn)
+        first = digest(got)
+        pool = b * g.n_probe * g.cap
+        out[f"pq_lut_score_{name}"] = {
+            "ms": ms, "host_us": host, "host_burst_us": burst,
+            "digest": first,
+            "repeatable": first == digest(again),
+            "kernels_us": kernel_breakdown(torch, timer, fn),
+            "plain_ms": timer(lambda: ref.pq_lut_score_ref(codes, probe, lut),
+                              f"pq_lut_score {name} plain"),
+            "bound_ms": bound_ms(torch.unique(probe).numel() * g.cap * g.m_sub
+                                 + nbytes(probe, lut) + pool * 4,
+                                 float(pool * g.m_sub), FP32_FLOPS)[0]}
+        torch.cuda.empty_cache()
+
+
 CASES = {"flash_decode": flash_decode_case,
          "ivf_gather_score": ivf_gather_score_case,
          "ivf_screen_select": ivf_screen_select_case,
          "rerank_select": rerank_select_case,
          "fused_estimator": fused_estimator_case,
-         "fused_estimator_bwd": fused_estimator_bwd_case}
+         "fused_estimator_bwd": fused_estimator_bwd_case,
+         "tail_gather_argmax": tail_gather_argmax_case,
+         "pq_screen_select": pq_screen_select_case,
+         "pq_lut_score": pq_lut_score_case}
 
 
 if __name__ == "__main__":

@@ -56,18 +56,23 @@
 // cluster's coarse score, stages at or past probe_width dead, pool ∪ exact
 // overflow scores masked, top-r emitted as above).
 //
-// What bounds it on an H100: at 4 queries, latency — the block's sort.
-// The bytes are small: per query 8 uint8 codes and an int32 id per probed
-// member (8 * 544 * 12 = 52 KB), an 8 KB LUT and the overflow scores; no
-// flop beyond one add per code.
+// What bounds it on an H100: at 4 queries, latency. The bytes are small:
+// per query 8 uint8 codes and an int32 id per probed member (8 * 544 * 12 =
+// 52 KB), an 8 KB LUT and the overflow scores; no flop beyond one add per
+// code. One block a query (the first port) scored its pool and then
+// bitonic-sorted the 8,192 padded keys in shared memory: 0.087 ms at 4
+// queries on an H100 80GB HBM3 at 700 W, most of it the sort.
 //
-// Design: one block of 1024 threads per query. The query's LUT goes into shared memory; each thread scores live members with
-// repro_torch::lut_sum (pq_lut.cuh) — the device function pq_lut_score.cu
-// uses — then adds the coarse term after the sum, as the unfused path adds
-// pq_lut_score's output and the coarse scores; so every live key is bitwise
-// the unfused screen's score. Keys and padding are ivf_screen_select's;
-// the keys are bitonic-sorted in shared memory (8192 keys, 64 KB, at
-// tinyllama's 6352-slot pool) and the first r emitted.
+// Design: ivf_screen_select's two stages, enqueued by one C call.
+//
+//   * pq_screen_score_kernel: pq_lut_score's grid and loop (pq::score_part,
+//     pq_lut.cuh) with a sink (PqKeySink) that adds the coarse term after
+//     the LUT sum, as the unfused path adds pq_lut_score's output and the
+//     coarse scores, so every live key is bitwise the unfused screen's
+//     score; dead members get a -inf key unread, and stages at or past
+//     probe_width are not read.
+//   * pq_screen_topk_kernel: ivf_screen_topk_kernel's body under a name of
+//     its own (a profile tells the two apart), with k = r.
 //
 // ---------------------------------------------------------------------------
 // rerank_select replaces the Pallas TPU kernel
@@ -142,11 +147,24 @@
 // output embedding (about 576 * 2048 * 4 = 4.7 MB at tinyllama's vocab) for
 // half a flop per byte.
 //
-// Design: one block of 1024 threads per token. h sits in shared memory;
-// warps take the live tail slots only (slots at or past m_used are -inf and
-// never read) and score each gathered row with warp_row_dot; the perturbed
-// tail values stay in shared memory, and a block-wide argmax with the
-// (value, lower index) order picks the winner over [pert_s, pert_t].
+// Design: two kernels, enqueued by one C call. One block a token (the
+// first port) left the rows to 4 SMs at one SM's rate: 0.10 ms at 4 tokens.
+//
+//   * tail_score_kernel, grid (token, chunk of kTailRows slots), the token
+//     the fast index: each warp scores one live slot j < m_used at a time
+//     with warp_row_dot plus its height against h staged in shared memory
+//     (later slots are -inf, never read); the block folds its slots into
+//     one (value, index) pair of a (t, chunks) workspace. A batch that fills
+//     kTailWarpsPerSM warps an SM gets fewer chunks a token, each block
+//     striding over the rest.
+//   * tail_argmax_kernel, one block a token, a programmatic dependent
+//     launch: it folds the token's k S values (indices 0..k-1) before it
+//     waits, then the chunk winners, and emits s_ids[i] or pos[i - k].
+//
+// argmax_merge is a strict total order on (value, unique index) (+0 == -0,
+// the lower index wins ties, a NaN never wins), and every index is folded
+// once, so any reduction tree picks the one-block kernel's winner and value
+// (an all -inf token: index 0); a 64-bit key minimum would rank +0 above -0.
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -163,7 +181,8 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 
-using repro_torch::bitonic_sort;
+using repro_torch::argmax_merge;
+using repro_torch::block_argmax;
 using repro_torch::key_index;
 using repro_torch::key_value;
 using repro_torch::make_key;
@@ -178,15 +197,6 @@ __device__ __forceinline__ unsigned long long tail_key(
   return make_key(o < o_cap && overflow_ids[o] >= 0 ? os[o] : -INFINITY, p);
 }
 
-// The keys of a screen pool's overflow slots and padding (tail_key).
-__device__ void fill_overflow_keys(unsigned long long* keys,
-                                   const float* __restrict__ os,
-                                   const int* __restrict__ overflow_ids,
-                                   int n_mem, int o_cap, int pool_pow2) {
-  for (int p = n_mem + threadIdx.x; p < pool_pow2; p += blockDim.x)
-    keys[p] = tail_key(p, os, overflow_ids, n_mem, o_cap);
-}
-
 // Slot p's id in a screen pool: the member id of its stage's (clamped)
 // cluster, or an overflow id.
 __device__ __forceinline__ int pool_id(int p, const int* __restrict__ pr,
@@ -199,26 +209,7 @@ __device__ __forceinline__ int pool_id(int p, const int* __restrict__ pr,
   return member_ids[static_cast<size_t>(cl) * cap + (p - j * cap)];
 }
 
-// The first k keys of a sorted screen pool -> values and ids; the ids are
-// read back from the member / overflow tables for the winners only, and a
-// -inf pick emits id -1.
-__device__ void emit_pool(const unsigned long long* keys, int k,
-                          const int* __restrict__ pr,
-                          const int* __restrict__ member_ids,
-                          const int* __restrict__ overflow_ids, int n_c,
-                          int cap, int n_mem, float* __restrict__ vals,
-                          int* __restrict__ ids) {
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    const int p = key_index(keys[i]);
-    const float v = key_value(keys[i]);
-    vals[i] = v;
-    ids[i] = v != -INFINITY
-                 ? pool_id(p, pr, member_ids, overflow_ids, n_c, cap, n_mem)
-                 : -1;
-  }
-}
-
-// ivf_screen_select's score pass writes through this sink: one sort key per
+// The screens' score passes write through this sink: one sort key per
 // pool slot of a live stage, at (query * n_probe + stage) * cap + row of the
 // (b, n_probe * cap) workspace, its low word the pool index stage * cap +
 // row; a dead member's key is -inf.
@@ -275,12 +266,13 @@ __global__ void __launch_bounds__(repro_torch::ivf::kThreads, 2)
                                reinterpret_cast<float*>(smem_raw));
 }
 
-// ivf_screen_topk_kernel: pool keys a thread holds in registers, so a pool
-// of up to kTopkKeys * kThreads = 16,384 slots.
+// The screens' select (ivf_screen_topk_kernel, pq_screen_topk_kernel):
+// pool keys a thread holds in registers, so a pool of up to kTopkKeys *
+// kThreads = 16,384 slots.
 constexpr int kTopkKeys = 16;
 constexpr unsigned long long kNoKey = ~0ull;  // a register past the pool
 
-__global__ void __launch_bounds__(kThreads) ivf_screen_topk_kernel(
+__device__ __forceinline__ void screen_topk_body(
     const unsigned long long* __restrict__ ws,
     const int* __restrict__ member_ids,
     const float* __restrict__ overflow_scores,
@@ -412,51 +404,57 @@ __global__ void __launch_bounds__(kThreads) ivf_screen_topk_kernel(
       });
 }
 
-__global__ void __launch_bounds__(kThreads) pq_screen_select_kernel(
-    const uint8_t* __restrict__ member_codes,
-    const int* __restrict__ member_ids, const float* __restrict__ coarse,
-    const float* __restrict__ overflow_scores,
-    const int* __restrict__ overflow_ids, const int* __restrict__ probe,
-    const int* __restrict__ probe_width, const float* __restrict__ lut,
-    float* __restrict__ out_vals, int* __restrict__ out_ids, int n_c, int cap,
-    int m_sub, int ksub, int n_probe, int o_cap, int r, int pool_pow2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem_raw);
-  float* slut = reinterpret_cast<float*>(keys + pool_pow2);
-  const int bi = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int width =
-      probe_width ? min(max(probe_width[bi], 0), n_probe) : n_probe;
-  const int n_mem = n_probe * cap;
-  const int lut_n = m_sub * ksub;
-  const int* pr = probe + static_cast<size_t>(bi) * n_probe;
-  const float* cq = coarse + static_cast<size_t>(bi) * n_probe;
-
-  repro_torch::load_query(slut, lut + static_cast<size_t>(bi) * lut_n, lut_n);
-  __syncthreads();
-
-  for (int row = tid; row < n_mem; row += kThreads) {
-    const int j = row / cap;
-    float s = -INFINITY;
-    if (j < width) {
-      const int cl = min(max(pr[j], 0), n_c - 1);
-      const size_t slot = static_cast<size_t>(cl) * cap + (row - j * cap);
-      // the LUT sum, then the coarse term: pq_lut_score + coarse, as the
-      // unfused screen adds them
-      if (member_ids[slot] >= 0)
-        s = repro_torch::lut_sum(member_codes + slot * m_sub, slut, m_sub,
-                                 ksub) +
-            cq[j];
-    }
-    keys[row] = make_key(s, row);
+#define SCREEN_TOPK_KERNEL(name)                                            \
+  __global__ void __launch_bounds__(kThreads) name(                         \
+      const unsigned long long* __restrict__ ws,                            \
+      const int* __restrict__ member_ids,                                   \
+      const float* __restrict__ overflow_scores,                            \
+      const int* __restrict__ overflow_ids, const int* __restrict__ probe,  \
+      const int* __restrict__ probe_width, float* __restrict__ out_vals,    \
+      int* __restrict__ out_ids, int n_c, int cap, int n_probe, int o_cap,  \
+      int k, int pool_pow2) {                                               \
+    screen_topk_body(ws, member_ids, overflow_scores, overflow_ids, probe,  \
+                     probe_width, out_vals, out_ids, n_c, cap, n_probe,     \
+                     o_cap, k, pool_pow2);                                  \
   }
-  fill_overflow_keys(keys, overflow_scores + static_cast<size_t>(bi) * o_cap,
-                     overflow_ids, n_mem, o_cap, pool_pow2);
-  __syncthreads();
-  bitonic_sort(keys, pool_pow2);
-  emit_pool(keys, r, pr, member_ids, overflow_ids, n_c, cap, n_mem,
-            out_vals + static_cast<size_t>(bi) * r,
-            out_ids + static_cast<size_t>(bi) * r);
+SCREEN_TOPK_KERNEL(ivf_screen_topk_kernel)
+SCREEN_TOPK_KERNEL(pq_screen_topk_kernel)
+#undef SCREEN_TOPK_KERNEL
+
+// pq_screen_select's score pass writes through this sink: a stage at or
+// past the query's probe_width is skipped whole; a live member's key holds
+// its LUT sum plus the stage's coarse score (the sum first, as the unfused
+// screen adds them), a dead member's -inf, unread.
+struct PqKeySink {
+  KeySink keys;
+  const int* __restrict__ member_ids;
+  const float* __restrict__ coarse;
+  const int* __restrict__ probe_width;  // or null: every stage live
+
+  __device__ __forceinline__ bool stage_live(int q, int j) const {
+    return j < (probe_width ? min(max(probe_width[q], 0), keys.n_probe)
+                            : keys.n_probe);
+  }
+  template <typename Sum>
+  __device__ __forceinline__ void store(int pair, size_t slot, int row,
+                                        Sum sum) const {
+    const bool live = member_ids[slot] >= 0;
+    keys.store(pair, row, live ? sum() + coarse[pair] : 0.f, live);
+  }
+};
+
+__global__ void __launch_bounds__(repro_torch::pq::kRows)
+    pq_screen_score_kernel(const uint8_t* __restrict__ member_codes,
+                           const int* __restrict__ probe,
+                           const float* __restrict__ lut, PqKeySink sink,
+                           int n_c, int cap, int m_sub, int ksub, int n_probe,
+                           int parts) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the select kernel may be scheduled now; it waits for this grid's end
+  repro_torch::allow_dependent_launch();
+  repro_torch::pq::score_part(member_codes, probe, lut,
+                              reinterpret_cast<float*>(smem_raw), sink, n_c,
+                              cap, m_sub, ksub, n_probe, parts);
 }
 
 // rerank_select's score kernel: survivors a block scores at once, one a
@@ -515,80 +513,81 @@ __global__ void __launch_bounds__(kThreads) rerank_select_kernel(
       });
 }
 
-// (value, index) order of a first-occurrence argmax: larger value, then
-// lower index.
-__device__ __forceinline__ void argmax_merge(float& bv, int& bi, float v,
-                                             int i) {
-  if (v > bv || (v == bv && i < bi)) {
-    bv = v;
-    bi = i;
-  }
-}
+// tail_score_kernel: tail slots a block takes, one a warp, and the warps
+// per SM the grid aims at before it gives a token fewer chunks, each block
+// then striding over the rest. Of 8, 16 and 32 slots a block, 32 was the
+// fastest at 4 tokens on an H100 (fewer blocks stage h).
+constexpr int kTailRows = kWarps;
+constexpr int kTailWarpsPerSM = 128;
+constexpr int kTailArgmaxThreads = 256;
 
-__global__ void __launch_bounds__(kThreads) tail_gather_argmax_kernel(
+__global__ void __launch_bounds__(kThreads) tail_score_kernel(
     const float* __restrict__ emb, const int* __restrict__ pos,
-    const int* __restrict__ m_used, const float* __restrict__ pert_s,
-    const int* __restrict__ s_ids, const float* __restrict__ heights,
-    const float* __restrict__ h, int* __restrict__ out_idx,
-    float* __restrict__ out_max, int n, int d, int m_cap, int k, int d_pad) {
+    const int* __restrict__ m_used, const float* __restrict__ heights,
+    const float* __restrict__ h, int2* __restrict__ ws, int n, int d,
+    int m_cap, int k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sh = reinterpret_cast<float*>(smem_raw);
-  float* spert = sh + d_pad;                       // m_cap
-  float* red_v = spert + m_cap;                    // kWarps
-  int* red_i = reinterpret_cast<int*>(red_v + kWarps);  // kWarps
+  __shared__ float red_v[kWarps];
+  __shared__ int red_i[kWarps];
+  // the argmax kernel may be scheduled now; it waits for this grid's end
+  repro_torch::allow_dependent_launch();
   const int ti = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int lane = threadIdx.x & 31;
+  const int first = blockIdx.y * kTailRows;
   const int mu = min(max(m_used[ti], 0), m_cap);
   const int* tp = pos + static_cast<size_t>(ti) * m_cap;
   const float* th = heights + static_cast<size_t>(ti) * m_cap;
 
-  repro_torch::load_query(sh, h + static_cast<size_t>(ti) * d, d);
-  __syncthreads();
-
-  for (int j = warp; j < m_cap; j += kWarps) {
+  if (first < mu) {  // block-uniform: a block with no live slot reads no h
+    repro_torch::load_query(sh, h + static_cast<size_t>(ti) * d, d);
+    __syncthreads();
+  }
+  float bv = -INFINITY;
+  int bi = 0x7fffffff;
+  for (int j = first + (threadIdx.x >> 5); j < m_cap;
+       j += gridDim.y * kTailRows) {
     float pt = -INFINITY;
-    if (j < mu) {
+    if (j < mu) {  // warp-uniform
       const int row = min(max(tp[j], 0), n - 1);
       const float y = repro_torch::warp_row_dot(
           emb + static_cast<size_t>(row) * d, sh, d, lane);
       pt = y + th[j];
     }
-    if (lane == 0) spert[j] = pt;
+    argmax_merge(bv, bi, pt, k + j);
   }
-  __syncthreads();
+  block_argmax(bv, bi, red_v, red_i);
+  if (threadIdx.x == 0)
+    ws[static_cast<size_t>(ti) * gridDim.y + blockIdx.y] =
+        make_int2(__float_as_int(bv), bi);
+}
 
+__global__ void __launch_bounds__(kTailArgmaxThreads) tail_argmax_kernel(
+    const int2* __restrict__ ws, const float* __restrict__ pert_s,
+    const int* __restrict__ s_ids, const int* __restrict__ pos,
+    int* __restrict__ out_idx, float* __restrict__ out_max, int m_cap, int k,
+    int chunks) {
+  __shared__ float red_v[kTailArgmaxThreads / 32];
+  __shared__ int red_i[kTailArgmaxThreads / 32];
+  const int ti = blockIdx.x;
   const float* ps = pert_s + static_cast<size_t>(ti) * k;
   float bv = -INFINITY;
   int bi = 0x7fffffff;
-  for (int e = tid; e < k + m_cap; e += kThreads)
-    argmax_merge(bv, bi, e < k ? ps[e] : spert[e - k], e);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-    argmax_merge(bv, bi, ov, oi);
+  for (int e = threadIdx.x; e < k; e += blockDim.x)
+    argmax_merge(bv, bi, ps[e], e);
+  // launched early (programmatic dependent launch): wait until the score
+  // grid has finished and its pairs are visible
+  repro_torch::wait_for_previous_grid();
+  const int2* w = ws + static_cast<size_t>(ti) * chunks;
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+    const int2 p = w[c];
+    argmax_merge(bv, bi, __int_as_float(p.x), p.y);
   }
-  if (lane == 0) {
-    red_v[warp] = bv;
-    red_i[warp] = bi;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    bv = red_v[lane];  // kWarps == 32
-    bi = red_i[lane];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      argmax_merge(bv, bi, ov, oi);
-    }
-    if (lane == 0) {
-      out_idx[ti] = bi < k ? s_ids[static_cast<size_t>(ti) * k + bi]
-                           : tp[bi - k];
-      out_max[ti] = bv;
-    }
+  block_argmax(bv, bi, red_v, red_i);
+  if (threadIdx.x == 0) {
+    out_idx[ti] = bi < k ? s_ids[static_cast<size_t>(ti) * k + bi]
+                         : pos[static_cast<size_t>(ti) * m_cap + bi - k];
+    out_max[ti] = bv;
   }
 }
 
@@ -601,13 +600,30 @@ int set_smem(const void* fn, size_t smem) {
 
 int round_up4(int d) { return (d + 3) & ~3; }
 
+// Enqueues a screen's select (ivf_screen_topk_kernel or
+// pq_screen_topk_kernel) after its score pass: a programmatic dependent of
+// it where one ran (scored), an ordinary launch where none did.
+template <typename Kernel, typename... Args>
+int launch_screen_topk(Kernel kern, bool scored, int b, int k, cudaStream_t s,
+                       Args... args) {
+  const size_t smem = sizeof(unsigned long long) * 64 * ((k + 63) / 64);
+  const int e = set_smem(reinterpret_cast<const void*>(kern), smem);
+  if (e) return e;
+  if (!scored) {
+    kern<<<b, kThreads, smem, s>>>(args...);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return repro_torch::launch_dependent(kern, dim3(b), dim3(kThreads), smem,
+                                       s, args...);
+}
+
 }  // namespace
 
-// Shared memory of one ivf_screen_select topk block, in bytes: the k
-// selected keys in 64-key runs and the two histograms (the score pass
-// stages at most ivf_score.cuh's budget); the caller checks it against the
-// card's per-block limit before launching.
-extern "C" long long ivf_screen_select_smem(int k) {
+// Shared memory of one screen topk block (ivf_screen_select,
+// pq_screen_select), in bytes: the k selected keys in 64-key runs and the
+// two histograms; the caller checks it against the card's per-block limit
+// before launching.
+extern "C" long long screen_topk_smem(int k) {
   return static_cast<long long>(sizeof(unsigned long long)) * 64 *
              ((k + 63) / 64) +
          static_cast<long long>(sizeof(int)) * (2 * 256 + 4);
@@ -641,75 +657,88 @@ extern "C" int ivf_screen_select_launch(
       member_ids, probe, probe_width, q, ws, ws_len, n_c, cap, d, b, n_probe,
       s);
   if (e) return e;
-  const size_t smem = sizeof(unsigned long long) * 64 * ((k + 63) / 64);
-  e = set_smem(reinterpret_cast<const void*>(ivf_screen_topk_kernel), smem);
-  if (e) return e;
-  const unsigned long long* wk = keys;
-  if (!scored) {  // no score grid to depend on
-    ivf_screen_topk_kernel<<<b, kThreads, smem, s>>>(
-        wk, member_ids, overflow_scores, overflow_ids, probe, probe_width,
-        out_vals, out_ids, n_c, cap, n_probe, o_cap, k, pool_pow2);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return repro_torch::launch_dependent(
-      ivf_screen_topk_kernel, dim3(b), dim3(kThreads), smem, s, wk,
-      member_ids, overflow_scores, overflow_ids, probe, probe_width, out_vals,
-      out_ids, n_c, cap, n_probe, o_cap, k, pool_pow2);
+  return launch_screen_topk(
+      ivf_screen_topk_kernel, scored, b, k, s,
+      static_cast<const unsigned long long*>(keys), member_ids,
+      overflow_scores, overflow_ids, probe, probe_width, out_vals, out_ids,
+      n_c, cap, n_probe, o_cap, k, pool_pow2);
 }
 
 // Shapes: emb (n, d) f32, pos (t, m_cap) i32, m_used (t,) i32,
 // pert_s (t, k) f32, s_ids (t, k) i32, heights (t, m_cap) f32, h (t, d) f32
-// -> out_idx (t,) i32, out_max (t,) f32.
-// Returns the CUDA error code of the launch (0 = success).
+// -> out_idx (t,) i32, out_max (t,) f32; ws: t * max(1, ceil(m_cap / 32))
+// (value, index) pairs of workspace, 8-byte aligned.
+// Enqueues the score and argmax kernels; returns the CUDA error code of the
+// launches (0 = success).
 extern "C" int tail_gather_argmax_launch(
     const float* emb, const int* pos, const int* m_used, const float* pert_s,
     const int* s_ids, const float* heights, const float* h, int* out_idx,
-    float* out_max, int n, int d, int t, int m_cap, int k, void* stream) {
+    float* out_max, int2* ws, int n, int d, int t, int m_cap, int k,
+    void* stream) {
   if (t == 0) return 0;
-  const size_t smem = sizeof(float) * (round_up4(d) + m_cap + kWarps) +
-                      sizeof(int) * kWarps;
-  const int e = set_smem(
-      reinterpret_cast<const void*>(tail_gather_argmax_kernel), smem);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int sms = 0;
+  int e = repro_torch::sm_count(&sms);
   if (e) return e;
-  tail_gather_argmax_kernel<<<t, kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      emb, pos, m_used, pert_s, s_ids, heights, h, out_idx, out_max, n, d,
-      m_cap, k, round_up4(d));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Shared memory a launch of pq_screen_select needs, in bytes.
-extern "C" long long pq_screen_select_smem(int m_sub, int ksub,
-                                           int pool_pow2) {
-  return static_cast<long long>(sizeof(unsigned long long)) * pool_pow2 +
-         static_cast<long long>(sizeof(float)) * m_sub * ksub;
+  // chunks of a token's slots that run as blocks of their own: all of them
+  // for a few tokens, fewer once the batch fills kTailWarpsPerSM warps an SM
+  const int chunks = m_cap > kTailRows ? (m_cap + kTailRows - 1) / kTailRows : 1;
+  const int per_token = (kTailWarpsPerSM * sms / kTailRows + t - 1) / t;
+  const int g = chunks < per_token ? chunks : per_token;
+  const size_t smem = sizeof(float) * round_up4(d);
+  e = set_smem(reinterpret_cast<const void*>(tail_score_kernel), smem);
+  if (e) return e;
+  tail_score_kernel<<<dim3(t, g), kThreads, smem, s>>>(
+      emb, pos, m_used, heights, h, ws, n, d, m_cap, k);
+  e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  return repro_torch::launch_dependent(
+      tail_argmax_kernel, dim3(t), dim3(kTailArgmaxThreads), 0, s,
+      static_cast<const int2*>(ws), pert_s, s_ids, pos, out_idx, out_max,
+      m_cap, k, g);
 }
 
 // Shapes: member_codes (n_c, cap, m_sub) u8, member_ids (n_c, cap) i32,
 // coarse (b, n_probe) f32, overflow_scores (b, o_cap) f32,
 // overflow_ids (o_cap,) i32, probe (b, n_probe) i32, probe_width (b,) i32
 // or NULL (full width), lut (b, m_sub, ksub) f32
-// -> out_vals (b, r) f32, out_ids (b, r) i32.
-// pool_pow2 is a power of two >= max(n_probe * cap + o_cap, r).
-// Returns the CUDA error code of the launch (0 = success).
+// -> out_vals (b, r) f32, out_ids (b, r) i32; keys: b * n_probe * cap
+// 64-bit keys of workspace, 8-byte aligned. pool_pow2 is a power of two
+// >= max(n_probe * cap + o_cap, r), at most kTopkKeys * 1024.
+// Enqueues the score and topk kernels; returns the CUDA error code of the
+// launches (0 = success).
 extern "C" int pq_screen_select_launch(
     const uint8_t* member_codes, const int* member_ids, const float* coarse,
     const float* overflow_scores, const int* overflow_ids, const int* probe,
     const int* probe_width, const float* lut, float* out_vals, int* out_ids,
-    int n_c, int cap, int m_sub, int ksub, int b, int n_probe, int o_cap,
-    int r, int pool_pow2, void* stream) {
+    unsigned long long* keys, int n_c, int cap, int m_sub, int ksub, int b,
+    int n_probe, int o_cap, int r, int pool_pow2, void* stream) {
   if (b == 0 || r == 0) return 0;
-  const size_t smem =
-      static_cast<size_t>(pq_screen_select_smem(m_sub, ksub, pool_pow2));
-  const int e = set_smem(reinterpret_cast<const void*>(pq_screen_select_kernel),
-                         smem);
-  if (e) return e;
-  pq_screen_select_kernel<<<b, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      member_codes, member_ids, coarse, overflow_scores, overflow_ids, probe,
-      probe_width, lut, out_vals, out_ids, n_c, cap, m_sub, ksub, n_probe,
-      o_cap, r, pool_pow2);
-  return static_cast<int>(cudaGetLastError());
+  if (pool_pow2 > kTopkKeys * kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool scored = n_probe > 0 && cap > 0;
+  if (scored) {
+    int parts = 0;
+    int e = repro_torch::pq::score_parts(b, n_probe, cap, &parts);
+    if (e) return e;
+    const size_t smem = sizeof(float) * m_sub * ksub;
+    e = set_smem(reinterpret_cast<const void*>(pq_screen_score_kernel), smem);
+    if (e) return e;
+    pq_screen_score_kernel<<<dim3(b, n_probe * parts), repro_torch::pq::kRows,
+                             smem, s>>>(
+        member_codes, probe, lut,
+        PqKeySink{KeySink{keys, cap, n_probe}, member_ids, coarse,
+                  probe_width},
+        n_c, cap, m_sub, ksub, n_probe, parts);
+    e = static_cast<int>(cudaGetLastError());
+    if (e) return e;
+  }
+  return launch_screen_topk(
+      pq_screen_topk_kernel, scored, b, r, s,
+      static_cast<const unsigned long long*>(keys), member_ids,
+      overflow_scores, overflow_ids, probe, probe_width, out_vals, out_ids,
+      n_c, cap, n_probe, o_cap, r, pool_pow2);
 }
 
 // Shared memory one block of a rerank_select launch needs at most, in
@@ -734,12 +763,8 @@ extern "C" int rerank_select_launch(const float* db, const int* cand,
                                     int b, int r, int k, void* stream) {
   if (b == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0;
   int sms = 0;
-  int e = static_cast<int>(cudaGetDevice(&dev));
-  if (!e)
-    e = static_cast<int>(
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  int e = repro_torch::sm_count(&sms);
   if (e) return e;
   // chunks of a query's survivors that run as blocks of their own: all of
   // them for a few queries, fewer (each block then strides over the rest)

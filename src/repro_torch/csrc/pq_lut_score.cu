@@ -14,46 +14,46 @@
 // (8 KB each) — a few MB, microseconds at the card's memory rate. The work
 // is m_sub table lookups and adds per member, no multiply.
 //
-// Design: grid (n_probe, b), 256 threads. A block loads its query's
-// (m_sub, ksub) LUT into shared memory once; a GPU gathers by index
-// natively, so there is no one-hot product: each thread scores whole
-// members with repro_torch::lut_sum (pq_lut.cuh), which reads a member's 8
-// codes in one 8-byte load at m_sub = 8 and adds the looked-up entries in
-// subspace order. decode_fused.cu's pq_screen_select scores members with
-// the same device function, which keeps the fused screen bitwise equal to
-// this kernel's scores plus the coarse term.
+// Design: grid (query, part of a probed stage), 256 threads
+// (pq::score_part, pq_lut.cuh, the loop decode_fused.cu's pq_screen_select
+// runs too): a stage splits into parts until the grid fills the card (4
+// queries: 96 blocks). A block loads its query's (m_sub, ksub) LUT into
+// shared memory once; a GPU gathers by index natively, so there is no
+// one-hot product: each thread scores whole members with
+// repro_torch::lut_sum, which reads a member's 8 codes in one 8-byte load
+// at m_sub = 8 and adds the looked-up entries in subspace order; the
+// fused screen's keys therefore hold this kernel's scores plus the coarse
+// term, bit for bit.
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
 #include "pq_lut.cuh"
-#include "row_dot.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+// Writes every member's score, at (query * n_probe + stage) * cap + row.
+struct ScoreSink {
+  float* scores;
+  int cap;
 
-__global__ void __launch_bounds__(kThreads)
+  __device__ __forceinline__ bool stage_live(int, int) const { return true; }
+  template <typename Sum>
+  __device__ __forceinline__ void store(int pair, size_t, int row,
+                                        Sum sum) const {
+    scores[static_cast<size_t>(pair) * cap + row] = sum();
+  }
+};
+
+__global__ void __launch_bounds__(repro_torch::pq::kRows)
     pq_lut_score_kernel(const uint8_t* __restrict__ member_codes,
                         const int* __restrict__ probe,
-                        const float* __restrict__ lut,
-                        float* __restrict__ scores, int n_c, int cap,
-                        int m_sub, int ksub, int n_probe) {
+                        const float* __restrict__ lut, ScoreSink sink,
+                        int n_c, int cap, int m_sub, int ksub, int n_probe,
+                        int parts) {
   extern __shared__ __align__(16) float slut[];
-  const int j = blockIdx.x;
-  const int bi = blockIdx.y;
-  // out-of-range cluster ids clamp, as an XLA gather does
-  const int cl = min(max(probe[bi * n_probe + j], 0), n_c - 1);
-  const int lut_n = m_sub * ksub;
-
-  repro_torch::load_query(slut, lut + static_cast<size_t>(bi) * lut_n, lut_n);
-  __syncthreads();
-
-  const uint8_t* tile = member_codes + static_cast<size_t>(cl) * cap * m_sub;
-  float* out = scores + (static_cast<size_t>(bi) * n_probe + j) * cap;
-  for (int r = threadIdx.x; r < cap; r += kThreads)
-    out[r] = repro_torch::lut_sum(tile + static_cast<size_t>(r) * m_sub, slut,
-                                  m_sub, ksub);
+  repro_torch::pq::score_part(member_codes, probe, lut, slut, sink, n_c, cap,
+                              m_sub, ksub, n_probe, parts);
 }
 
 }  // namespace
@@ -74,9 +74,12 @@ extern "C" int pq_lut_score_launch(const uint8_t* member_codes,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid(n_probe, b);
-  pq_lut_score_kernel<<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      member_codes, probe, lut, scores, n_c, cap, m_sub, ksub, n_probe);
+  int parts = 0;
+  const int e = repro_torch::pq::score_parts(b, n_probe, cap, &parts);
+  if (e) return e;
+  pq_lut_score_kernel<<<dim3(b, n_probe * parts), repro_torch::pq::kRows,
+                        smem, static_cast<cudaStream_t>(stream)>>>(
+      member_codes, probe, lut, ScoreSink{scores, cap}, n_c, cap, m_sub, ksub,
+      n_probe, parts);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
-// Top-k selection over 64-bit keys in shared memory (decode_fused.cu): a
-// bitonic sort for the fused screens, ranks for the exact re-rank.
+// Selection in decode_fused.cu: top-k over 64-bit keys (the screens' radix
+// select orders its winners here, the exact re-rank all its keys), and the
+// (value, index) argmax of the Algorithm-2 finish.
 //
 // A key's high word orders the fp32 score descending and its low word is
 // the slot's pool index, so an ascending sort of the keys puts the larger
@@ -43,35 +44,11 @@ __device__ __forceinline__ float key_value(unsigned long long key) {
   return from_desc_bits(static_cast<uint32_t>(key >> 32));
 }
 
-// Ascending bitonic sort of n keys (n a power of two) by the whole block.
-// The caller synchronizes the block after writing the keys; the sort ends
-// synchronized.
-__device__ inline void bitonic_sort(unsigned long long* keys, int n) {
-  const int half = n >> 1;
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < half; i += blockDim.x) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const bool asc = (lo & size) == 0;
-        const unsigned long long a = keys[lo];
-        const unsigned long long b = keys[hi];
-        if ((a > b) == asc) {
-          keys[lo] = b;
-          keys[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// One merge step (``size``) of bitonic_sort's network on the 64 keys a
+// One merge step (``size``) of a bitonic sorting network on the 64 keys a
 // warp holds in registers: lane l holds keys l (a) and l + 32 (b). Stride
 // 32 pairs a lane's two keys; strides 16 .. 1 pair lanes l and l ^ stride.
 // A key is kept as min or max by its pair's direction (ascending where the
-// key's position has bit ``size`` clear), as in bitonic_sort. All 32
-// lanes call it together.
+// key's position has bit ``size`` clear). All 32 lanes call it together.
 __device__ __forceinline__ void merge_step64(unsigned long long& a,
                                              unsigned long long& b, int lane,
                                              int size) {
@@ -118,10 +95,10 @@ __device__ __forceinline__ int count_below64(const unsigned long long* run,
 // (their low word is a slot index), so a key's rank — how many keys lie
 // below it — is its place in the sorted order: each warp sorts 64-key runs
 // of src in registers, padded past n with -inf keys whose indices lie past
-// the n (as bitonic_sort's callers pad to a power of two), and a key's rank
-// is its place in its run plus, for every other run, how many of that
-// run's keys lie below it. One block barrier, not one per stride of a
-// sort. keys: n_runs * 64 slots of shared memory, n_runs = ceil(n / 64).
+// the n, and a key's rank is its place in its run plus, for every other
+// run, how many of that run's keys lie below it. One block barrier, not
+// one per stride of a sort. keys: n_runs * 64 slots of shared memory,
+// n_runs = ceil(n / 64).
 // Calls emit(rank, key) for every key ranked below k. Ends synchronized.
 template <typename Emit>
 __device__ inline void select_by_rank(unsigned long long* keys,
@@ -150,6 +127,46 @@ __device__ inline void select_by_rank(unsigned long long* keys,
     if (rank < k) emit(rank, x);
   }
   __syncthreads();
+}
+
+// (value, index) order of a first-occurrence argmax: the larger value, then
+// the lower index. A strict total order on pairs of unique indices: +0 ==
+// -0 (the lower index wins), and a NaN never wins, so a fold that starts
+// from (-inf, INT_MAX) and sees every pair once picks one winner whatever
+// its order.
+__device__ __forceinline__ void argmax_merge(float& bv, int& bi, float v,
+                                             int i) {
+  if (v > bv || (v == bv && i < bi)) {
+    bv = v;
+    bi = i;
+  }
+}
+
+// The block's (value, index) pairs folded into thread 0's (argmax_merge):
+// each warp by a butterfly, then warp 0 over the warps' winners. red_v and
+// red_i: one entry a warp in shared memory.
+__device__ __forceinline__ void block_argmax(float& bv, int& bi, float* red_v,
+                                             int* red_i) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    argmax_merge(bv, bi, __shfl_xor_sync(0xffffffffu, bv, o),
+                 __shfl_xor_sync(0xffffffffu, bi, o));
+  if (lane == 0) {
+    red_v[warp] = bv;
+    red_i[warp] = bi;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const bool in = lane < static_cast<int>(blockDim.x >> 5);
+    bv = in ? red_v[lane] : -INFINITY;
+    bi = in ? red_i[lane] : 0x7fffffff;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      argmax_merge(bv, bi, __shfl_xor_sync(0xffffffffu, bv, o),
+                   __shfl_xor_sync(0xffffffffu, bi, o));
+  }
 }
 
 }  // namespace repro_torch

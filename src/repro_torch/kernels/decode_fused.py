@@ -10,7 +10,11 @@
   query's first k keys by a radix select. One C call enqueues both.
 * :func:`pq_screen_select` — the IVF-PQ screen: each probed member's LUT
   sum (the device function ``pq_lut_score`` uses) plus its cluster's coarse
-  score, and the top-r of the pool ∪ exact overflow scores.
+  score, and the top-r of the pool ∪ exact overflow scores. A score kernel
+  spread over (query, part of a stage) blocks writes one sort key per member
+  slot into a workspace that shares one allocation with the outputs, and
+  ``ivf_screen_select``'s select kernel takes each query's first r keys. One
+  C call enqueues both.
 * :func:`rerank_select` — the exact fp32 re-rank of the r screening
   survivors against the database rows, and their top-k: a score kernel
   spread over (query, chunk of survivors) blocks writes one sort key per
@@ -18,7 +22,11 @@
   and a select kernel sorts each query's keys. One C call enqueues both.
 * :func:`tail_gather_argmax` — the Algorithm-2 finish: tail rows gathered
   and scored against h, perturbed by the truncated-Gumbel heights, and the
-  first-occurrence argmax over S ∪ tail.
+  first-occurrence argmax over S ∪ tail. A score kernel spread over (token,
+  chunk of tail slots) blocks writes each chunk's (value, index) winner into
+  a workspace that shares one allocation with the outputs, and an argmax
+  kernel folds each token's S values and chunk winners. One C call enqueues
+  both.
 
 Their plain versions are ``ref.ivf_screen_select_ref``,
 ``ref.pq_screen_select_ref``, ``ref.rerank_select_ref`` and
@@ -36,7 +44,7 @@ from repro_torch.kernels.pq_lut_score import check_codes
 
 __all__ = ["ivf_screen_select", "pq_screen_select", "rerank_select",
            "tail_gather_argmax", "launches", "rerank_workspace_ints",
-           "screen_workspace_ints"]
+           "screen_workspace_ints", "tail_workspace_ints"]
 
 launches = {"ivf_screen_select": 0, "pq_screen_select": 0,
             "rerank_select": 0, "tail_gather_argmax": 0}
@@ -44,8 +52,12 @@ launches = {"ivf_screen_select": 0, "pq_screen_select": 0,
 _SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
 RERANK_ROWS = 32  # survivors one rerank_select score block takes (the
 #   kernel's kRerankRows; the card tests probe r around it)
-SCREEN_POOL_MAX = 16_384  # the widest pool ivf_screen_select's select
-#   kernel holds: 16 keys in each of its 1,024 threads' registers
+SCREEN_POOL_MAX = 16_384  # the widest pool the screens' select kernel
+#   holds: 16 keys in each of its 1,024 threads' registers
+PQ_ROWS = 256  # members one pq_screen_select score block takes, one a
+#   thread (pq_lut.cuh's pq::kRows)
+TAIL_ROWS = 32  # tail slots one tail_gather_argmax score block takes, one
+#   a warp (the kernel's kTailRows; the card tests probe m_used around it)
 
 
 def _cuda(name: str, *ts):
@@ -76,9 +88,21 @@ def _check_overflow(name, overflow_scores, overflow_ids, probe_width, b):
             overflow_ids.to(torch.int32).contiguous(), probe_width)
 
 
+def _check_pool(name: str, pool_pow2: int, k: int) -> None:
+    """Raise unless the screens' select kernel holds a pool of pool_pow2
+    slots and k winners in one block."""
+    if pool_pow2 > SCREEN_POOL_MAX:
+        raise ValueError(f"{name}: pool of {pool_pow2} slots exceeds the "
+                         f"select kernel's {SCREEN_POOL_MAX}")
+    fn_smem = build.bind("decode_fused", "screen_topk_smem", [build.I],
+                         restype=ctypes.c_longlong)
+    if fn_smem(k) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: k={k} exceeds one block's shared memory")
+
+
 def screen_workspace_ints(b: int, n_probe: int, cap: int) -> int:
-    """Int32 words of ``ivf_screen_select``'s key workspace: one 64-bit sort
-    key per (query, probed member slot)."""
+    """Int32 words of ``ivf_screen_select``'s and ``pq_screen_select``'s
+    key workspace: one 64-bit sort key per (query, probed member slot)."""
     return 2 * b * n_probe * cap
 
 
@@ -94,14 +118,7 @@ def ivf_screen_select(member_vecs, member_ids, overflow_scores, overflow_ids,
     overflow_scores, overflow_ids, probe_width = _check_overflow(
         "ivf_screen_select", overflow_scores, overflow_ids, probe_width, b)
     pool_pow2 = _pow2(max(n_probe * cap + o_cap, k))
-    if pool_pow2 > SCREEN_POOL_MAX:
-        raise ValueError(f"ivf_screen_select: pool of {pool_pow2} slots "
-                         f"exceeds the select kernel's {SCREEN_POOL_MAX}")
-    fn_smem = build.bind("decode_fused", "ivf_screen_select_smem", [build.I],
-                         restype=ctypes.c_longlong)
-    if fn_smem(k) > _SMEM_LIMIT:
-        raise ValueError(f"ivf_screen_select: k={k} exceeds one block's "
-                         "shared memory")
+    _check_pool("ivf_screen_select", pool_pow2, k)
     # values, ids, the keys (8-byte aligned: 2 * b * k words before), then
     # the score pass's plan
     n_out = b * k
@@ -128,7 +145,7 @@ def ivf_screen_select(member_vecs, member_ids, overflow_scores, overflow_ids,
 def pq_screen_select(member_codes, member_ids, coarse, overflow_scores,
                      overflow_ids, probe, lut, *, r: int, probe_width=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel -> (values (b, r) f32, ids (b, r) i32)."""
+    """Launch the kernels -> (values (b, r) f32, ids (b, r) i32)."""
     member_codes, probe, lut = check_codes(member_codes, probe, lut,
                                            "pq_screen_select")
     n_c, cap, m_sub = member_codes.shape
@@ -145,23 +162,23 @@ def pq_screen_select(member_codes, member_ids, coarse, overflow_scores,
     overflow_scores, overflow_ids, probe_width = _check_overflow(
         "pq_screen_select", overflow_scores, overflow_ids, probe_width, b)
     pool_pow2 = _pow2(max(n_probe * cap + o_cap, r))
-    fn_smem = build.bind("decode_fused", "pq_screen_select_smem",
-                         [build.I] * 3, restype=ctypes.c_longlong)
-    if fn_smem(m_sub, ksub, pool_pow2) > _SMEM_LIMIT:
-        raise ValueError(f"pq_screen_select: pool of {pool_pow2} slots and "
-                         f"a {m_sub} x {ksub} LUT exceed one block's shared "
-                         "memory")
+    _check_pool("pq_screen_select", pool_pow2, r)
     member_ids = member_ids.to(torch.int32).contiguous()
     coarse = coarse.to(torch.float32).contiguous()
-    vals = torch.empty((b, r), dtype=torch.float32, device=lut.device)
-    ids = torch.empty((b, r), dtype=torch.int32, device=lut.device)
+    # values, ids, then the keys (8-byte aligned: 2 * b * r words before)
+    n_out = b * r
+    buf = torch.empty(2 * n_out + screen_workspace_ints(b, n_probe, cap),
+                      dtype=torch.int32, device=lut.device)
+    vals = buf[:n_out].view(torch.float32).view(b, r)
+    ids = buf[n_out:2 * n_out].view(b, r)
     fn = build.bind("decode_fused", "pq_screen_select_launch",
-                    [build.P] * 10 + [build.I] * 9 + [build.P])
+                    [build.P] * 11 + [build.I] * 9 + [build.P])
     err = fn(build.ptr(member_codes), build.ptr(member_ids), build.ptr(coarse),
              build.ptr(overflow_scores), build.ptr(overflow_ids),
              build.ptr(probe), build.ptr(probe_width), build.ptr(lut),
-             build.ptr(vals), build.ptr(ids), n_c, cap, m_sub, ksub, b,
-             n_probe, o_cap, r, pool_pow2, build.stream())
+             build.ptr(vals), build.ptr(ids), buf.data_ptr() + 8 * n_out, n_c,
+             cap, m_sub, ksub, b, n_probe, o_cap, r, pool_pow2,
+             build.stream())
     build.check(err, "pq_screen_select")
     launches["pq_screen_select"] += 1
     return vals, ids
@@ -217,9 +234,16 @@ def rerank_select(db, cand, lut_vals, q, *, k: int
     return vals, ids
 
 
+def tail_workspace_ints(t: int, m_cap: int) -> int:
+    """Int32 words of ``tail_gather_argmax``'s workspace: one (value,
+    index) pair per (token, chunk of ``TAIL_ROWS`` tail slots), at least
+    one chunk a token."""
+    return 2 * t * max(1, -(-m_cap // TAIL_ROWS))
+
+
 def tail_gather_argmax(emb, pos, m_used, pert_s, s_ids, heights, h
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel -> (index (t,) i32, max_val (t,) f32)."""
+    """Launch the kernels -> (index (t,) i32, max_val (t,) f32)."""
     n, d = emb.shape
     t, m_cap = pos.shape
     k = pert_s.shape[1]
@@ -233,19 +257,25 @@ def tail_gather_argmax(emb, pos, m_used, pert_s, s_ids, heights, h
     emb = emb.contiguous()
     if emb.data_ptr() % 16:
         raise ValueError("tail_gather_argmax: emb must be 16-byte aligned")
-    if 4 * (((d + 3) & ~3) + m_cap + 64) > _SMEM_LIMIT:
-        raise ValueError("tail_gather_argmax: d + m_cap exceed shared memory")
+    if 4 * ((d + 3) & ~3) > _SMEM_LIMIT:
+        raise ValueError("tail_gather_argmax: d exceeds one block's shared "
+                         "memory")
     args = [emb, pos.to(torch.int32).contiguous(),
             m_used.to(torch.int32).contiguous(),
             pert_s.to(torch.float32).contiguous(),
             s_ids.to(torch.int32).contiguous(),
             heights.to(torch.float32).contiguous(), h.contiguous()]
-    idx = torch.empty((t,), dtype=torch.int32, device=h.device)
-    max_val = torch.empty((t,), dtype=torch.float32, device=h.device)
+    # index, max_val, then the (value, index) pairs (8-byte aligned: 2 t
+    # words before)
+    buf = torch.empty(2 * t + tail_workspace_ints(t, m_cap),
+                      dtype=torch.int32, device=h.device)
+    idx = buf[:t]
+    max_val = buf[t:2 * t].view(torch.float32)
     fn = build.bind("decode_fused", "tail_gather_argmax_launch",
-                    [build.P] * 9 + [build.I] * 5 + [build.P])
+                    [build.P] * 10 + [build.I] * 5 + [build.P])
     err = fn(*(build.ptr(a) for a in args), build.ptr(idx),
-             build.ptr(max_val), n, d, t, m_cap, k, build.stream())
+             build.ptr(max_val), buf.data_ptr() + 8 * t, n, d, t, m_cap, k,
+             build.stream())
     build.check(err, "tail_gather_argmax")
     launches["tail_gather_argmax"] += 1
     return idx, max_val

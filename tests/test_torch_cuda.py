@@ -9,7 +9,9 @@ of the sequence, query-group sizes 1 to 32 and head dims 16 to 256;
 duplicate, out-of-range and piled-up IVF probes; the split IVF screen at
 1 to 256 queries, pools at and past a power of two and up to its 16,384
 slots, k from 1 to past the pool, probe widths 0 to past n_probe, dead
-cluster tails). Marked ``cuda``: they skip without
+cluster tails; the same for the split IVF-PQ screen; the split tail argmax
+at tail lengths around its chunk of slots, ties across chunks and between
+-0.0 and +0.0, and batches that stride). Marked ``cuda``: they skip without
 an NVIDIA GPU; run them on one with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -411,6 +413,134 @@ def test_tail_gather_argmax_kernel(gen, d):
     torch.testing.assert_close(v, wv, **TOL)
 
 
+def _tail_inputs(gen, t, m_cap, k, d=64, n=300, values="ints"):
+    """Tail inputs: a table of n rows, t tokens of m_cap tail slots and k S
+    values (a quarter of them -inf); small integers (exact sums, ties among
+    them) or random fp32."""
+    if values == "ints":
+        emb, h = _ints(gen, (n, d)), _ints(gen, (t, d))
+        pert_s = _ints(gen, (t, k), -10, 10)
+        heights = _ints(gen, (t, m_cap), 0, 4) * 0.5
+    else:
+        emb = torch.randn((n, d), generator=gen, device="cuda")
+        h = torch.randn((t, d), generator=gen, device="cuda")
+        pert_s = torch.randn((t, k), generator=gen, device="cuda") * 8
+        heights = torch.rand((t, m_cap), generator=gen, device="cuda") * 16
+    pert_s[:, ::4] = float("-inf")
+    pos = torch.randint(0, n, (t, m_cap), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    s_ids = torch.randint(0, n, (t, k), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    m_used = torch.full((t,), m_cap, device="cuda", dtype=torch.int32)
+    return emb, pos, m_used, pert_s, s_ids, heights, h
+
+
+@pytest.mark.parametrize("k", [1, 20])
+@pytest.mark.parametrize("d", [30, 2048])
+def test_tail_gather_argmax_chunk_edges(gen, d, k):
+    """m_used around the score kernel's chunk of tail slots (0, 1, chunk -
+    1, chunk, chunk + 1, m_cap, and past m_cap, which clamps), m_cap not a
+    multiple of the chunk, k = 1 and 20, d not a multiple of 4 and
+    tinyllama's 2,048: small integers, so kernel and plain version agree
+    bit for bit, ties included."""
+    rows = decode_fused.TAIL_ROWS
+    m_cap = 3 * rows + 5
+    args = list(_tail_inputs(gen, 7, m_cap, k, d=d))
+    args[2] = torch.tensor([0, 1, rows - 1, rows, rows + 1, m_cap, m_cap + 9],
+                           device="cuda", dtype=torch.int32)
+    i, v = decode_fused.tail_gather_argmax(*args)
+    wi, wv = ref.tail_gather_argmax_ref(*args)
+    assert torch.equal(i, wi) and torch.equal(v, wv)
+
+
+def test_tail_gather_argmax_ties_and_signed_zeros(gen):
+    """Ties the argmax must break as the plain version's first-occurrence
+    argmax does: an S value -0.0 against a tail value +0.0 (equal: the S
+    slot, the lower index, wins, value -0.0); two tail slots in different
+    chunks with one value (the lower slot wins); a token whose every value
+    is -inf (index 0: s_ids[0]), and one with no S value (k = 0) and no
+    live tail (index 0: pos[0])."""
+    rows = decode_fused.TAIL_ROWS
+    t, m_cap, k, d = 4, 3 * rows + 2, 6, 16
+    emb, pos, m_used, pert_s, s_ids, heights, h = _tail_inputs(gen, t, m_cap,
+                                                               k, d=d)
+    pert_s[:] = float("-inf")
+    heights[:] = 0.0
+    # token 0: S slot 2 is -0.0, every live tail slot scores +0.0 (h = 0)
+    h[0] = 0.0
+    pert_s[0, 2] = -0.0
+    # token 1: tail slots 1 and rows + 3 (two chunks) tie at the maximum
+    h[1] = 0.0
+    heights[1, 1] = heights[1, rows + 3] = 2.5
+    # token 2: every value -inf (no live tail)
+    m_used[2] = 0
+    args = (emb, pos, m_used, pert_s, s_ids, heights, h)
+    i, v = decode_fused.tail_gather_argmax(*args)
+    wi, wv = ref.tail_gather_argmax_ref(*args)
+    assert torch.equal(i, wi) and torch.equal(v, wv)
+    assert torch.equal(torch.signbit(v), torch.signbit(wv))
+    assert i[0] == s_ids[0, 2] and v[0] == 0 and torch.signbit(v[0])
+    assert i[1] == pos[1, 1] and v[1] == 2.5
+    assert i[2] == s_ids[2, 0] and torch.isneginf(v[2])
+    args0 = (emb, pos[2:3], m_used[2:3], pert_s[2:3, :0], s_ids[2:3, :0],
+             heights[2:3], h[2:3])
+    i0, v0 = decode_fused.tail_gather_argmax(*args0)
+    assert i0[0] == pos[2, 0] and torch.isneginf(v0[0])
+
+
+@pytest.mark.parametrize("values", ["ints", "random"])
+def test_tail_gather_argmax_striding_batch(gen, values):
+    """A batch that fills the card on its own, so each score block strides
+    over several chunks of a token's slots (300 tokens of 70 slots; 600 at
+    tinyllama's d and m_cap for random fp32): bitwise the plain version on
+    small integers; on random fp32 two launches bitwise equal and a token
+    alone equal to its row of the batch, values within rtol 1e-5 and an atol
+    of 1e-5 times the largest |value| (d-term dot products summed in
+    another order)."""
+    if values == "ints":
+        t, m_cap, k, d, n = 300, 70, 20, 64, 300
+    else:
+        t, m_cap, k, d, n = 600, 728, 576, 2048, 5000
+    args = list(_tail_inputs(gen, t, m_cap, k, d=d, n=n, values=values))
+    args[2] = torch.randint(0, m_cap + 1, (t,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    i, v = decode_fused.tail_gather_argmax(*args)
+    wi, wv = ref.tail_gather_argmax_ref(*args)
+    if values == "ints":
+        assert torch.equal(i, wi) and torch.equal(v, wv)
+        return
+    i2, v2 = decode_fused.tail_gather_argmax(*args)
+    assert torch.equal(i, i2) and torch.equal(v, v2)
+    for j in (0, 1, t // 2, t - 1):
+        ia, va = decode_fused.tail_gather_argmax(
+            args[0], *(a[j:j + 1] for a in args[1:]))
+        assert torch.equal(ia[0], i[j]) and torch.equal(va[0], v[j])
+    torch.testing.assert_close(v, wv, rtol=1e-5,
+                               atol=1e-5 * wv.abs().max().item())
+
+
+def test_tail_gather_argmax_serving_shape_is_repeatable(gen):
+    """The serving path's shape (4 tokens, tinyllama's d, k and m_cap, every
+    m_used near l = 576) on random fp32: two launches bitwise equal, each
+    token alone equal to its row of the batch, and the plain version's
+    indices."""
+    t, m_cap, k, d = 4, 728, 576, 2048
+    args = list(_tail_inputs(gen, t, m_cap, k, d=d, n=5000, values="random"))
+    args[2] = torch.tensor([560, 576, 590, 600], device="cuda",
+                           dtype=torch.int32)
+    i, v = decode_fused.tail_gather_argmax(*args)
+    i2, v2 = decode_fused.tail_gather_argmax(*args)
+    assert torch.equal(i, i2) and torch.equal(v, v2)
+    for j in range(t):
+        ia, va = decode_fused.tail_gather_argmax(
+            args[0], *(a[j:j + 1] for a in args[1:]))
+        assert torch.equal(ia[0], i[j]) and torch.equal(va[0], v[j])
+    wi, wv = ref.tail_gather_argmax_ref(*args)
+    assert torch.equal(i, wi)
+    torch.testing.assert_close(v, wv, rtol=1e-5,
+                               atol=1e-5 * wv.abs().max().item())
+
+
 def test_kernels_reject_bad_inputs(gen):
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_decode.flash_decode(torch.zeros(1, 2, 8), torch.zeros(1, 3, 1, 8),
@@ -476,6 +606,19 @@ def test_pq_lut_score_kernel(gen, m_sub, ksub, values):
     assert torch.equal(got, ref.pq_lut_score_ref(codes, probe, lut))
 
 
+@pytest.mark.parametrize("cap,b", [(255, 4), (256, 4), (257, 4), (544, 1),
+                                   (544, 4), (1800, 4), (544, 256)])
+def test_pq_lut_score_split_stages(gen, cap, b):
+    """Clusters around the score block's 256 members and a few to many
+    queries, so stages split into 1 up to ceil(cap / 256) parts: random
+    fp32 LUTs, bitwise the plain version, and two launches equal."""
+    codes, _, _, _, _, probe, lut = _pq_tables(gen, n_c=20, cap=cap, b=b,
+                                               n_probe=8, values="random")
+    got = pq_lut_score.pq_lut_score(codes, probe, lut)
+    assert torch.equal(got, ref.pq_lut_score_ref(codes, probe, lut))
+    assert torch.equal(got, pq_lut_score.pq_lut_score(codes, probe, lut))
+
+
 @pytest.mark.parametrize("case", ["ties", "small_pool", "dead_row", "width",
                                   "all_dead", "m_sub4"])
 def test_pq_screen_select_kernel(gen, case):
@@ -518,6 +661,68 @@ def test_pq_screen_select_bitwise_equals_lut_score_plus_top_r(gen):
                         o_ids[None].expand(s.shape[0], -1)], 1)
     pool_s = torch.where(pool_i >= 0, pool_s, float("-inf"))
     wv, wi = ref.topk_select_ref(pool_s, pool_i, 64)
+    assert torch.equal(v, wv) and torch.equal(i, wi)
+
+
+@pytest.mark.parametrize("case", ["pool_pow2", "pool_pow2_plus1", "r_pool",
+                                  "r_past_pool", "pool_max"])
+def test_pq_screen_select_pool_edges(gen, case):
+    """Pools the select pads to a power of two: exactly 256 slots and 257
+    (padded to 512), r = the pool, r past the pool (padding picks: -inf, id
+    -1), and the widest pool the select holds, 16,384 slots, at r 1,152.
+    Small integers: bitwise the plain version."""
+    kw = dict(n_c=12, cap=48, b=5, n_probe=4, o_cap=24)
+    pool = 4 * 48 + 24
+    r = {"r_pool": pool, "r_past_pool": pool + 9}.get(case, 50)
+    if case.startswith("pool_pow2"):
+        kw["o_cap"] = 256 - 4 * 48 + (case == "pool_pow2_plus1")
+    if case == "pool_max":
+        kw.update(n_c=10, cap=1800, n_probe=8, o_cap=16384 - 8 * 1800, b=4)
+        r = 1152
+    args = _pq_tables(gen, **kw)
+    v, i = decode_fused.pq_screen_select(*args, r=r)
+    wv, wi = ref.pq_screen_select_ref(*args, r)
+    assert torch.equal(v, wv) and torch.equal(i, wi)
+    if case == "r_past_pool":
+        assert torch.isneginf(v[:, pool:]).all() and (i[:, pool:] == -1).all()
+
+
+def test_pq_screen_select_rejects_a_pool_past_its_select(gen):
+    """A pool wider than the select kernel's 16,384 register-held keys is
+    refused before any launch."""
+    args = _pq_tables(gen, n_c=4, cap=8, b=2, n_probe=2, o_cap=16)
+    with pytest.raises(ValueError, match="pool"):
+        decode_fused.pq_screen_select(*args,
+                                      r=decode_fused.SCREEN_POOL_MAX + 1)
+
+
+@pytest.mark.parametrize("b", [1, 4, 5, 256])
+def test_pq_screen_select_batches_are_repeatable(gen, b):
+    """Random fp32 LUTs at tinyllama's geometry (8 probes of 544 slots, 8 x
+    256 codewords, r 1,152), 1 to 256 queries (the score grid splits stages
+    for few queries and not for many), some probe widths narrowed: two
+    launches bitwise equal, a query screened alone equal to its row of the
+    batch, and bitwise pq_lut_score + coarse + a top-r."""
+    codes, mids, coarse, o_sc, o_ids, probe, lut = _pq_tables(
+        gen, n_c=40, cap=544, b=b, n_probe=8, o_cap=400, values="random")
+    width = torch.full((b,), 8, device="cuda", dtype=torch.int32)
+    width[b // 2] = 3
+    args = (codes, mids, coarse, o_sc, o_ids, probe, lut)
+    v, i = decode_fused.pq_screen_select(*args, r=1152, probe_width=width)
+    v2, i2 = decode_fused.pq_screen_select(*args, r=1152, probe_width=width)
+    assert torch.equal(v, v2) and torch.equal(i, i2)
+    for j in sorted({0, b // 2, b - 1}):
+        va, ia = decode_fused.pq_screen_select(
+            codes, mids, coarse[j:j + 1], o_sc[j:j + 1], o_ids,
+            probe[j:j + 1], lut[j:j + 1], r=1152, probe_width=width[j:j + 1])
+        assert torch.equal(va[0], v[j]) and torch.equal(ia[0], i[j])
+    s = pq_lut_score.pq_lut_score(codes, probe, lut) + coarse[..., None]
+    live = torch.arange(8, device="cuda")[None] < width[:, None]
+    s = torch.where(live[..., None], s, float("-inf")).reshape(b, -1)
+    pool_i = torch.where(live[..., None], mids[probe.long()], -1)
+    pool_i = torch.cat([pool_i.reshape(b, -1), o_ids[None].expand(b, -1)], 1)
+    pool_s = torch.where(pool_i >= 0, torch.cat([s, o_sc], 1), float("-inf"))
+    wv, wi = ref.topk_select_ref(pool_s, pool_i, 1152)
     assert torch.equal(v, wv) and torch.equal(i, wi)
 
 

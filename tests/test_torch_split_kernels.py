@@ -1,12 +1,15 @@
 """The inputs the split ``flash_decode``, the cluster-major
-``ivf_gather_score``, the split ``ivf_screen_select`` and ``rerank_select``
-and the ``fused_estimator`` kernels have to get right, held on the CPU: the
+``ivf_gather_score``, the split ``ivf_screen_select``, ``pq_screen_select``,
+``rerank_select`` and ``tail_gather_argmax`` and the ``fused_estimator``
+kernels have to get right, held on the CPU: the
 plain versions (what the CPU runs in place of the kernels) against the JAX
 package at lengths around the kernel's split of the sequence, at probe sets
 with repeated and piled-up clusters, at screen pools at and past a power of
 two and as wide as k, at survivor counts around the re-rank's chunk of
-survivors (dead, duplicate and out-of-range ids among them), and at the
-estimator's candidate sets that share, repeat or clamp rows; and the
+survivors (dead, duplicate and out-of-range ids among them), at tail
+lengths around the tail's chunk of slots (ties across chunks, signed zeros
+and all -inf tokens among them), and at the estimator's candidate sets that
+share, repeat or clamp rows; and the
 wrappers' workspace sizes against a brute-force listing of what the kernels
 write there.
 
@@ -309,3 +312,188 @@ def test_fused_estimator_ref_edge_cases_match_pallas(case):
         lw = torch.from_numpy(log_w[-2:])
         np.testing.assert_allclose(got_z[-2:].numpy(),
                                    torch.logsumexp(lw, 1).numpy(), **TOL)
+
+
+def _pq_inputs(rng, n_c, cap, b, n_probe, o_cap, m_sub=8, ksub=16,
+               values="ints"):
+    """IVF-PQ screen inputs: codes, member ids (30 % dead), coarse scores,
+    overflow scores and ids (a third dead), probes, LUTs; small integers
+    (every sum exact, ties among them) or random fp32."""
+    codes = rng.integers(0, ksub, (n_c, cap, m_sub)).astype(np.uint8)
+    mids = rng.integers(0, 1000, (n_c, cap)).astype(np.int32)
+    mids[rng.random((n_c, cap)) < 0.3] = -1
+    probe = np.stack([rng.permutation(n_c)[:n_probe]
+                      for _ in range(b)]).astype(np.int32)
+    oids = rng.integers(0, 1000, (o_cap,)).astype(np.int32)
+    oids[::3] = -1
+    if values == "ints":
+        lut = rng.integers(-3, 4, (b, m_sub, ksub)).astype(np.float32)
+        coarse = rng.integers(-5, 6, (b, n_probe)).astype(np.float32)
+        osc = rng.integers(-20, 20, (b, o_cap)).astype(np.float32)
+    else:
+        lut = rng.standard_normal((b, m_sub, ksub), dtype=np.float32)
+        coarse = rng.standard_normal((b, n_probe), dtype=np.float32)
+        osc = 3 * rng.standard_normal((b, o_cap), dtype=np.float32)
+    return codes, mids, coarse, osc, oids, probe, lut
+
+
+@pytest.mark.parametrize("values", ["ints", "random"])
+@pytest.mark.parametrize("case", ["pool_pow2_minus1", "pool_pow2",
+                                  "pool_pow2_plus1", "r_pool", "width"])
+def test_pq_screen_select_ref_pool_edges_match_jax(case, values):
+    """The IVF-PQ screen's plain version against the JAX oracle where the
+    select pads the pool to a power of two: pools of 2^8 - 1, 2^8 and 2^8 +
+    1 slots, r equal to the pool, and probe widths 0 to n_probe (against
+    the oracle on each query's probe prefix). Small integers (exact, ties
+    broken by pool index) and random fp32."""
+    rng = np.random.default_rng(["pool_pow2_minus1", "pool_pow2",
+                                 "pool_pow2_plus1", "r_pool",
+                                 "width"].index(case))
+    n_c, cap, b, n_probe, r = 10, 48, 5, 4, 60
+    o_cap = {"pool_pow2_minus1": 63, "pool_pow2": 64,
+             "pool_pow2_plus1": 65}.get(case, 24)
+    if case == "r_pool":
+        r = n_probe * cap + o_cap
+    call = _pq_inputs(rng, n_c, cap, b, n_probe, o_cap, values=values)
+    codes, mids, coarse, osc, oids, probe, lut = call
+    width = None
+    if case == "width":
+        width = np.asarray([0, 1, n_probe, 2, 3], np.int32)
+    got_v, got_i = ref.pq_screen_select_ref(
+        *(_t(x) for x in call), r,
+        probe_width=None if width is None else _t(width))
+    for j in range(b):
+        w = n_probe if width is None else width[j]
+        want_v, want_i = jref.pq_screen_select_ref(
+            codes, mids, coarse[j:j + 1, :w], osc[j:j + 1], oids,
+            probe[j:j + 1, :w], lut[j:j + 1], r)
+        np.testing.assert_array_equal(got_i[j].numpy(), np.asarray(want_i)[0])
+        np.testing.assert_allclose(got_v[j].numpy(), np.asarray(want_v)[0],
+                                   **TOL)
+    if case == "r_pool":  # every live slot picked, then the dead ones
+        n_live = (got_i >= 0).sum(1)
+        assert torch.isneginf(got_v[torch.arange(r)[None] >= n_live[:, None]]
+                              ).all()
+
+
+@pytest.mark.parametrize("b,n_probe,cap", [(1, 1, 8), (4, 8, 544),
+                                           (256, 8, 544), (3, 2, 600)])
+def test_pq_screen_select_workspace_holds_one_key_per_member_slot(
+        b, n_probe, cap):
+    """Every split of a stage into parts (1 up to one per PQ_ROWS members)
+    has the score kernel's threads write each member slot of the stage
+    once, at key (query * n_probe + stage) * cap + row: exactly the
+    workspace's words, the keys after the 2 b r words of the values and
+    ids."""
+    rows = decode_fused.PQ_ROWS
+    words = set(range(decode_fused.screen_workspace_ints(b, n_probe, cap)))
+    for parts in range(1, -(-cap // rows) + 1):
+        seen = []
+        for part in range(parts):
+            for tid in range(rows):
+                seen += range(part * rows + tid, cap, parts * rows)
+        assert sorted(seen) == list(range(cap))
+    keys = {2 * ((i * n_probe + j) * cap + row) + w for i in range(b)
+            for j in range(n_probe) for row in range(cap) for w in (0, 1)}
+    assert keys == words
+
+
+TAIL = decode_fused.TAIL_ROWS
+
+
+def _tail_inputs(rng, t, m_cap, k, d=24, n=80, values="ints"):
+    """Tail inputs: rows, tail positions, S values (a quarter -inf), S ids,
+    heights and h; small integers (exact sums, ties among them) or random
+    fp32."""
+    if values == "ints":
+        emb = rng.integers(-2, 3, (n, d)).astype(np.float32)
+        h = rng.integers(-2, 3, (t, d)).astype(np.float32)
+        pert_s = rng.integers(-10, 10, (t, k)).astype(np.float32)
+        heights = 0.5 * rng.integers(0, 4, (t, m_cap)).astype(np.float32)
+    else:
+        emb = rng.standard_normal((n, d), dtype=np.float32)
+        h = rng.standard_normal((t, d), dtype=np.float32)
+        pert_s = 4 * rng.standard_normal((t, k), dtype=np.float32)
+        heights = 8 * rng.random((t, m_cap), dtype=np.float32)
+    pert_s[:, ::4] = -np.inf
+    pos = rng.integers(0, n, (t, m_cap)).astype(np.int32)
+    s_ids = rng.integers(0, n, (t, k)).astype(np.int32)
+    m_used = np.full(t, m_cap, np.int32)
+    return emb, pos, m_used, pert_s, s_ids, heights, h
+
+
+def _tail_matches_jax(args):
+    """The plain version against the JAX oracle, index exact, value within
+    TOL; returns the plain version's (index, value)."""
+    want_i, want_v = jref.tail_gather_argmax_ref(*(jnp.asarray(a)
+                                                   for a in args))
+    got_i, got_v = ref.tail_gather_argmax_ref(*(_t(a) for a in args))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), **TOL)
+    return got_i, got_v
+
+
+@pytest.mark.parametrize("k", [1, 20])
+@pytest.mark.parametrize("values", ["ints", "random"])
+def test_tail_gather_argmax_ref_at_chunk_edges_matches_jax(values, k):
+    """Tail lengths around the score kernel's chunk of slots (0, 1, chunk -
+    1, chunk, chunk + 1, m_cap), m_cap not a multiple of the chunk, k = 1
+    and 20: the plain version equals the JAX oracle."""
+    m_cap = 3 * TAIL + 5
+    used = [0, 1, TAIL - 1, TAIL, TAIL + 1, m_cap]
+    rng = np.random.default_rng(10 + k + (values == "ints"))
+    args = list(_tail_inputs(rng, len(used), m_cap, k, values=values))
+    args[2] = np.asarray(used, np.int32)
+    got_i, _ = _tail_matches_jax(args)
+    assert int(got_i[0]) in set(args[4][0].tolist())  # no live tail: an S id
+
+
+def test_tail_gather_argmax_ref_ties_and_dead_tokens_match_jax():
+    """An exact tie between tail slots in two chunks (the lower slot wins),
+    an S value -0.0 against tail values +0.0 (equal: the S slot, the lower
+    index, wins and keeps its -0.0), and a token whose every value is -inf
+    (index 0, s_ids[0], value -inf), also with k = 1."""
+    m_cap, k = 3 * TAIL + 2, 6
+    rng = np.random.default_rng(30)
+    emb, pos, m_used, pert_s, s_ids, heights, h = _tail_inputs(
+        rng, 3, m_cap, k)
+    pert_s[:] = -np.inf
+    heights[:] = 0.0
+    h[:2] = 0.0
+    heights[0, 1] = heights[0, TAIL + 3] = 2.5  # token 0: a tie
+    pert_s[1, 2] = -0.0  # token 1: -0.0 against the tail's +0.0
+    m_used[2] = 0  # token 2: every value -inf
+    args = (emb, pos, m_used, pert_s, s_ids, heights, h)
+    got_i, got_v = _tail_matches_jax(args)
+    assert got_i[0] == pos[0, 1] and got_v[0] == 2.5
+    assert got_i[1] == s_ids[1, 2] and torch.signbit(got_v[1])
+    assert got_i[2] == s_ids[2, 0] and torch.isneginf(got_v[2])
+    one = (emb, pos, m_used, pert_s[:, :1], s_ids[:, :1], heights, h)
+    got_i, got_v = _tail_matches_jax(one)
+    assert got_i[2] == s_ids[2, 0] and torch.isneginf(got_v[2])
+
+
+@pytest.mark.parametrize("t,m_cap", [(1, 1), (4, 728), (600, 728),
+                                     (300, 70), (2, 0), (4, TAIL - 1),
+                                     (4, TAIL), (4, TAIL + 1), (3, 2 * TAIL),
+                                     (3, 2 * TAIL + 1), (1, 1000), (5, 33),
+                                     (132, 728), (2000, 100), (7, 3 * TAIL)])
+def test_tail_gather_argmax_workspace_holds_one_pair_per_chunk(t, m_cap):
+    """For every grid the launcher may pick (1 up to one block per chunk of
+    TAIL_ROWS slots a token), the score blocks' warps visit each tail slot
+    of a token once, and block (token, c) writes its pair at words 2 (token
+    * g + c) and + 1: all inside the wrapper's workspace, which holds the
+    widest grid exactly, after the 2 t words of the index and value."""
+    rows = TAIL
+    chunks = max(1, -(-m_cap // rows))
+    ws = decode_fused.tail_workspace_ints(t, m_cap)
+    for g in range(1, chunks + 1):
+        seen = []
+        for c in range(g):
+            for warp in range(rows):
+                seen += range(c * rows + warp, m_cap, g * rows)
+        assert sorted(seen) == list(range(m_cap))
+        words = {2 * (i * g + c) + w for i in range(t) for c in range(g)
+                 for w in (0, 1)}
+        assert words <= set(range(ws))
+    assert ws == 2 * t * chunks and (4 * 2 * t) % 8 == 0
