@@ -23,10 +23,31 @@ IVF, IVF-PQ) reading the amortized loss beside the exact NLL, and profiles
 one training step with each index. The profiled serving and training runs
 give each kernel's device time per call on its path (``path_us``).
 
+Then the ``[paper]`` phase: the paper's own setting
+(``configs/paper_loglinear.py``) at ImageNet width (n 1,281,167, d 256, 64
+queries) and word-embedding width (n 2,000,126, d 300, 32 queries) over a
+seeded clustered table made on the card, queries θ = row / τ, an IVF index
+of √n clusters (4 Lloyd iterations, 16 probes). ``ivf_gather_score`` is
+held against its plain version at the path's shapes (16 and 64 probes);
+the path runs once with the launch counts at 0 (``topk_batch``,
+``sample_fixed_b``, ``sample_adaptive_b``, ``partition_estimate``,
+``expectation_estimate`` with f = φ, ``topk_adaptive`` widening 4 … 64 and
+``gumbel_max_dense``); the gates: no NaN, every certified top-k equal to
+the exact top-k up to ties at the k-th value, init == max equal to ``topk_batch``
+bit for bit, log Ẑ of Algorithm 3 within rtol 1e-5 of ``fused_estimator``
+on the same S ∪ T (and Algorithm 4's E[φ] within rtol 1e-4, atol 1e-5 of
+its expectation). Reported: recall@k, each sampler's ok rate and m
+against n/k, |log Ẑ − log Z|, the certified share and widths, and
+device-event ms a query of each stage. Last, at the LM head's geometry
+(32,000 rows of d 2048, k 576), the fused adaptive probe must equal the
+unfused bit for bit for IVF and IVF-PQ, and the stage kernels
+(``ivf_screen_select``, ``pq_screen_select``, ``rerank_select``) their
+plain versions at mixed per-row widths.
+
     python3 chip_smoke.py            # from the repository root
 
 Output, in order: the GPU line of nvidia-smi, build and check lines, the
-serve and train reports, one ``{"kernels": [...]}`` line, the card's name
+serve, train and ``[paper]`` reports, one ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failed
 phase exits non-zero before the last line. Without CUDA, or without the
 repository beside it, the script exits non-zero and prints no result.
@@ -1406,6 +1427,436 @@ def probe_diagnostics(torch, seed: int, cfg) -> dict:
     return out, path_us
 
 
+# ---------------------------------------------------------------- the paper
+# the paper's own setting (configs/paper_loglinear.py): a fixed clustered
+# feature table, a stream of θ = row / τ, the index and the estimators of
+# repro_torch.core. Query counts per configuration; cut from the paper's
+# query stream to what the script's time allows.
+PAPER_RUNS = (("IMAGENET", 64), ("WORD_EMBEDDINGS", 32))
+PAPER_CENTERS, PAPER_NOISE = 256, 0.5  # the clustered table's centres, noise
+PAPER_N_PROBE = 16  # build_ivf's fixed probe: sqrt(n) clusters, 4 Lloyd its
+PAPER_ADAPTIVE = (4, 64)  # topk_adaptive's n_probe_init, n_probe_max
+PAPER_M_CAP_X = 8  # Algorithm 1's buffer: this many times ceil(n / k)
+PAPER_ITERS = 5  # event-timed repeats of each stage
+# the fused adaptive probe at the LM head's geometry (tinyllama's vocab and
+# width, n_probe 8, k 576), where the screens' select holds the pool
+HEAD_ADAPTIVE = (2, 16)
+
+
+def paper_table(torch, gen, n: int, d: int):
+    """Unit-norm rows around ``PAPER_CENTERS`` Gaussian centres with noise
+    ``PAPER_NOISE`` (the reference benchmarks' clustered table), made on the
+    card from ``gen``."""
+    centers = torch.randn((PAPER_CENTERS, d), generator=gen, device="cuda")
+    assign = torch.randint(0, PAPER_CENTERS, (n,), generator=gen,
+                           device="cuda")
+    db = centers[assign]
+    db += PAPER_NOISE * torch.randn((n, d), generator=gen, device="cuda")
+    return db / torch.linalg.norm(db, dim=1, keepdim=True)
+
+
+def paper_queries(torch, gen, db, b: int, tau: float):
+    """θ drawn uniformly from the table's rows, scaled by 1/τ (paper
+    §4.1.2)."""
+    rows = torch.randint(0, db.shape[0], (b,), generator=gen, device="cuda")
+    return db[rows] / tau
+
+
+def event_ms(torch, fn, iters: int = PAPER_ITERS) -> float:
+    """Median device-event time of ``fn()`` between two events on the
+    stream, synchronized before each call: the call's kernels and any gap
+    the host leaves between them (these stages sync the host)."""
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def topk_ties_ok(torch, ids, exact, y, rows) -> bool:
+    """On each row of ``rows``, ``ids`` is the exact top-k up to ties at the
+    k-th value: every id in one set and not the other scores within 1e-5
+    times the row's largest score of the exact k-th value."""
+    for i in rows.tolist():
+        got = set(ids[i].tolist())
+        want = set(exact.ids[i].tolist())
+        diff = torch.tensor(sorted(got ^ want), dtype=torch.long,
+                            device="cuda")
+        if not diff.numel():
+            continue
+        if (diff < 0).any():
+            return False
+        kth = exact.values[i, -1]
+        tol = 1e-5 * y[i].abs().max()
+        if ((y[i, diff] - kth).abs() > tol).any():
+            return False
+    return True
+
+
+def recall(ids, exact) -> list[float]:
+    k = ids.shape[1]
+    return [len(set(a.tolist()) & set(b.tolist())) / k
+            for a, b in zip(ids, exact.ids)]
+
+
+def paper_one(torch, seed: int, name: str, b: int, timer: Timer,
+              records: dict, smi: str) -> dict:
+    """One configuration of the paper's setting at full width: table,
+    queries and index; ``ivf_gather_score`` against its plain version at
+    the path's shapes; the main path once with the launch counts set to 0
+    (the probe, both samplers, Algorithms 3 and 4, the adaptive probe and
+    the dense oracle, through the ``repro_torch.core`` API); the gates;
+    then the report and the event-timed stages."""
+    from repro_torch.configs import paper_loglinear
+    from repro_torch.core import (default_kl, expectation_estimate,
+                                  gumbel_max_dense, mips, partition_estimate,
+                                  sample_adaptive_b, sample_fixed_b)
+    from repro_torch.kernels import ivf_gather_score as kigs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import slot_keys
+
+    cfg = getattr(paper_loglinear, name)
+    n, d = cfg.n, cfg.d
+    tag = "paper_" if name == "IMAGENET" else "words_"
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 7)
+    t0 = time.perf_counter()
+    db = paper_table(torch, gen, n, d)
+    theta = paper_queries(torch, gen, db, b, cfg.temperature)
+    index = mips.build_index(mips.IVFConfig(
+        n_clusters=max(16, int(math.sqrt(n))), kmeans_iters=4,
+        n_probe=PAPER_N_PROBE), db)
+    st = index.state
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    k = l = default_kl(n, cfg.delta)
+    m_cap = PAPER_M_CAP_X * -(-n // k)
+    init, top = PAPER_ADAPTIVE
+    geo = {"n": n, "d": d, "queries": b, "k": k, "l": l, "m_cap": m_cap,
+           "n_clusters": st.n_clusters, "cap": st.cap,
+           "o_cap": st.overflow_ids.shape[0],
+           "spill": int(st.spill_count), "index_gb":
+           index.memory_bytes() / 1e9, "build_s": build_s, "card": smi}
+    print(f"[paper] {cfg.name} " + json.dumps(geo), flush=True)
+
+    # ---- ivf_gather_score at the path's shapes against its plain version:
+    # topk_batch's 16 probes (timed), the adaptive pool's 64 (in chunks)
+    qf = theta.float()
+    c_scores = qf @ st.centroids.T
+    rec = records["ivf_gather_score"]
+    for n_probe in (PAPER_N_PROBE, top):
+        _, probe = mips.top_k(c_scores, n_probe)
+        s, i = kigs.ivf_gather_score(st.member_vecs, st.member_ids, probe, qf)
+        err = 0.0
+        for c0 in range(0, b, 8):
+            ws, wi = ref.ivf_gather_score_ref(st.member_vecs, st.member_ids,
+                                              probe[c0:c0 + 8], qf[c0:c0 + 8])
+            check(torch.equal(i[c0:c0 + 8], wi),
+                  f"[paper] ivf_gather_score ids disagree, {n_probe} probes")
+            check(values_close(torch, s[c0:c0 + 8], ws, scaled=True),
+                  f"[paper] ivf_gather_score scores disagree, {n_probe} "
+                  f"probes: {max_err(s[c0:c0 + 8], ws)}")
+            err = max(err, max_err(s[c0:c0 + 8], ws))
+        del s, i, ws, wi
+        rec[f"{tag}max_abs_err_{n_probe}probes"] = err
+        if n_probe == PAPER_N_PROBE:
+            g = Geometry(0, 0, 0, 0, 0, n, d, st.n_clusters, st.cap,
+                         st.overflow_ids.shape[0], n_probe, k, m_cap, 0, 0, 0)
+            gather_record(torch, g, timer, rec, tag, st.member_vecs,
+                          st.member_ids, probe, qf)
+    torch.cuda.empty_cache()
+
+    # ---- the main path, once, counted
+    keys = [slot_keys(seed, torch.arange(b, device="cuda"),
+                      torch.full((b,), p, device="cuda")) for p in range(4)]
+
+    def score_fn(ids):
+        return torch.bmm(db[ids], theta[:, :, None])[..., 0]
+
+    def f_fn(ids):
+        return db[ids]
+
+    def run():
+        topk = index.topk_batch(theta, k)
+        return (topk,
+                sample_fixed_b(keys[0], topk, n, score_fn, l=l),
+                sample_adaptive_b(keys[1], topk, n, score_fn, m_cap=m_cap),
+                partition_estimate(keys[2], topk, n, score_fn, l=l),
+                expectation_estimate(keys[2], topk, n, score_fn, f_fn, l=l),
+                index.topk_adaptive(theta, k, c=0.0, n_probe_init=init,
+                                    n_probe_max=top),
+                gumbel_max_dense(keys[3], theta @ db.T, return_max=True))
+
+    ops.reset_launch_counts()
+    topk, fixed, adap, pe, ee, atk, (dense_i, dense_v) = run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"[paper] {cfg.name} launches {json.dumps(counts)}", flush=True)
+
+    # ---- the references: exact top-k and log Z by dense scoring
+    y = theta @ db.T  # (b, n)
+    exact = mips.build_index(mips.ExactConfig(), db).topk_batch(theta, k)
+    log_z = torch.logsumexp(y, dim=1)
+
+    # ---- gates
+    outs = [topk.values, fixed.max_val, fixed.bound, adap.max_val,
+            adap.bound, pe.log_z, pe.tail_values, ee.value, ee.log_z,
+            atk.values, dense_v]
+    check(not any(torch.isnan(x).any().item() for x in outs),
+          f"[paper] {cfg.name}: a NaN in the outputs")
+    cert = atk.certified.nonzero()[:, 0]
+    check(topk_ties_ok(torch, atk.ids, exact, y, cert),
+          f"[paper] {cfg.name}: a certified top-k differs from the exact "
+          "top-k beyond ties at the k-th value")
+    degen = index.topk_adaptive(theta, k, n_probe_init=PAPER_N_PROBE,
+                                n_probe_max=PAPER_N_PROBE)
+    check(torch.equal(degen.ids, topk.ids)
+          and torch.equal(degen.values, topk.values)
+          and bool((degen.width == PAPER_N_PROBE).all()),
+          f"[paper] {cfg.name}: init == max differs from topk_batch")
+    ids_all = torch.cat([topk.ids.long(), pe.tail_ids], dim=1)
+    log_w = torch.cat([torch.zeros_like(topk.values),
+                       torch.full_like(pe.tail_values,
+                                       math.log((n - k) / l))], dim=1)
+    kz, kexp = ops.fused_estimator(db, ids_all, theta, log_w)
+    pz, pexp = ref.fused_estimator_ref(db, ids_all, theta, log_w)
+    check(torch.allclose(pe.log_z, kz, rtol=1e-5, atol=0.0),
+          f"[paper] {cfg.name}: Algorithm 3 != fused_estimator: "
+          f"{max_err(pe.log_z, kz)}")
+    check(torch.allclose(ee.value, kexp, rtol=1e-4, atol=1e-5),
+          f"[paper] {cfg.name}: Algorithm 4 (f = φ) != fused_estimator: "
+          f"{max_err(ee.value, kexp)}")
+    check(close(torch, kz, pz) and close(torch, kexp, pexp),
+          f"[paper] {cfg.name}: fused_estimator != its plain version")
+    frec = records["fused_estimator"]
+    frec.update({f"{tag}max_abs_err": max(max_err(kz, pz),
+                                          max_err(kexp, pexp)),
+                 f"{tag}ms": timer(lambda: ops.fused_estimator(
+                     db, ids_all, theta, log_w), f"fused_estimator {tag}"),
+                 f"{tag}plain_ms": timer(lambda: ref.fused_estimator_ref(
+                     db, ids_all, theta, log_w),
+                     f"fused_estimator {tag}plain")})
+
+    # ---- report
+    # the gap c the IVF top-k really has: the best score outside it minus
+    # its k-th value (<= 0: an exact top-k, Algorithm 2's c = 0 holds)
+    outside = y.scatter(1, topk.ids.long().clamp(min=0),
+                        float("-inf")).amax(dim=1)
+    gap = outside - topk.values[:, -1]
+    widths = {int(w): int(c) for w, c in
+              zip(*torch.unique(atk.width, return_counts=True))}
+    dz = (pe.log_z - log_z).abs()
+    rec_batch = recall(topk.ids, exact)
+    report = {
+        "card": smi,
+        "recall_topk_batch": statistics.mean(rec_batch),
+        "recall_topk_batch_min": min(rec_batch),
+        "recall_topk_adaptive": statistics.mean(recall(atk.ids, exact)),
+        "exact_topk_share": (gap <= 0).float().mean().item(),
+        "gap_c_median": gap.median().item(), "gap_c_max": gap.max().item(),
+        "ok_fixed": fixed.ok.float().mean().item(),
+        # Algorithm 2's certificate at the top-k's true gap c
+        "ok_fixed_true_gap": ((fixed.max_val >= fixed.bound
+                               + gap.clamp(min=0)) & ~fixed.overflow
+                              ).float().mean().item(),
+        "ok_adaptive": adap.ok.float().mean().item(),
+        "overflow_adaptive": adap.overflow.float().mean().item(),
+        "m_fixed_mean": fixed.m.double().mean().item(),
+        "m_adaptive_mean": adap.m.double().mean().item(),
+        "n_over_k": n / k,
+        "logz_abs_err_median": dz.median().item(),
+        "logz_abs_err_max": dz.max().item(),
+        "certified_share": atk.certified.float().mean().item(),
+        "width_hist": widths,
+        "dense_in_topk_share": torch.isin(
+            dense_i, topk.ids.long()).float().mean().item()}
+    print(f"[paper] {cfg.name} report " + json.dumps(report), flush=True)
+
+    stages = {
+        "probe_topk_batch": lambda: index.topk_batch(theta, k),
+        "probe_topk_adaptive": lambda: index.topk_adaptive(
+            theta, k, c=0.0, n_probe_init=init, n_probe_max=top),
+        "sample_fixed_b": lambda: sample_fixed_b(keys[0], topk, n, score_fn,
+                                                 l=l),
+        "sample_adaptive_b": lambda: sample_adaptive_b(
+            keys[1], topk, n, score_fn, m_cap=m_cap),
+        "partition_estimate": lambda: partition_estimate(
+            keys[2], topk, n, score_fn, l=l),
+        "expectation_estimate": lambda: expectation_estimate(
+            keys[2], topk, n, score_fn, f_fn, l=l),
+        "gumbel_max_dense": lambda: gumbel_max_dense(keys[3], theta @ db.T),
+    }
+    ms = {s: event_ms(torch, fn) for s, fn in stages.items()}
+    per_query = {s: v / b for s, v in ms.items()}
+    print(f"[paper] {cfg.name} event ms per query " + json.dumps(
+        {"card": smi, **per_query}), flush=True)
+    prof = None
+    if name == "IMAGENET":
+        prof = profile(torch, f"paper {cfg.name} main path",
+                       lambda: (run(), b)[1])
+    del db, theta, index, st, y, exact, topk, fixed, adap, pe, ee, atk
+    torch.cuda.empty_cache()
+    return {"geometry": geo, "launches": counts, "report": report,
+            "ms_per_query": per_query,
+            "profile": None if prof is None else {
+                k2: prof[k2] for k2 in ("wall_ms", "device_ms",
+                                        "device_idle_share", "top")}}
+
+
+def head_adaptive(torch, seed: int, timer: Timer, records: dict,
+                  smi: str) -> dict:
+    """The fused adaptive probe at the LM head's geometry (tinyllama-1.1b's
+    32,000 rows of d 2048, IVF: 178 clusters × 544 and 2,000 overflow rows;
+    n_probe 8, k 576), where the screens' select holds the pool: the fused
+    and unfused ``topk_adaptive`` must agree bit for bit, for IVF and
+    IVF-PQ, and each stage kernel equals its plain version at mixed
+    per-row widths (0 to past n_probe_max). Launch counts over the four
+    adaptive runs."""
+    from repro_torch.core import mips
+    from repro_torch.core.mips.adaptive import stage_widths
+    from repro_torch.core.mips.ivf import IVFConfig
+    from repro_torch.core.mips.pq import PQConfig
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import ivf_gather_score as kigs
+    from repro_torch.kernels import ops, ref
+
+    n, d, k, b = 32000, 2048, 576, 64
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+    db = paper_table(torch, gen, n, d)
+    theta = paper_queries(torch, gen, db, b, 0.05)
+    init, top = HEAD_ADAPTIVE
+    ivf = mips.build_index(IVFConfig(n_probe=8), db)
+    pq = mips.build_index(PQConfig(n_probe=8, rerank=2 * k), db)
+    out = {"card": smi}
+    indexes = {"ivf": ivf, "ivfpq": pq}
+    # rows started at stages 0 .. 3 in turn (the router's interface): each
+    # pass then probes mixed widths, 0 for the rows already done
+    n_stages = len(stage_widths(init, top))
+    routes = {"natural": None,
+              "routed": torch.arange(b, device="cuda") % n_stages}
+    ops.reset_launch_counts()
+    runs = {(kind, route, fused): index.topk_adaptive(
+        theta, k, c=0.0, n_probe_init=init, n_probe_max=top, fused=fused,
+        init_stage=st0)
+        for kind, index in indexes.items() for route, st0 in routes.items()
+        for fused in (False, True)}
+    torch.cuda.synchronize()
+    out["launches"] = ops.launch_counts()
+    for kind, index in indexes.items():
+        out[kind] = {}
+        for route in routes:
+            un, fu = runs[kind, route, False], runs[kind, route, True]
+            check(all(torch.equal(getattr(un, f), getattr(fu, f))
+                      for f in un._fields),
+                  f"[paper] head {kind} {route}: fused adaptive probe != "
+                  "unfused")
+            out[kind][route] = {
+                "width_hist": {int(w): int(n_) for w, n_ in zip(
+                    *torch.unique(un.width, return_counts=True))},
+                "certified_share": un.certified.float().mean().item()}
+        for fused in (False, True):
+            out[kind]["ms_fused" if fused else "ms_unfused"] = event_ms(
+                torch, lambda: index.topk_adaptive(
+                    theta, k, c=0.0, n_probe_init=init, n_probe_max=top,
+                    fused=fused))
+
+    # each stage kernel against its plain version at mixed widths
+    width = (torch.arange(b, device="cuda") % (top + 3)).int()
+    st = ivf.state
+    qf = theta.float()
+    _, probe = mips.top_k(qf @ st.centroids.T, top)
+    o_sc = (st.overflow_vecs.float() @ qf.T).T
+    iargs = (st.member_vecs, st.member_ids, o_sc, st.overflow_ids, probe, qf)
+    v, i = kdf.ivf_screen_select(*iargs, k=k, probe_width=width)
+    wv, wi = ref.ivf_screen_select_ref(*iargs, k, probe_width=width)
+    # random fp32 rows: the values within rounding of the plain version's
+    # (whose near-equal scores may order otherwise), and the screen bit for
+    # bit the ivf_gather_score kernel's pool masked to the widths + top-k
+    check(values_close(torch, v, wv, scaled=True),
+          f"[paper] ivf_screen_select at mixed widths: {max_err(v, wv)}")
+    s2, i2 = kigs.ivf_gather_score(st.member_vecs, st.member_ids, probe, qf)
+    live = (torch.arange(top, device="cuda")[None, :, None]
+            < width[:, None, None])
+    pool_s = torch.cat([torch.where(live, s2, float("-inf")).reshape(b, -1),
+                        o_sc], dim=1)
+    pool_i = torch.cat([torch.where(live, i2, -1).reshape(b, -1),
+                        st.overflow_ids[None].expand(b, -1)], dim=1)
+    v3, i3 = ref.topk_select_ref(
+        torch.where(pool_i >= 0, pool_s, float("-inf")), pool_i, k)
+    check(torch.equal(v3, v) and torch.equal(i3, i),
+          "[paper] ivf_screen_select at mixed widths != ivf_gather_score "
+          "+ top-k")
+    del s2, i2, pool_s, pool_i
+    records["ivf_screen_select"].update(
+        adaptive_max_abs_err=max_err(v, wv),
+        adaptive_ms=timer(lambda: kdf.ivf_screen_select(
+            *iargs, k=k, probe_width=width), "ivf_screen_select adaptive"),
+        adaptive_plain_ms=timer(lambda: ref.ivf_screen_select_ref(
+            *iargs, k, probe_width=width),
+            "ivf_screen_select adaptive plain"))
+    _, probe, coarse, lut, o_sc = pq._screen_inputs(qf, top)
+    pargs = (pq.state.member_codes, pq.state.member_ids, coarse, o_sc,
+             pq.state.overflow_ids, probe, lut)
+    r = 2 * k
+    lv, cand = kdf.pq_screen_select(*pargs, r=r, probe_width=width)
+    wlv, wcand = ref.pq_screen_select_ref(*pargs, r, probe_width=width)
+    check(torch.equal(cand, wcand) and values_close(torch, lv, wlv),
+          f"[paper] pq_screen_select at mixed widths: {max_err(lv, wlv)}")
+    rv, ri = kdf.rerank_select(db, cand, lv, qf, k=k)
+    wrv, wri = ref.rerank_select_ref(db, cand, lv, qf, k)
+    check(values_close(torch, rv, wrv, scaled=True),
+          f"[paper] rerank_select after mixed widths: {max_err(rv, wrv)}")
+    records["pq_screen_select"].update(
+        adaptive_max_abs_err=max_err(lv, wlv),
+        adaptive_ms=timer(lambda: kdf.pq_screen_select(
+            *pargs, r=r, probe_width=width), "pq_screen_select adaptive"),
+        adaptive_plain_ms=timer(lambda: ref.pq_screen_select_ref(
+            *pargs, r, probe_width=width), "pq_screen_select adaptive plain"))
+    records["rerank_select"].update(
+        adaptive_max_abs_err=max_err(rv, wrv),
+        adaptive_ms=timer(lambda: kdf.rerank_select(db, cand, lv, qf, k=k),
+                          "rerank_select adaptive"),
+        adaptive_plain_ms=timer(lambda: ref.rerank_select_ref(
+            db, cand, lv, qf, k), "rerank_select adaptive plain"))
+    print("[paper] head geometry adaptive probe " + json.dumps(out),
+          flush=True)
+    del db, theta, ivf, pq, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def paper_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
+    """The ``[paper]`` phase: each configuration of ``PAPER_RUNS``, then the
+    fused adaptive probe at the LM head's geometry. Adds each kernel's
+    launches on these paths (``launches_paper``: the paper's main path at
+    every configuration; ``launches_adaptive``: the four adaptive probes at
+    the head's geometry) and the tagged checks and times to ``records``."""
+    by_name = {r["name"]: r for r in records}
+    timer = Timer(torch, ITERS)
+    out = {}
+    for name, b in PAPER_RUNS:
+        out[name] = paper_one(torch, seed, name, b, timer, by_name, smi)
+    out["head_adaptive"] = head_adaptive(torch, seed, timer, by_name, smi)
+    for rec in records:
+        rec["launches_paper"] = sum(out[name]["launches"].get(rec["name"], 0)
+                                    for name, _ in PAPER_RUNS)
+        rec["launches_adaptive"] = out["head_adaptive"]["launches"].get(
+            rec["name"], 0)
+    print(f"[timer] [paper] calls whose host issue outlasted the hold: "
+          f"{json.dumps(timer.uncovered)}", flush=True)
+    del timer
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1465,6 +1916,10 @@ def main() -> int:
             train_counts.setdefault(name, run_counts[name])
     _, train_us = probe_diagnostics(torch, args.seed, cfg)
     print(f"[train] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    paper_phase(torch, args.seed, records, smi)
+    print(f"[paper] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     # launches: each path's count, read just after its own run — serving
     # (each kernel's count on the first serving run that launches it, the

@@ -33,6 +33,7 @@ from repro_torch.core.gumbel import (
     certificate,
     cutoff,
     default_m_cap,
+    gumbel_max_dense,
     plan_tail,
     sample_fixed_b,
 )
@@ -178,9 +179,7 @@ def dense_gumbel_max(emb: torch.Tensor, h: torch.Tensor, n_valid=None, *,
         ok = torch.arange(emb.shape[0], device=emb.device) < n_valid
         scores = torch.where(ok[None, :], scores,
                              torch.full_like(scores, -math.inf))
-    pert = scores + rng.gumbel(keys, scores.shape[1], rng.STREAM_DENSE)
-    mx, idx = torch.max(pert, dim=-1)
-    return idx, mx
+    return gumbel_max_dense(keys, scores, return_max=True)
 
 
 # --------------------------------------------------------------------------

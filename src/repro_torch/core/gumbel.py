@@ -1,6 +1,10 @@
-"""Lazy-Gumbel sampling, Algorithm 2 with the Poissonized tail
-(counterpart of ``repro/core/gumbel.py``; the theory is documented there and
-in DESIGN.md §3).
+"""Lazy-Gumbel sampling (counterpart of ``repro/core/gumbel.py``; the
+theory is documented there and in DESIGN.md §3): Algorithm 1
+(:func:`sample_adaptive_b`, the adaptive cutoff), Algorithm 2
+(:func:`sample_fixed_b`, the fixed cutoff), both with the Poissonized tail,
+the brute-force oracle :func:`gumbel_max_dense`, and the certificates: the
+sampler's (:func:`certificate`) and the adaptive probe's stopping rule
+(:func:`gap_certificate`).
 
 Where the reference vmaps a per-token function, these functions take a
 leading token dimension t. The random numbers come from the
@@ -25,8 +29,11 @@ __all__ = [
     "default_kl",
     "plan_tail",
     "certificate",
+    "gap_certificate",
     "cutoff",
+    "sample_adaptive_b",
     "sample_fixed_b",
+    "gumbel_max_dense",
     "default_m_cap",
 ]
 
@@ -115,6 +122,35 @@ def certificate(values: torch.Tensor, b: torch.Tensor, c: float,
     return (max_val >= bound) & ~overflow, bound
 
 
+def gap_certificate(s_min: torch.Tensor, upper: torch.Tensor,
+                    c: float = 0.0) -> torch.Tensor:
+    """Adaptive-probe stopping rule, elementwise: the candidate pool is a
+    certified c-approximate top-k (Def 3.1) iff every unprobed score is
+    provably <= ``s_min + c``, where ``s_min`` is the k-th best candidate
+    found and ``upper`` a sound bound on anything not yet probed
+    (:func:`repro_torch.core.mips.adaptive.unprobed_bound_table`). An
+    underfilled pool has ``s_min = -inf`` and passes only once nothing is
+    left unprobed (``upper = -inf``)."""
+    return upper <= s_min + c
+
+
+def gumbel_max_dense(keys: torch.Tensor | None, y: torch.Tensor, *,
+                     draws: torch.Tensor | None = None,
+                     return_max: bool = False):
+    """Brute-force Gumbel-max oracle per token: ``argmax_i y_i + G_i`` over
+    the last axis of ``y (t, n)`` (linear time) -> (t,) int64 indices, and
+    with ``return_max`` the perturbed maxima (t,) f32 as well. The noise
+    comes from ``keys`` ((t, 3) int64 rows, stream ``STREAM_DENSE``) or is
+    injected whole as ``draws`` ((t, n) f32). The first maximal index
+    wins."""
+    if draws is None:
+        if keys is None:
+            raise ValueError("gumbel_max_dense needs keys or draws")
+        draws = rng.gumbel(keys, y.shape[-1], rng.STREAM_DENSE)
+    mx, idx = torch.max(y.float() + draws, dim=-1)
+    return (idx, mx) if return_max else idx
+
+
 def _finish(topk: TopK, score_fn: Callable[[torch.Tensor], torch.Tensor],
             b: torch.Tensor, m_cap: int, c: float, pert_s: torch.Tensor,
             plan: TailPlan) -> SampleResult:
@@ -138,6 +174,41 @@ def cutoff(n, k_valid: torch.Tensor, l: int) -> torch.Tensor:
     return torch.log((torch.tensor(float(n), dtype=torch.float32,
                                    device=k_valid.device)
                       - k_valid.float()) / l)
+
+
+def sample_adaptive_b(keys, topk: TopK, n, score_fn, *, m_cap: int,
+                      c: float = 0.0, draws: rng.Draws | None = None
+                      ) -> SampleResult:
+    """Algorithm 1 (adaptive cutoff) per token. Exact whenever ``ok`` (no
+    overflow).
+
+    The cutoff is ``B = M - S_min - c`` with ``M`` the largest perturbed
+    value of S, so the tail atom rate ``λ = (n - k) e^{-B}`` is per token.
+    ``E[m] <= n e^c / k`` (Thm 3.2) but its tail is heavy: choose ``m_cap``
+    a small multiple of ``n / k``; overflow probability decays like
+    ``(n e^c / k) / m_cap``, and a count past ``m_cap`` sets ``overflow``
+    and voids ``ok``. ``score_fn`` maps (t, m) ids to their (t, m)
+    unnormalized log-probs. ``draws`` injects the raw random numbers (its
+    ``m`` must then be the Poisson count at this λ)."""
+    if keys is None and draws is None:
+        raise ValueError("sample_adaptive_b needs keys or draws")
+    k = topk.ids.shape[1]
+    kv = _n_excluded(topk.ids, None)
+    vals = topk.values.float()
+    g_s = rng.gumbel(keys, k, rng.STREAM_GUMBEL_S) if draws is None \
+        else draws.g_s
+    pert_s = vals + g_s
+    b = pert_s.amax(dim=1) - vals.amin(dim=1) - c  # the paper's B
+    lam = (float(n) - k) * torch.exp(-b)  # per-token tail atom rate
+    if draws is None:
+        hi = torch.clamp(n - kv, min=1)
+        draws = rng.Draws(
+            g_s, rng.poisson_count(keys, lam, m_cap, rng.STREAM_POISSON),
+            rng.uniform_int(keys, m_cap, hi, rng.STREAM_COMPLEMENT),
+            rng.exponential(keys, m_cap, rng.STREAM_HEIGHTS).float())
+    plan = plan_tail(None, topk.ids, n, b, lam, m_cap, k_valid=kv,
+                     draws=draws)
+    return _finish(topk, score_fn, b, m_cap, c, pert_s, plan)
 
 
 def sample_fixed_b(keys, topk: TopK, n, score_fn, *, l: int,

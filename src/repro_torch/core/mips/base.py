@@ -6,6 +6,7 @@ device tensors. The config type selects the backend::
 
     index = build_index(IVFConfig(n_probe=8), db)
     topk  = index.topk_batch(q, k)   # TopK[(b, k)]
+    topk  = index.topk(q[0], k)      # one query: TopK[(k,)]
     index = index.refresh(new_db)    # warm-started, same shapes
     index.memory_bytes()
 """
@@ -19,6 +20,7 @@ from repro_torch.core.gumbel import TopK
 
 __all__ = [
     "Index",
+    "single_query",
     "backend_cls",
     "build_index",
     "index_spill",
@@ -57,6 +59,10 @@ class Index(Protocol):
     def refresh(self, db: torch.Tensor) -> "Index":
         """Rebuild over a drifted ``db`` of the SAME shape, warm-starting
         from the current state; the new state has the same shapes."""
+        ...
+
+    def topk(self, q: torch.Tensor, k: int) -> TopK:
+        """(d,) query -> TopK[(k,)]."""
         ...
 
     def topk_batch(self, q: torch.Tensor, k: int) -> TopK:
@@ -104,6 +110,12 @@ def index_spill_parts(index: Any) -> tuple[int, int]:
     short = getattr(st, "rerank_spill", None)
     return (0 if dropped is None else int(dropped),
             0 if short is None else int(short))
+
+
+def single_query(index: Any, q: torch.Tensor, k: int, **kw) -> TopK:
+    """``index.topk_batch`` for one (d,) query -> TopK[(k,)]."""
+    res = index.topk_batch(q[None], k, **kw)
+    return TopK(res.ids[0], res.values[0])
 
 
 def state_bytes(tree: Any) -> int:

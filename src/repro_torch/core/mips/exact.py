@@ -32,6 +32,10 @@ class ExactIndex:
     def refresh(self, db: torch.Tensor) -> "ExactIndex":
         return ExactIndex(self.config, db)
 
+    def topk(self, q: torch.Tensor, k: int) -> TopK:
+        """Exact top-k for a single query (d,)."""
+        return base.single_query(self, q, k)
+
     def topk_batch(self, q: torch.Tensor, k: int) -> TopK:
         """q: (b, d) -> exact TopK with leading batch dim."""
         vals, ids = base.top_k(q @ self.db.T, k)

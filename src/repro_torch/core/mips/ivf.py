@@ -13,7 +13,10 @@ The probe's gather+score runs on the ``ivf_gather_score`` kernel for CUDA
 queries (on the CPU, ``use_kernel`` takes the kernel's plain version), and :meth:`IVFIndex.screen_select` runs gather-score
 and top-k together on ``ivf_screen_select``; both kernels score members
 with one device function, so ``screen_select`` equals ``topk_batch`` with
-the kernel bit for bit (DESIGN.md §10).
+the kernel bit for bit (DESIGN.md §10). :meth:`IVFIndex.topk_adaptive`
+widens the probe per query until the gap certificate passes
+(:mod:`repro_torch.core.mips.adaptive`), unfused on the same pool as
+``topk_batch`` or fused on ``ivf_screen_select``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.gumbel import TopK
-from repro_torch.core.mips import base
+from repro_torch.core.mips import adaptive, base
 from repro_torch.core.quant.kmeans import assign_clusters, lloyd
 from repro_torch.kernels import ops, ref
 
@@ -54,6 +57,8 @@ class IVFConfig:
     refresh_iters: int = 2  # warm-started iterations per refresh
     seed: int = 0  # seeds the cold build's row sample (torch.Generator)
     n_probe: int = 8  # clusters probed per query
+    n_probe_init: int = 0  # adaptive probe: starting width (0 -> n_probe)
+    n_probe_max: int = 0  # adaptive probe: widening ceiling (0 -> n_probe)
     use_kernel: bool = False  # CPU: the probe through ivf_gather_score's
     #   plain version (CUDA queries always take the kernel)
 
@@ -111,6 +116,30 @@ def _pack_ids(assign: torch.Tensor, n_c: int, cap: int, o_cap: int):
     overflow_ids[ovf_pos] = order.to(torch.int32)
     spill = torch.clamp((~in_table).sum() - o_cap, min=0).to(torch.int32)
     return member_ids[:-1].reshape(n_c, cap), overflow_ids[:-1], spill
+
+
+def _schedule(cfg, n_c: int, n_probe_init: int | None,
+              n_probe_max: int | None) -> tuple[int, tuple[int, ...]]:
+    """(widest width, width schedule) of an adaptive query: the call's
+    widths, else the config's, else ``n_probe``, capped at the cluster
+    count."""
+    w_max = min(n_probe_max or cfg.n_probe_max or cfg.n_probe, n_c)
+    init = min(n_probe_init or cfg.n_probe_init or cfg.n_probe, w_max)
+    return w_max, adaptive.stage_widths(init, w_max)
+
+
+def _stage_pool(scores: torch.Tensor, ids: torch.Tensor, w: torch.Tensor,
+                cap: int, w_max: int, k: int):
+    """A ``w_max``-probe pool (members stage by stage, then the overflow)
+    at per-row widths ``w``: row i keeps the members of its first ``w[i]``
+    clusters and every overflow slot; masked and padded slots are dead
+    (-inf, id -1), and the pool is padded to k."""
+    slot = torch.arange(scores.shape[1], device=scores.device)
+    live = (ids >= 0) & ((slot >= w_max * cap)[None, :]
+                         | (slot[None, :] < (w * cap)[:, None]))
+    return _pad_pool(
+        torch.where(live, scores, torch.full_like(scores, -math.inf)),
+        torch.where(live, ids, torch.full_like(ids, -1)), k)
 
 
 def _gather_rows(db: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -216,13 +245,13 @@ class IVFIndex:
         the kernels, shared by both probe paths."""
         return (self.state.overflow_vecs.float() @ qf.T).T
 
-    def topk_batch(self, q: torch.Tensor, k: int, *,
-                   n_probe: int | None = None) -> TopK:
-        """Approximate top-k for a query batch (b, d) -> TopK[(b,k), (b,k)]:
-        the probed clusters' members ∪ overflow, dead slots at -inf."""
+    def _pool_scores(self, qf: torch.Tensor, probe: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Member + overflow candidate pool of the probe list: (scores, ids)
+        of shape (b, n_probe·cap + o_cap). Padded slots carry id -1 and
+        unmasked scores: each caller applies its own liveness mask, so the
+        fixed and adaptive probes share this pool exactly."""
         st = self.state
-        qf = q.float()
-        probe = self._probe(qf, n_probe)
         b = qf.shape[0]
         if self.config.use_kernel or qf.is_cuda:
             scores, ids = ops.ivf_gather_score(st.member_vecs, st.member_ids,
@@ -233,11 +262,68 @@ class IVFIndex:
             scores, ids = scores.reshape(b, -1), ids.reshape(b, -1)
         scores = torch.cat([scores, self._overflow_scores(qf)], dim=1)
         ids = torch.cat([ids, st.overflow_ids[None].expand(b, -1)], dim=1)
+        return scores, ids
+
+    def topk(self, q: torch.Tensor, k: int, *, n_probe: int | None = None
+             ) -> TopK:
+        """Approximate top-k for a single query (d,) -> TopK[(k,)]."""
+        return base.single_query(self, q, k, n_probe=n_probe)
+
+    def topk_batch(self, q: torch.Tensor, k: int, *,
+                   n_probe: int | None = None) -> TopK:
+        """Approximate top-k for a query batch (b, d) -> TopK[(b,k), (b,k)]:
+        the probed clusters' members ∪ overflow, dead slots at -inf."""
+        qf = q.float()
+        scores, ids = self._pool_scores(qf, self._probe(qf, n_probe))
         scores = torch.where(ids >= 0, scores,
                              torch.full_like(scores, -math.inf))
         scores, ids = _pad_pool(scores, ids, k)
         vals, pos = base.top_k(scores, k)
         return TopK(torch.gather(ids, 1, pos), vals)
+
+    def topk_adaptive(self, q: torch.Tensor, k: int, *, c: float = 0.0,
+                      n_probe_init: int | None = None,
+                      n_probe_max: int | None = None, fused: bool = False,
+                      init_stage: torch.Tensor | None = None
+                      ) -> adaptive.AdaptiveTopK:
+        """Certificate-gated staged probe: start at ``n_probe_init``
+        clusters and widen geometrically, per query, until the gap
+        certificate passes or the width reaches ``n_probe_max``
+        (:func:`repro_torch.core.mips.adaptive.staged_widen`).
+
+        Unfused, the pool of the ``n_probe_max`` best clusters is scored
+        once (``ivf_gather_score`` on CUDA queries) and each stage masks it
+        to the row's width: a masked slot is dead (-inf, id -1). Fused,
+        each stage is one ``ivf_screen_select`` at the rows' widths (0 for
+        rows already done). Both take the same scores and tie-break, so
+        they agree bit for bit; with init == max either equals
+        :meth:`topk_batch` at that width bit for bit. ``init_stage``
+        starts rows further along the schedule."""
+        st = self.state
+        w_max, widths = _schedule(self.config, st.n_clusters, n_probe_init,
+                                  n_probe_max)
+        qf = q.float()
+        c_scores = qf @ st.centroids.T  # (b, n_c)
+        bound_table = adaptive.unprobed_bound_table(c_scores, st.radii, qf)
+        _, probe = base.top_k(c_scores, w_max)
+        if fused:
+            o_scores = self._overflow_scores(qf)
+
+            def stage_fn(w):
+                return ops.ivf_screen_select(
+                    st.member_vecs, st.member_ids, o_scores, st.overflow_ids,
+                    probe, qf, k=k, probe_width=w)
+        else:
+            scores, ids = self._pool_scores(qf, probe)
+
+            def stage_fn(w):
+                sc, sids = _stage_pool(scores, ids, w, st.cap, w_max, k)
+                vals, pos = base.top_k(sc, k)
+                return vals, torch.gather(sids, 1, pos)
+
+        return adaptive.staged_widen(stage_fn, bound_table, widths, k, c=c,
+                                     no_spill=st.spill_count == 0,
+                                     init_stage=init_stage)
 
     def screen_select(self, q: torch.Tensor, k: int, *,
                       n_probe: int | None = None) -> TopK:

@@ -33,8 +33,12 @@ index over a frozen copy; the trainer's drift snapshot is that copy.
 
 ``refresh`` warm-starts the coarse centroids AND the codebooks from the
 current state and keeps every shape. Not in the port yet: the
-anisotropic (score-aware) codebook objective (``anisotropic_eta``) and the
-adaptive probe (``topk_adaptive``).
+anisotropic (score-aware) codebook objective (``anisotropic_eta``).
+
+:meth:`IVFPQIndex.topk_adaptive` widens the probe per query until the gap
+certificate passes (:mod:`repro_torch.core.mips.adaptive`), unfused on
+``pq_lut_score`` or fused on ``pq_screen_select``, re-ranking each stage
+on ``rerank_select``.
 """
 from __future__ import annotations
 
@@ -45,10 +49,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.gumbel import TopK
-from repro_torch.core.mips import base
+from repro_torch.core.mips import adaptive, base
 from repro_torch.core.mips.ivf import (_cluster_radii, _coarse_quantize,
                                        _gather_rows, _geometry, _pack_ids,
-                                       _pad_pool)
+                                       _pad_pool, _schedule, _stage_pool)
 from repro_torch.core.quant import pq as quant
 from repro_torch.kernels import ops
 
@@ -73,6 +77,8 @@ class PQConfig:
     rerank: int = 0  # top-r LUT candidates re-ranked exactly; 0 -> 2k
     seed: int = 0  # seeds the cold build's row samples (torch.Generator)
     n_probe: int = 8  # clusters probed per query
+    n_probe_init: int = 0  # adaptive probe: starting width (0 -> n_probe)
+    n_probe_max: int = 0  # adaptive probe: widening ceiling (0 -> n_probe)
 
 
 class PQState(NamedTuple):
@@ -207,10 +213,11 @@ class IVFPQIndex:
         return min(max(r, k), pool)
 
     def _screen_inputs(self, qf: torch.Tensor, n_probe: int | None):
-        """What both screens take: (probe (b, np), coarse (b, np) centroid
-        scores of the probed clusters, lut (b, m_sub, ksub), overflow scores
-        (b, o_cap) — exact, one matmul against the gathered overflow rows,
-        dead ids as zero rows)."""
+        """What both screens take: (c_scores (b, n_c) centroid scores,
+        probe (b, np), coarse (b, np) centroid scores of the probed
+        clusters, lut (b, m_sub, ksub), overflow scores (b, o_cap) — exact,
+        one matmul against the gathered overflow rows, dead ids as zero
+        rows)."""
         st = self.state
         n_probe = min(n_probe or self.config.n_probe, st.n_clusters)
         c_scores = qf @ st.centroids.T  # (b, n_c)
@@ -218,31 +225,95 @@ class IVFPQIndex:
         coarse = torch.gather(c_scores, 1, probe)
         lut = quant.build_lut(st.codebooks, qf)
         o_scores = (_gather_rows(st.db, st.overflow_ids).float() @ qf.T).T
-        return probe, coarse, lut, o_scores
+        return c_scores, probe, coarse, lut, o_scores
 
-    def topk_batch(self, q: torch.Tensor, k: int, *,
-                   n_probe: int | None = None) -> TopK:
-        """LUT-screened, exactly re-ranked top-k: (b, d) -> TopK[(b, k)].
-        Values are exact inner products; dead slots (-inf, id -1) only where
-        the pool holds fewer than k live rows."""
+    def _screen_pool(self, probe, coarse, lut, o_scores
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """LUT screening pool of the probe list: (scores, ids) of shape
+        (b, n_probe·cap + o_cap) — the members' LUT sums plus their
+        cluster's centroid score, then the overflow's exact scores. Padded
+        slots carry id -1 and unmasked scores: each caller applies its own
+        liveness mask, so the fixed and adaptive probes share this pool."""
         st = self.state
-        qf = q.float()
-        b = qf.shape[0]
-        probe, coarse, lut, o_scores = self._screen_inputs(qf, n_probe)
+        b = probe.shape[0]
         scores = ops.pq_lut_score(st.member_codes, probe, lut)
         # residual PQ: the LUT sum, then q·centroid
         scores = (scores + coarse[..., None]).reshape(b, -1)
         ids = st.member_ids[probe.long()].reshape(b, -1)
         scores = torch.cat([scores, o_scores], dim=1)
         ids = torch.cat([ids, st.overflow_ids[None].expand(b, -1)], dim=1)
+        return scores, ids
+
+    def _rerank_pool(self, scores, ids, qf, k: int, r: int) -> TopK:
+        """Stage 3: the top-r of a masked, k-padded LUT pool re-ranked
+        exactly on ``rerank_select``."""
+        lut_vals, pos = base.top_k(scores, r)
+        cand = torch.gather(ids, 1, pos)
+        vals, out_ids = ops.rerank_select(self.state.db, cand, lut_vals, qf,
+                                          k=k)
+        return TopK(out_ids, vals)
+
+    def topk(self, q: torch.Tensor, k: int, *, n_probe: int | None = None
+             ) -> TopK:
+        """LUT-screened, exactly re-ranked top-k for a single query (d,)."""
+        return base.single_query(self, q, k, n_probe=n_probe)
+
+    def topk_batch(self, q: torch.Tensor, k: int, *,
+                   n_probe: int | None = None) -> TopK:
+        """LUT-screened, exactly re-ranked top-k: (b, d) -> TopK[(b, k)].
+        Values are exact inner products; dead slots (-inf, id -1) only where
+        the pool holds fewer than k live rows."""
+        qf = q.float()
+        _, probe, coarse, lut, o_scores = self._screen_inputs(qf, n_probe)
+        scores, ids = self._screen_pool(probe, coarse, lut, o_scores)
         scores = torch.where(ids >= 0, scores,
                              torch.full_like(scores, -math.inf))
         scores, ids = _pad_pool(scores, ids, k)
         r = self._resolved_rerank(k, scores.shape[1])
-        lut_vals, pos = base.top_k(scores, r)
-        cand = torch.gather(ids, 1, pos)
-        vals, out_ids = ops.rerank_select(st.db, cand, lut_vals, qf, k=k)
-        return TopK(out_ids, vals)
+        return self._rerank_pool(scores, ids, qf, k, r)
+
+    def topk_adaptive(self, q: torch.Tensor, k: int, *, c: float = 0.0,
+                      n_probe_init: int | None = None,
+                      n_probe_max: int | None = None, fused: bool = False,
+                      init_stage: torch.Tensor | None = None
+                      ) -> adaptive.AdaptiveTopK:
+        """Certificate-gated staged probe (see ``IVFIndex.topk_adaptive``).
+        The certificate reads each stage's EXACT re-ranked values, for which
+        the centroid + radius bound is sound; screening misses inside the
+        probed clusters are the re-rank recall, as on the fixed-width path.
+
+        Unfused, the LUT pool of the ``n_probe_max`` best clusters is scored
+        once (``pq_lut_score``) and each stage masks it to the row's width,
+        takes the top r and re-ranks them (``rerank_select``). Fused, each
+        stage is ``pq_screen_select`` at the rows' widths, then
+        ``rerank_select``. Both agree bit for bit; with init == max either
+        equals :meth:`topk_batch` at that width."""
+        st = self.state
+        w_max, widths = _schedule(self.config, st.n_clusters, n_probe_init,
+                                  n_probe_max)
+        qf = q.float()
+        c_scores, probe, coarse, lut, o_scores = self._screen_inputs(qf,
+                                                                     w_max)
+        bound_table = adaptive.unprobed_bound_table(c_scores, st.radii, qf)
+        pool = w_max * st.cap + st.overflow_ids.shape[0]
+        r = self._resolved_rerank(k, max(pool, k))
+        if fused:
+            def stage_fn(w):
+                lut_vals, cand = ops.pq_screen_select(
+                    st.member_codes, st.member_ids, coarse, o_scores,
+                    st.overflow_ids, probe, lut, r=r, probe_width=w)
+                return ops.rerank_select(st.db, cand, lut_vals, qf, k=k)
+        else:
+            scores, ids = self._screen_pool(probe, coarse, lut, o_scores)
+
+            def stage_fn(w):
+                sc, sids = _stage_pool(scores, ids, w, st.cap, w_max, k)
+                tk = self._rerank_pool(sc, sids, qf, k, r)
+                return tk.values, tk.ids
+
+        return adaptive.staged_widen(stage_fn, bound_table, widths, k, c=c,
+                                     no_spill=st.spill_count == 0,
+                                     init_stage=init_stage)
 
     def screen_select(self, q: torch.Tensor, k: int, *,
                       n_probe: int | None = None) -> TopK:
@@ -252,7 +323,7 @@ class IVFPQIndex:
         :meth:`topk_batch` bit for bit, ids and values."""
         st = self.state
         qf = q.float()
-        probe, coarse, lut, o_scores = self._screen_inputs(qf, n_probe)
+        _, probe, coarse, lut, o_scores = self._screen_inputs(qf, n_probe)
         pool = probe.shape[1] * st.cap + st.overflow_ids.shape[0]
         # the unfused r is resolved over the k-padded pool; the kernel
         # emits the pad slots' (-inf, -1) picks on its own

@@ -6,7 +6,8 @@ tokens, row segments of hundreds of entries, token counts past the
 backward's tile of h, one table row, PQ subspace counts 4, 8
 and 16, codebooks narrower than 256; flash_decode lengths around its split
 of the sequence, query-group sizes 1 to 32 and head dims 16 to 256;
-duplicate, out-of-range and piled-up IVF probes; the split IVF screen at
+duplicate, out-of-range and piled-up IVF probes, the IVF probe at the
+paper's caps (3,400 rows a cluster at d 256, 4,248 at d 300); the split IVF screen at
 1 to 256 queries, pools at and past a power of two and up to its 16,384
 slots, k from 1 to past the pool, probe widths 0 to past n_probe, dead
 cluster tails; the same for the split IVF-PQ screen; the split tail argmax
@@ -150,6 +151,48 @@ def test_ivf_gather_score_kernel(gen, d):
     ws, wi = ref.ivf_gather_score_ref(mv, mids, probe, q)
     torch.testing.assert_close(s, ws, **TOL)
     assert torch.equal(i, wi)
+
+
+@pytest.mark.parametrize("data", ["small_int", "unit_rows"])
+@pytest.mark.parametrize("b,n_probe", [(4, 16), (64, 16), (8, 64)])
+@pytest.mark.parametrize("d,cap", [(256, 3400), (300, 4248)],
+                         ids=["imagenet", "word_embeddings"])
+def test_ivf_gather_score_paper_geometry(gen, d, cap, b, n_probe, data):
+    """The paper setting's probe (``configs/paper_loglinear.py``): the IVF
+    index's cap at ImageNet's width (3,400 at d 256) and the word
+    embeddings' (4,248 at d 300: 75 float4 chunks a row, not a multiple of
+    the warp's 32 lanes), members dead past each cluster's size, 16 probes
+    (``topk_batch``) and 64 (the adaptive probe's pool). Small-integer rows
+    are exact; unit rows against θ = row / 0.05, as the paper queries,
+    rtol 1e-5 and an atol of 1e-5 times the largest score (d-term dot
+    products summed in different orders)."""
+    n_c = n_probe + 4
+    if data == "small_int":
+        mv = _ints(gen, (n_c, cap, d))
+        q = _ints(gen, (b, d))
+    else:
+        mv = torch.randn((n_c, cap, d), generator=gen, device="cuda")
+        mv /= mv.norm(dim=-1, keepdim=True)
+        q = mv[torch.randint(0, n_c, (b,), generator=gen, device="cuda"),
+               torch.randint(0, cap, (b,), generator=gen, device="cuda")]
+        q = q / 0.05
+    mids = torch.randint(0, 10 ** 6, (n_c, cap), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    sizes = torch.randint(cap // 3, cap + 1, (n_c,), generator=gen,
+                          device="cuda")
+    dead = torch.arange(cap, device="cuda")[None] >= sizes[:, None]
+    mids[dead] = -1
+    mv[dead] = 0.0
+    probe = torch.stack([torch.randperm(n_c, generator=gen, device="cuda")
+                         [:n_probe] for _ in range(b)]).int()
+    s, i = ivf_gather_score.ivf_gather_score(mv, mids, probe, q)
+    ws, wi = ref.ivf_gather_score_ref(mv, mids, probe, q)
+    assert torch.equal(i, wi)
+    if data == "small_int":
+        assert torch.equal(s, ws)
+    else:
+        torch.testing.assert_close(s, ws, rtol=1e-5,
+                                   atol=1e-5 * ws.abs().max().item())
 
 
 @pytest.mark.parametrize("case", ["duplicates", "out_of_range", "one_cluster",
