@@ -18,7 +18,25 @@ for each head index (IVF, then IVF-PQ)
 
 after serving with both indexes, it times warm serving repeats of the two,
 interleaved (wall, decode-dispatch and index-query host time, syncs per
-token); at the end it runs six more steps with each top-k probe (exact,
+token). The paged ``flash_decode`` is held against its plain version
+(gather + the dense plain version) and against the dense kernel over the
+gathered view, at block_len 64 and 16 over permuted blocks with sentinel
+pages, at 4 x 512 and 4 x 2,048 positions, and timed beside the dense
+kernel, the plain version and gather + SDPA. Then the ``[serve-tier]``
+phase, on the serving phase's weights and prompts: the paged pool (IVF and
+IVF-PQ; block_len 64 on an auto pool, then 16 on a pool of 8 blocks, so
+admission stalls) must serve the dense run's tokens; the slo scheduler
+must serve fifo's streams under staggered arrivals (the windows it picks
+are printed); strict re-sampling at the default head and at |T| = 8 (its
+fallbacks, ITL, warm wall and syncs per token beside the lazy run's; every
+request whose certificates all held keeps its tokens); the single-step
+reference engine (4 requests x 8 tokens) must equal the pipelined one;
+the adaptive probe (2 -> 16 clusters) fused T=8 must equal unfused T=1 for
+both indexes, and a fitted, saved and reloaded probe router must leave
+the tokens as they were; a ``refresh_index`` with the same params over an
+index whose clustering has converged must keep its member tables and the
+tokens (the default index's drift under one refresh is printed). At the
+end it runs six more steps with each top-k probe (exact,
 IVF, IVF-PQ) reading the amortized loss beside the exact NLL, and profiles
 one training step with each index. The profiled serving and training runs
 give each kernel's device time per call on its path (``path_us``).
@@ -47,7 +65,7 @@ plain versions at mixed per-row widths.
     python3 chip_smoke.py            # from the repository root
 
 Output, in order: the GPU line of nvidia-smi, build and check lines, the
-serve, train and ``[paper]`` reports, one ``{"kernels": [...]}`` line, the card's name
+serve, ``[serve-tier]``, train and ``[paper]`` reports, one ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failed
 phase exits non-zero before the last line. Without CUDA, or without the
 repository beside it, the script exits non-zero and prints no result.
@@ -58,7 +76,8 @@ rerank_select and ivf_gather_score on random fp32 rows rtol=1e-5 and an
 atol of 1e-5 times the largest magnitude (2048-term dot products summed in
 different orders: a score that cancels to near 0 keeps the rounding of its
 terms);
-flash_decode (bf16 inputs, fp32 output) atol=2e-3; fused_estimator and its
+flash_decode, dense and paged (bf16 inputs, fp32 output), atol=2e-3 (the paged
+one bit for bit the dense kernel over the gathered view); fused_estimator and its
 backward at training shapes rtol=1e-4 and an atol of 1e-5 times the largest
 magnitude of the tensor compared (2048-term dot products and sums of up to
 thousands of p·h terms, taken in different orders; the values span many
@@ -110,6 +129,9 @@ HEAD_CHUNK = 256  # HeadConfig.chunk: tokens per fused_estimator launch
 
 TPU_KERNEL = {
     "flash_decode": "src/repro/kernels/flash_decode.py:82",
+    # the same Pallas kernel, reading the paged KV pool through page tables
+    # (the reference gathers the ring view in XLA first)
+    "flash_decode_paged": "src/repro/kernels/flash_decode.py:82",
     "ivf_gather_score": "src/repro/kernels/ivf_gather_score.py:65",
     "ivf_screen_select": "src/repro/kernels/decode_fused.py:190",
     "tail_gather_argmax": "src/repro/kernels/decode_fused.py:471",
@@ -122,6 +144,7 @@ TPU_KERNEL = {
 }
 SOURCE = {
     "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
+    "flash_decode_paged": "src/repro_torch/csrc/flash_decode.cu",
     "ivf_gather_score": "src/repro_torch/csrc/ivf_gather_score.cu",
     "ivf_screen_select": "src/repro_torch/csrc/decode_fused.cu",
     "tail_gather_argmax": "src/repro_torch/csrc/decode_fused.cu",
@@ -374,6 +397,126 @@ def flash_decode_case(torch, gen, g: Geometry, timer: Timer, S: int,
             "nb": nbytes(q, lengths) + 2 * live * g.hkv * g.hd * 2
             + B * g.hq * g.hd * 4,
             "flops": 4 * live * g.hq * g.hd}
+
+
+def flash_decode_paged_case(torch, gen, g: Geometry, timer: Timer, S: int,
+                            lengths, block_len: int) -> dict:
+    """The paged flash_decode on a bf16 pool of permuted blocks: each of
+    ``g.slots`` sequences owns S / block_len pages, the pages past its
+    length hold the sentinel (the sink block's id). Checked against its
+    plain version (gather + the dense plain version, atol 2e-3), bit for bit
+    against the dense kernel over the gathered view and against itself,
+    and with NaN in every row no sequence may read (the sink, the unowned
+    blocks, each last block past its length): a read would poison the
+    output. Timed beside the dense kernel at the same lengths, the plain
+    version and gather + SDPA (GQA, masked)."""
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import ref
+
+    B = g.slots
+    n_pages = S // block_len
+    n_blocks = B * n_pages + 7
+    shape = (n_blocks + 1, block_len, g.hkv, g.hd)
+    q = torch.randn((B, g.hq, g.hd), generator=gen, device="cuda").bfloat16()
+    kp = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    vp = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    perm = torch.randperm(n_blocks, generator=gen, device="cuda")
+    used = (lengths.long() + block_len - 1) // block_len
+    pages = torch.where(torch.arange(n_pages, device="cuda")[None]
+                        < used[:, None], perm[: B * n_pages].view(B, n_pages),
+                        n_blocks).int()
+    got = kfd.flash_decode(q, kp, vp, lengths, pages=pages)
+    again = kfd.flash_decode(q, kp, vp, lengths, pages=pages)
+    want = ref.flash_decode_paged_ref(q, kp, vp, lengths, pages)
+    idx = pages.long().clamp(max=n_blocks)
+    view = (B, S, g.hkv, g.hd)
+    kv, vv = kp[idx].reshape(view), vp[idx].reshape(view)
+    dense = kfd.flash_decode(q, kv, vv, lengths)
+    torch.cuda.synchronize()
+    tag = f"flash_decode_paged S={S} block_len={block_len}"
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{tag}: shape / finiteness")
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, rtol=0, atol=2e-3),
+          f"{tag} disagrees with its plain version: {err}")
+    check(torch.equal(got, again), f"{tag}: two launches differ")
+    check(torch.equal(got, dense), f"{tag} != the dense kernel over the "
+          "gathered view")
+    kn, vn = kp.clone(), vp.clone()
+    owned = torch.zeros(n_blocks + 1, dtype=torch.bool, device="cuda")
+    owned[idx.flatten()] = True
+    owned[n_blocks] = False
+    kn[~owned], vn[~owned] = float("nan"), float("nan")
+    for i in range(B):
+        last = (int(lengths[i]) - 1) // block_len
+        tail = int(lengths[i]) - last * block_len
+        kn[int(pages[i, last]), tail:] = float("nan")
+        vn[int(pages[i, last]), tail:] = float("nan")
+    check(torch.equal(kfd.flash_decode(q, kn, vn, lengths, pages=pages), got),
+          f"{tag}: a row past a sequence's length was read")
+    del kn, vn
+    mask = (torch.arange(S, device="cuda")[None] < lengths[:, None])
+    mask = mask[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        ks = kp[idx].reshape(view).transpose(1, 2)
+        vs = vp[idx].reshape(view).transpose(1, 2)
+        return sdpa(q[:, :, None], ks, vs, attn_mask=mask, enable_gqa=True)
+
+    live = int(lengths.clamp(1, S).sum().item())
+    return {"err": err,
+            "timed": timer.both(lambda: kfd.flash_decode(q, kp, vp, lengths,
+                                                         pages=pages), tag),
+            "dense_ms": timer(lambda: kfd.flash_decode(q, kv, vv, lengths),
+                              "flash_decode dense, same lengths"),
+            "plain_ms": timer(lambda: ref.flash_decode_paged_ref(
+                q, kp, vp, lengths, pages), f"{tag} plain"),
+            "lib_ms": timer(library, "gather + sdpa"),
+            "nb": nbytes(q, lengths, pages) + 2 * live * g.hkv * g.hd * 2
+            + B * g.hq * g.hd * 4,
+            "flops": 4 * live * g.hq * g.hd}
+
+
+def paged_kernel_checks(torch, g: Geometry, timer: Timer) -> dict:
+    """``flash_decode_paged``'s record: block_len 64 at 4 x 512 positions
+    (the serving path's first paged run), then block_len 16, and both at
+    4 x 2,048 (tinyllama's context), each with its own keys."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    B = g.slots
+    rec = None
+    for S in (g.max_seq, LONG_CONTEXT):
+        lengths = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+        lengths[0], lengths[-1] = 1, S
+        for block_len in (64, 16):
+            c = flash_decode_paged_case(torch, gen, g, timer, S, lengths,
+                                        block_len)
+            b_ms, b_by = bound_ms(c["nb"], c["flops"], BF16_FLOPS)
+            if rec is None:
+                rec = make_record("flash_decode_paged", c["err"], c["timed"],
+                                  c["plain_ms"], c["lib_ms"], c["nb"],
+                                  c["flops"], BF16_FLOPS)
+                rec.update(positions=S, block_len=block_len,
+                           dense_ms=c["dense_ms"])
+                continue
+            key = f"S{S}_bl{block_len}_"
+            rec.update({key + "max_abs_err": c["err"],
+                        key + "ms": c["timed"][0],
+                        key + "host_us": c["timed"][1],
+                        key + "dense_ms": c["dense_ms"],
+                        key + "plain_ms": c["plain_ms"],
+                        key + "library_ms": c["lib_ms"],
+                        key + "bound_ms": b_ms})
+            print(f"[kernel] flash_decode_paged S={S} block_len={block_len}: "
+                  f"ok max_abs_err={c['err']:.3g} ms={c['timed'][0]:.4f} "
+                  f"host_us={c['timed'][1]:.1f} dense_ms={c['dense_ms']:.4f} "
+                  f"plain_ms={c['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"library_ms={c['lib_ms']:.4f}", flush=True)
+    print(f"[kernel] flash_decode_paged S={g.max_seq} block_len=64: "
+          f"dense_ms={rec['dense_ms']:.4f}", flush=True)
+    return rec
 
 
 def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
@@ -1030,12 +1173,13 @@ UNFUSED_KERNELS = {"ivf": ("ivf_gather_score",),
                    "ivfpq": ("pq_lut_score", "rerank_select")}
 
 
-def serve(torch, seed: int, cfg, scfg_kw) -> tuple[dict, dict, dict]:
+def serve(torch, seed: int, cfg, scfg_kw) -> tuple[dict, dict, dict, dict]:
     """The serving phase: one set of weights, served with each head index
     (:func:`serve_one`). Returns (launch counts: each kernel's count on the
     first run that launches it, the fused one first; per-index stats; each
     kernel's device us per call on the first profiled run that launches
-    it, in the same order)."""
+    it, in the same order; what ``[serve-tier]`` reuses: the params, the
+    prompts and, per index, the fused server and its first run's tokens)."""
     from repro_torch.models.model import Model
 
     import numpy as np
@@ -1048,9 +1192,9 @@ def serve(torch, seed: int, cfg, scfg_kw) -> tuple[dict, dict, dict]:
     rng = np.random.default_rng(seed)
     prompts = [list(rng.integers(0, cfg.vocab, size=rng.integers(4, 13)))
                for _ in range(REQUESTS)]
-    counts, stats, servers, path_us = {}, {}, {}, {}
+    counts, stats, servers, path_us, tokens = {}, {}, {}, {}, {}
     for mips in MIPS:
-        runs, stats[mips], servers[mips], profs = serve_one(
+        runs, stats[mips], servers[mips], profs, tokens[mips] = serve_one(
             torch, cfg, mips, params, prompts, scfg_kw)
         for run in runs:
             for name, n in run.items():
@@ -1075,7 +1219,9 @@ def serve(torch, seed: int, cfg, scfg_kw) -> tuple[dict, dict, dict]:
              if k.startswith(("warm_", "device_"))}), flush=True)
     print("[serve] index_mb " + json.dumps(
         {m: stats[m]["index_mb"] for m in MIPS}), flush=True)
-    return counts, stats, path_us
+    ctx = {"params": params, "prompts": prompts, "tokens": tokens,
+           "servers": {m: servers[m][0] for m in MIPS}}
+    return counts, stats, path_us, ctx
 
 
 def serve_one(torch, cfg, mips: str, params, prompts, scfg_kw):
@@ -1083,7 +1229,7 @@ def serve_one(torch, cfg, mips: str, params, prompts, scfg_kw):
     unfused at T=1 over the same index, and require the same tokens; then
     profile a repeat of each over ``SLOTS`` prompts. Returns ((fused
     counts, unfused counts), stats, (fused server, unfused server), (fused
-    profile's, unfused profile's kernels))."""
+    profile's, unfused profile's kernels), the fused run's tokens)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import report
     from repro_torch.serve.server import ServeConfig, Server
@@ -1149,7 +1295,7 @@ def serve_one(torch, cfg, mips: str, params, prompts, scfg_kw):
                     lambda: sum(len(r.tokens)
                                 for r in srv1.run(prompts[:SLOTS])))
     return ((fused_counts, unfused_counts), stats, (srv, srv1),
-            (prof["kernels"], prof1["kernels"]))
+            (prof["kernels"], prof1["kernels"]), [r.tokens for r in res])
 
 
 def warm_repeat(torch, srv, prompts) -> dict:
@@ -1235,18 +1381,25 @@ def profile(torch, label: str, fn) -> dict:
     by_name: dict[str, list] = {}
     calls_of = dict.fromkeys(KERNEL_SYMBOLS, 0)
     spans: dict[str, list] = {name: [] for name in KERNEL_SYMBOLS}
+    matches: dict[str, list] = {}  # event name -> [(kernel, is a call)]
+
+    def match(event_name: str) -> list:
+        return [(name, sym in calls)
+                for name, (calls, others) in KERNEL_SYMBOLS.items()
+                for sym in calls + others
+                if re.search(rf"(^|[\s:]){sym}[<(]", event_name)]
+
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             acc = by_name.setdefault(e.name[:60], [0, 0.0])
             acc[0] += 1
             acc[1] += us / 1e3
-            for name, (calls, others) in KERNEL_SYMBOLS.items():
-                for sym in calls + others:
-                    if re.search(rf"(^|[\s:]){sym}[<(]", e.name):
-                        calls_of[name] += sym in calls
-                        spans[name].append((e.time_range.start,
-                                            e.time_range.end))
+            if e.name not in matches:
+                matches[e.name] = match(e.name)
+            for name, is_call in matches[e.name]:
+                calls_of[name] += is_call
+                spans[name].append((e.time_range.start, e.time_range.end))
     busy_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     out = {"tokens": tokens, "wall_ms": wall_ms, "device_ms": busy_ms,
@@ -1258,6 +1411,261 @@ def profile(torch, label: str, fn) -> dict:
                        for k, n in calls_of.items() if n}}
     print(f"[profile] {label} " + json.dumps(out), flush=True)
     return out
+
+
+# ---------------------------------------------------------------- serve-tier
+TIER_NEW = 8  # the reference engine's run: 4 requests x 8 new tokens
+TIER_BLOCKS = 8  # the tight pool: 8 blocks of 16 positions, a 128-position
+#   ring (a maximal admissible request must fit the pool); at 36-44
+#   positions a request holds 3 blocks, so at most two are resident
+TIER_ARRIVAL_S = 0.05  # staggered arrivals: request i enqueues at i x this
+TIER_TTFT_SLO_S = 0.2  # the slo run's TTFT target (seconds)
+TIER_STRICT_L = 8  # strict's second run: |T| = 8 makes certificates fail
+ADAPTIVE = (2, 16)  # n_probe_init -> n_probe_max of the adaptive runs
+REFRESH_ITERS = 300  # Lloyd iterations of the refresh run's converged index
+
+
+def serve_tier(torch, cfg, scfg_kw, ctx) -> tuple[dict, dict]:
+    """The ``[serve-tier]`` phase, on the ``[serve]`` phase's weights and
+    prompts at full width: the paged pool (block_len 64, auto pool; then
+    block_len 16 on a pool of 8 blocks, so admission stalls), the slo
+    scheduler against fifo under staggered arrivals, strict re-sampling,
+    the single-step reference engine, the adaptive probe (fused T=8 against
+    unfused T=1, then a fitted, saved and reloaded router) and
+    ``refresh_index``. Every run must give the tokens its contract says.
+    Returns (launch counts of the paged run, a summary)."""
+    import dataclasses as dc
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import mips as mips_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import report
+    from repro_torch.models import router as router_lib
+    from repro_torch.serve.server import ServeConfig, Server
+
+    params, prompts, dense = ctx["params"], ctx["prompts"], ctx["tokens"]
+    out: dict = {}
+
+    def server(mcfg, index=None, **kw):
+        return Server(mcfg, params, ServeConfig(**dict(scfg_kw, **kw)),
+                      precision_policy="bf16", device="cuda", index=index)
+
+    def serve_run(mcfg, index=None, run_prompts=None, **kw):
+        srv = server(mcfg, index, **kw)
+        res = srv.run(prompts if run_prompts is None else run_prompts)
+        torch.cuda.synchronize()
+        return srv, res, report(res, srv)
+
+    def show(tag, rep):
+        print(f"[serve-tier] {tag} {json.dumps(rep)}", flush=True)
+
+    # 1) the paged pool, both indexes: tokens bit for bit the dense run's
+    counts = None
+    for mips in MIPS:
+        mcfg = cfg.scaled(head_mips=mips, head_fused_decode=True)
+        index = ctx["servers"][mips].index
+        for block_len, n_blocks, max_seq in ((64, 0, scfg_kw["max_seq"]),
+                                             (16, TIER_BLOCKS, 128)):
+            ops.reset_launch_counts()
+            srv, res, rep = serve_run(mcfg, index, decode_window=WINDOW,
+                                      block_len=block_len, n_blocks=n_blocks,
+                                      max_seq=max_seq)
+            run_counts = ops.launch_counts()
+            tag = f"{mips} paged block_len={block_len} n_blocks={n_blocks}"
+            show(tag, rep)
+            same = sum(r.tokens == t for r, t in zip(res, dense[mips]))
+            print(f"[serve-tier] {tag} == dense tokens: {same}/{len(res)} "
+                  f"requests; launches {json.dumps(run_counts)}", flush=True)
+            check(same == len(prompts), f"{tag}: tokens differ from the "
+                  "dense layout's")
+            check(srv.alloc.n_used == 0, f"{tag}: blocks leaked")
+            check(run_counts["flash_decode_paged"] > 0
+                  and run_counts["flash_decode"] == 0,
+                  f"{tag}: decode did not walk the page table")
+            if n_blocks:
+                check(rep["block_stalls"] > 0, f"{tag}: no admission stall")
+            if counts is None:
+                counts = run_counts
+                out["paged_cache_mb"] = rep["cache_mb"]
+                out["paged_path"] = profile(
+                    torch, "serve-tier ivf paged block_len=64",
+                    lambda: sum(len(r.tokens)
+                                for r in srv.run(prompts[:SLOTS])))
+            out[f"{mips}_paged_bl{block_len}"] = rep
+            del srv
+    ivf_cfg = cfg.scaled(head_mips="ivf", head_fused_decode=True)
+    ivf_index = ctx["servers"]["ivf"].index
+
+    # 2) slo against fifo, staggered arrivals: the same streams
+    arrivals = [TIER_ARRIVAL_S * i for i in range(len(prompts))]
+    picked: list[int] = []
+    streams = {}
+    for sched in ("fifo", "slo"):
+        srv = server(ivf_cfg, ivf_index, decode_window=WINDOW, sched=sched,
+                     ttft_slo_s=TIER_TTFT_SLO_S)
+        if sched == "slo":
+            pick = srv.sched.pick_window
+
+            def spy(*a, pick=pick):
+                picked.append(pick(*a))
+                return picked[-1]
+
+            srv.sched.pick_window = spy
+        res = srv.run(prompts, arrivals=arrivals,
+                      priorities=[i % 2 for i in range(len(prompts))])
+        torch.cuda.synchronize()
+        rep = report(res, srv)
+        show(f"ivf {sched} arrivals every {TIER_ARRIVAL_S} s", rep)
+        out[f"{sched}_arrivals"] = rep
+        streams[sched] = [r.tokens for r in res]
+    windows = {str(w): picked.count(w) for w in sorted(set(picked))}
+    print(f"[serve-tier] slo windows picked {json.dumps(windows)}; "
+          f"slo == fifo: {streams['slo'] == streams['fifo']}", flush=True)
+    out["slo_windows"] = windows
+    check(streams["slo"] == streams["fifo"] == dense["ivf"],
+          "slo and fifo served different streams")
+
+    # 3) strict: the default head, then |T| = 8 so certificates fail
+    for l in (0, TIER_STRICT_L):
+        mcfg = ivf_cfg.scaled(head_l=l) if l else ivf_cfg
+        runs = {}
+        for strict in (False, True):
+            srv, res, rep = serve_run(mcfg, ivf_index, decode_window=WINDOW,
+                                      strict=strict)
+            runs[strict] = (srv, res, rep)
+        (lazy, r_l, rep_l), (strc, r_s, rep_s) = runs[False], runs[True]
+        check(rep_s["fallbacks"] == round(
+            rep_s["decoded_tokens"] * (1 - rep_s["ok_rate"])),
+            "strict: fallbacks != failed certificates")
+        kept = [i for i, r in enumerate(r_s) if r.ok_rate == 1.0]
+        same = sum(r_s[i].tokens == r_l[i].tokens for i in kept)
+        check(same == len(kept), "strict changed a request whose every "
+              "certificate held")
+        check(all(0 <= t < cfg.vocab for r in r_s for t in r.tokens),
+              "strict: a token id out of range")
+        stat = {"l": mcfg.head_l or "default", "fallbacks":
+                rep_s["fallbacks"], "ok_rate": rep_s["ok_rate"],
+                "itl_p50_ms": {"lazy": rep_l["itl_p50_ms"],
+                               "strict": rep_s["itl_p50_ms"]},
+                "certified_requests_equal": f"{same}/{len(kept)}"}
+        if not l:  # what strict costs a token: warm repeats, A B B A
+            warm = {}
+            for kind, srv in (("lazy", lazy), ("strict", strc),
+                              ("strict", strc), ("lazy", lazy)):
+                warm.setdefault(kind, []).append(warm_repeat(
+                    torch, srv, prompts[:SLOTS])["wall_ms_per_token"])
+            stat.update(warm_wall_ms_per_token=warm, syncs_per_token={
+                "lazy": syncs_per_token(torch, lazy, prompts[:SLOTS]),
+                "strict": syncs_per_token(torch, strc, prompts[:SLOTS])})
+        print(f"[serve-tier] ivf strict {json.dumps(stat)}", flush=True)
+        out[f"strict_l{l}"] = stat
+        del lazy, strc, runs
+
+    # 4) the single-step reference engine: 4 requests x 8 tokens, against
+    # the pipelined engine on the same requests. Both at the f32 policy:
+    # in bf16 the pipelined prefill's batched projections and the
+    # reference's one-token decode steps round K, V and h differently
+    # (other GEMM shapes, other kernels), which moves the samples
+    streams = {}
+    for engine in ("pipelined", "reference"):
+        srv = Server(ivf_cfg, params, ServeConfig(**dict(
+            scfg_kw, engine=engine, max_new_tokens=TIER_NEW,
+            decode_window=WINDOW)), precision_policy="f32", device="cuda",
+            index=ivf_index)
+        res = srv.run(prompts[:SLOTS])
+        torch.cuda.synchronize()
+        rep = report(res, srv)
+        show(f"ivf {engine} engine f32, {SLOTS} x {TIER_NEW} tokens", rep)
+        streams[engine] = [r.tokens for r in res]
+        out[engine] = rep
+        del srv
+    same = sum(a == b for a, b in zip(streams["reference"],
+                                      streams["pipelined"]))
+    bf16 = sum(a[:TIER_NEW] == b[:TIER_NEW] for a, b in zip(
+        streams["reference"], dense["ivf"]))
+    print(f"[serve-tier] reference engine == pipelined (f32): {same}/"
+          f"{SLOTS} requests; == the bf16 pipelined run's first {TIER_NEW} "
+          f"tokens: {bf16}/{SLOTS}", flush=True)
+    check(same == SLOTS, "the reference engine and the pipelined one "
+          "served different tokens")
+
+    # 5) the adaptive probe: fused T=8 == unfused T=1, then a router
+    init, top = ADAPTIVE
+    for mips in MIPS:
+        acfg = cfg.scaled(head_mips=mips, head_adaptive_probe=True,
+                          head_n_probe_init=init, head_n_probe_max=top)
+        fsrv, r_f, rep_f = serve_run(acfg.scaled(head_fused_decode=True),
+                                     decode_window=WINDOW)
+        _, r_u, rep_u = serve_run(acfg, fsrv.index, decode_window=1)
+        show(f"{mips} adaptive {init}->{top} fused T={WINDOW}", rep_f)
+        show(f"{mips} adaptive {init}->{top} unfused T=1", rep_u)
+        check([r.tokens for r in r_f] == [r.tokens for r in r_u],
+              f"{mips} adaptive: fused T=8 != unfused T=1")
+        check(rep_f["probe_width_hist"] == rep_u["probe_width_hist"]
+              and rep_f["probe_width_hist"],
+              f"{mips} adaptive: width histograms differ or are empty")
+        out[f"{mips}_adaptive"] = {"fused": rep_f, "unfused": rep_u}
+        if mips != "ivf":
+            continue
+        t0 = time.perf_counter()
+        rsrv = server(acfg.scaled(head_fused_decode=True), fsrv.index,
+                      decode_window=WINDOW, probe_router="fit")
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        r_r = rsrv.run(prompts)
+        rep_r = report(r_r, rsrv)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "router.npz")
+            router_lib.save_router(path, rsrv.router)
+            lsrv, r_l, rep_l = serve_run(acfg.scaled(head_fused_decode=True),
+                                         fsrv.index, decode_window=WINDOW,
+                                         probe_router=path)
+        check(all(torch.equal(a, b) for a, b in zip(lsrv.router,
+                                                    rsrv.router)),
+              "a reloaded router differs from the saved one")
+        show(f"ivf adaptive router=fit (server and fit {fit_s:.2f} s)",
+             rep_r)
+        show("ivf adaptive router=reloaded", rep_l)
+        check([r.tokens for r in r_r] == [r.tokens for r in r_l]
+              == [r.tokens for r in r_f],
+              "a routed adaptive probe changed the tokens")
+        out["ivf_router"] = {"fit": rep_r, "reloaded": rep_l}
+        del fsrv, rsrv, lsrv
+
+    # 6) refresh_index with unchanged params
+    srv0 = ctx["servers"]["ivf"]
+    db = srv0.model.head_index_db(params)
+    conv = mips_lib.build_index(dc.replace(srv0.index.config,
+                                           kmeans_iters=REFRESH_ITERS), db)
+    srv, r_a, _ = serve_run(ivf_cfg, conv, decode_window=WINDOW)
+    health = {"build": {k: srv.stats[k] for k in ("index_bytes",
+                                                  "index_spill")}}
+    srv = server(ivf_cfg, conv, decode_window=WINDOW)
+    srv.refresh_index(params)  # a push of the same params, then the run
+    torch.cuda.synchronize()
+    health["refresh"] = {k: srv.stats[k] for k in ("index_bytes",
+                                                   "index_spill")}
+    members = torch.equal(conv.state.member_ids, srv.index.state.member_ids)
+    r_b = srv.run(prompts)
+    same = sum(a.tokens == b.tokens for a, b in zip(r_a, r_b))
+    # the default (10-iteration) index: how far one refresh moves it
+    default = srv0.index.refresh(db)
+    moved = int((default.state.member_ids
+                 != srv0.index.state.member_ids).sum().item())
+    ref = {"converged_index": f"{REFRESH_ITERS} Lloyd iterations",
+           "health": health, "member_tables_equal": members,
+           "tokens_equal": f"{same}/{len(r_a)}",
+           "default_index_member_slots_moved": moved}
+    print(f"[serve-tier] ivf refresh_index {json.dumps(ref)}", flush=True)
+    check(members and same == len(r_a) and health["refresh"]
+          == health["build"], "refresh_index with unchanged params changed "
+          "the index or the tokens")
+    out["refresh"] = ref
+    del srv, conv, default
+    torch.cuda.empty_cache()
+    return counts, out
 
 
 # ---------------------------------------------------------------- training
@@ -1895,6 +2303,8 @@ def main() -> int:
     timer = Timer(torch, ITERS)
     records = kernel_checks(torch, g, timer)
     torch.cuda.empty_cache()
+    records.insert(1, paged_kernel_checks(torch, g, timer))
+    torch.cuda.empty_cache()
     train_kernel_checks(torch, g, timer, records)
     torch.cuda.empty_cache()
     pq_kernel_checks(torch, g, timer, records)
@@ -1904,9 +2314,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    counts, serve_stats, serve_us = serve(torch, args.seed, cfg, scfg_kw)
+    counts, serve_stats, serve_us, ctx = serve(torch, args.seed, cfg, scfg_kw)
     print(f"[serve] {json.dumps(serve_stats)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    tier_counts, tier = serve_tier(torch, cfg, scfg_kw, ctx)
+    print(f"[serve-tier] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # the paged kernel's launches are its paged run's (read just after it),
+    # and its path time that run's profiled repeat
+    counts["flash_decode_paged"] = tier_counts["flash_decode_paged"]
+    serve_us["flash_decode_paged"] = (tier["paged_path"]["kernels"]
+                                      ["flash_decode"]["us_per_call"])
+    del ctx, tier
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train_counts = {}
@@ -1923,7 +2343,8 @@ def main() -> int:
           flush=True)
     # launches: each path's count, read just after its own run — serving
     # (each kernel's count on the first serving run that launches it, the
-    # fused run before the unfused one, IVF before IVF-PQ) and the 6-step
+    # fused run before the unfused one, IVF before IVF-PQ; the paged kernel
+    # on the first paged run of [serve-tier]) and the 6-step
     # training runs (IVF, then IVF-PQ for the PQ kernels); "launches" is
     # the count on the newest path that runs the kernel (training where it
     # ran there, else serving)

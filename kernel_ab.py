@@ -19,8 +19,10 @@ host issue outside the events), the median host issue time in us, the
 device us of each kernel a call launches (profiler; a kernel from the end
 of the one before it), and the bound ms from
 the shape's bytes; ``--iters`` sets the calls each median takes. ``sdpa_ms`` is one ``scaled_dot_product_attention`` call
-(GQA, masked) on the same inputs. ``ivf_gather_score``'s shapes print
-``digest`` too (its outputs over random fp32 rows).
+(GQA, masked) on the same inputs. ``flash_decode``'s and
+``ivf_gather_score``'s shapes print ``digest`` too (the SHA-256 of their
+outputs; ``flash_decode`` also ``repeatable``): a tree that only adds the
+paged layout must print the parent's ``flash_decode`` digests.
 
 ``rerank_select`` runs at the serving path's 4 queries and the training
 probe's 256, over one fixed set of 1,152 survivors a query against a
@@ -223,10 +225,13 @@ def flash_decode_case(torch, timer, gen, out: dict, args) -> None:
         mask = mask[:, None, None, :]
         qs, ks, vs = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
         live = int(lengths.sum().item())
+        first = digest(got)
         ms, host = timer.both(lambda: kfd.flash_decode(q, kc, vc, lengths),
                               f"flash_decode S={S}")
         out[f"flash_decode_S{S}"] = {
-            "ms": ms, "host_us": host,
+            "ms": ms, "host_us": host, "digest": first,
+            "repeatable": first == digest(kfd.flash_decode(q, kc, vc,
+                                                          lengths)),
             "kernels_us": kernel_breakdown(
                 torch, timer, lambda: kfd.flash_decode(q, kc, vc, lengths)),
             "sdpa_ms": timer(lambda: sdpa(qs, ks, vs, attn_mask=mask,

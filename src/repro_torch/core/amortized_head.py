@@ -24,7 +24,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import estimators as est
-from repro_torch.core import mips
+from repro_torch.core import mips, rng
 from repro_torch.core.gumbel import SampleResult, default_kl
 
 __all__ = ["HeadConfig", "HeadLossOut", "head_loss", "head_sample",
@@ -43,9 +43,12 @@ class HeadConfig:
     mode: str = "amortized"  # exact | topk_only | amortized
     mips: str = "exact"  # exact | ivf | ivfpq  (lsh: not ported yet)
     n_probe: int = 8
-    adaptive_probe: bool = False  # not ported yet
-    n_probe_init: int = 0
-    n_probe_max: int = 0
+    adaptive_probe: bool = False  # certificate-gated staged widening: probe
+    #   n_probe_init clusters per token, widen geometrically (up to
+    #   n_probe_max) only for tokens whose gap certificate fails
+    #   (core/mips/adaptive.py); requires mips in {ivf, ivfpq}
+    n_probe_init: int = 0  # 0 -> n_probe (adaptive start width)
+    n_probe_max: int = 0  # 0 -> n_probe (adaptive width ceiling)
     use_kernel: bool = False  # CPU: the IVF probe and the training loss
     #   through the kernels' plain versions (on CUDA the kernels always run;
     #   the IVF-PQ screen always takes pq_lut_score or its plain version)
@@ -121,14 +124,16 @@ def make_index(cfg: HeadConfig, emb: torch.Tensor, device=None, **build_kw
     if cfg.mips not in _PORTED_MIPS:
         raise NotImplementedError(
             f"MIPS backend {cfg.mips!r} is not in the PyTorch port yet")
-    if cfg.adaptive_probe:
-        raise NotImplementedError("the adaptive probe is not in the port yet")
     if cfg.mips == "ivf":
         mips_cfg = mips.IVFConfig(n_probe=cfg.n_probe,
+                                  n_probe_init=cfg.n_probe_init,
+                                  n_probe_max=cfg.n_probe_max,
                                   use_kernel=cfg.use_kernel)
     else:
         # the exact re-rank covers the head's k with screening headroom
         mips_cfg = mips.PQConfig(n_probe=cfg.n_probe,
+                                 n_probe_init=cfg.n_probe_init,
+                                 n_probe_max=cfg.n_probe_max,
                                  rerank=2 * max(8, cfg.k))
     db = emb if cfg.n == emb.shape[0] else emb[: cfg.n]
     return mips.build_index(mips_cfg, db, **build_kw)
@@ -166,17 +171,33 @@ def head_loss(emb: torch.Tensor, h: torch.Tensor, targets: torch.Tensor,
 
 def head_sample(emb: torch.Tensor, h: torch.Tensor, cfg: HeadConfig,
                 index: Any = None, *, keys: torch.Tensor | None = None,
-                draws=None) -> SampleResult:
+                draws=None, strict: bool = False,
+                strict_live: torch.Tensor | None = None,
+                router: Any = None) -> SampleResult:
     """Sample next-token ids for queries ``h (T, d)`` -> SampleResult of
     (T,) fields. ``amortized``/``topk_only`` use the top-k probe and the
     lazy-Gumbel sampler; ``exact`` the dense Gumbel-max.
 
     ``keys`` ((T, 3) int64 (seed, request id, position) rows) makes each
     token's sample a function of its own key alone; ``draws`` injects the
-    raw random numbers instead (:class:`repro_torch.core.rng.Draws`)."""
+    raw random numbers instead (:class:`repro_torch.core.rng.Draws`).
+
+    ``strict`` re-samples the tokens whose exactness certificate failed
+    (``ok`` False) with the exact dense sampler on a stream of their own
+    (``rng.STREAM_STRICT``: the failed lazy draw is discarded, not reused).
+    The reference runs the O(n d) fallback under a ``lax.cond`` that fires
+    when any live row failed; here it is computed for the step's rows every
+    time and selected with ``torch.where`` on a device-side flag, so strict
+    serving adds no host sync. The selection is the reference's: when any
+    row of ``strict_live`` ((T,) bool, default all) failed, every failed row
+    takes its exact id; otherwise none does.
+
+    With ``cfg.adaptive_probe`` the probe routes through the index's
+    certificate-gated staged widening (``topk_adaptive``) and ``width``
+    carries each token's effective probe width; ``router`` optionally
+    predicts each token's starting stage
+    (:class:`repro_torch.models.router.ProbeRouter`)."""
     cfg = cfg.resolved()
-    if cfg.adaptive_probe:
-        raise NotImplementedError("the adaptive probe is not in the port yet")
     embf = emb.float()[: cfg.n]
     h = h.float()
     t = h.shape[0]
@@ -189,8 +210,21 @@ def head_sample(emb: torch.Tensor, h: torch.Tensor, cfg: HeadConfig,
             mx,
             torch.full((t,), float("-inf"), device=h.device),
             torch.zeros((t,), dtype=torch.bool, device=h.device),
+            torch.full((t,), -1, dtype=torch.int64, device=h.device),
         )
-    return est.local_gumbel_max(
+    res = est.local_gumbel_max(
         embf, h, k=cfg.k, l=cfg.l, keys=keys, index=index, c=cfg.c,
-        fused=cfg.fused_decode, draws=draws,
+        fused=cfg.fused_decode, draws=draws, adaptive=cfg.adaptive_probe,
+        router=router,
     )
+    if strict:
+        if keys is None:
+            raise ValueError("strict re-sampling needs keys")
+        exact_ids, _ = est.dense_gumbel_max(embf, h, keys=keys,
+                                            stream=rng.STREAM_STRICT)
+        needs_fb = ~res.ok
+        if strict_live is not None:
+            needs_fb = needs_fb & strict_live.to(needs_fb.device)
+        take = needs_fb.any() & ~res.ok  # the device-side flag, no read-back
+        res = res._replace(index=torch.where(take, exact_ids, res.index))
+    return res

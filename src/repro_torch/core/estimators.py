@@ -104,7 +104,8 @@ def sanitize_topk(topk: TopK, n) -> tuple[torch.Tensor, torch.Tensor]:
 def local_gumbel_max(emb: torch.Tensor, h: torch.Tensor, *, k: int, l: int,
                      keys: torch.Tensor | None = None, index: Any = None,
                      n_valid=None, c: float = 0.0, m_cap: int | None = None,
-                     fused: bool = False, draws: rng.Draws | None = None
+                     fused: bool = False, draws: rng.Draws | None = None,
+                     adaptive: bool = False, router: Any = None
                      ) -> SampleResult:
     """Batched lazy-Gumbel max (Algorithm 2) over the rows of ``emb`` for
     queries ``h (t, d)``.
@@ -119,14 +120,29 @@ def local_gumbel_max(emb: torch.Tensor, h: torch.Tensor, *, k: int, l: int,
     with the ``ivf_gather_score`` kernel probe picks the same top-k (same
     scores, same tie-break) and scores the tail with a plain batched
     matmul, so the two agree on every sample up to the last bit of the
-    tail scores."""
+    tail scores.
+
+    ``adaptive=True`` routes the probe through the index's
+    certificate-gated staged widening (``topk_adaptive``,
+    :mod:`repro_torch.core.mips.adaptive`; fused: the screens at per-row
+    widths) when the index has one; the effective per-token width comes
+    back in ``SampleResult.width`` (-1 on fixed-width paths). The
+    Algorithm-2 certificate stays the authority on exactness: the gap
+    certificate only routes bandwidth. ``router``
+    (:class:`repro_torch.models.router.ProbeRouter`) predicts each query's
+    starting stage."""
     nv = emb.shape[0] if n_valid is None else n_valid
     if m_cap is None:
         m_cap = default_m_cap(l)
     embf = emb.float()
     hf = h.float()
+    width = None
     screen = getattr(index, "screen_select", None) if fused else None
-    if screen is not None:
+    if adaptive and hasattr(index, "topk_adaptive"):
+        atk = index.topk_adaptive(hf, k, c=c, fused=fused, router=router)
+        topk = _mask_probe(TopK(atk.ids, atk.values), n_valid)
+        width = atk.width
+    elif screen is not None:
         topk = _mask_probe(screen(hf, k), n_valid)
     else:
         topk = topk_probe(embf, hf, k, index=index, n_valid=n_valid)
@@ -137,16 +153,21 @@ def local_gumbel_max(emb: torch.Tensor, h: torch.Tensor, *, k: int, l: int,
         draws = rng.tail_draws(keys, k=k, m_cap=m_cap,
                                hi=torch.clamp(nv - k_valid, min=1), lam=l)
     if fused:
-        return _fused_tail_argmax(embf, hf, ids_clean, topk.values, k_valid,
-                                  nv, l=l, m_cap=m_cap, c=c, draws=draws)
-    last = embf.shape[0] - 1
+        res = _fused_tail_argmax(embf, hf, ids_clean, topk.values, k_valid,
+                                 nv, l=l, m_cap=m_cap, c=c, draws=draws)
+    else:
+        last = embf.shape[0] - 1
 
-    def score_fn(ids):
-        rows = embf[torch.clamp(ids, max=last)]  # (t, m, d)
-        return torch.bmm(rows, hf[:, :, None])[..., 0]
+        def score_fn(ids):
+            rows = embf[torch.clamp(ids, max=last)]  # (t, m, d)
+            return torch.bmm(rows, hf[:, :, None])[..., 0]
 
-    return sample_fixed_b(None, TopK(ids_clean, topk.values), nv, score_fn,
-                          l=l, m_cap=m_cap, c=c, k_valid=k_valid, draws=draws)
+        res = sample_fixed_b(None, TopK(ids_clean, topk.values), nv, score_fn,
+                             l=l, m_cap=m_cap, c=c, k_valid=k_valid,
+                             draws=draws)
+    if width is not None:
+        res = res._replace(width=width.long())
+    return res
 
 
 def _fused_tail_argmax(embf: torch.Tensor, hf: torch.Tensor,
@@ -168,18 +189,20 @@ def _fused_tail_argmax(embf: torch.Tensor, hf: torch.Tensor,
                                           ids_clean, plan.heights, hf)
     ok, bound = certificate(values, b, c, max_val, plan.overflow)
     return SampleResult(idx.long(), ok, plan.m_used, max_val, bound,
-                        plan.overflow)
+                        plan.overflow, torch.full_like(plan.m_used, -1))
 
 
 def dense_gumbel_max(emb: torch.Tensor, h: torch.Tensor, n_valid=None, *,
-                     keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact dense Gumbel-max per token: (ids (t,), perturbed max (t,))."""
+                     keys: torch.Tensor, stream: int = rng.STREAM_DENSE
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact dense Gumbel-max per token: (ids (t,), perturbed max (t,)),
+    the noise from ``stream`` of each token's ``keys`` row."""
     scores = h.float() @ emb.float().T
     if n_valid is not None:
         ok = torch.arange(emb.shape[0], device=emb.device) < n_valid
         scores = torch.where(ok[None, :], scores,
                              torch.full_like(scores, -math.inf))
-    return gumbel_max_dense(keys, scores, return_max=True)
+    return gumbel_max_dense(keys, scores, return_max=True, stream=stream)
 
 
 # --------------------------------------------------------------------------

@@ -52,6 +52,9 @@ class SampleResult(NamedTuple):
     max_val: torch.Tensor  # (t,) f32 — winning perturbed value
     bound: torch.Tensor  # (t,) f32 — S_min + c + B
     overflow: torch.Tensor  # (t,) bool — static tail buffer overflowed
+    width: torch.Tensor | None = None  # (t,) int64 — effective probe width
+    #   when the adaptive staged probe produced the top-k, -1 on fixed-width
+    #   paths (the serving engine bins it into stats["probe_width_hist"])
 
 
 class TailPlan(NamedTuple):
@@ -136,17 +139,18 @@ def gap_certificate(s_min: torch.Tensor, upper: torch.Tensor,
 
 def gumbel_max_dense(keys: torch.Tensor | None, y: torch.Tensor, *,
                      draws: torch.Tensor | None = None,
-                     return_max: bool = False):
+                     return_max: bool = False,
+                     stream: int = rng.STREAM_DENSE):
     """Brute-force Gumbel-max oracle per token: ``argmax_i y_i + G_i`` over
     the last axis of ``y (t, n)`` (linear time) -> (t,) int64 indices, and
     with ``return_max`` the perturbed maxima (t,) f32 as well. The noise
-    comes from ``keys`` ((t, 3) int64 rows, stream ``STREAM_DENSE``) or is
-    injected whole as ``draws`` ((t, n) f32). The first maximal index
-    wins."""
+    comes from ``keys`` ((t, 3) int64 rows, ``stream``: ``STREAM_DENSE``
+    unless a caller needs an independent one) or is injected whole as
+    ``draws`` ((t, n) f32). The first maximal index wins."""
     if draws is None:
         if keys is None:
             raise ValueError("gumbel_max_dense needs keys or draws")
-        draws = rng.gumbel(keys, y.shape[-1], rng.STREAM_DENSE)
+        draws = rng.gumbel(keys, y.shape[-1], stream)
     mx, idx = torch.max(y.float() + draws, dim=-1)
     return (idx, mx) if return_max else idx
 
@@ -166,7 +170,8 @@ def _finish(topk: TopK, score_fn: Callable[[torch.Tensor], torch.Tensor],
     max_val = torch.gather(pert, 1, best)[:, 0]
     ok, bound = certificate(topk.values, b, c, max_val, plan.overflow)
     return SampleResult(torch.gather(ids, 1, best)[:, 0], ok, plan.m_used,
-                        max_val, bound, plan.overflow)
+                        max_val, bound, plan.overflow,
+                        torch.full_like(plan.m_used, -1))
 
 
 def cutoff(n, k_valid: torch.Tensor, l: int) -> torch.Tensor:

@@ -284,7 +284,7 @@ class IVFIndex:
     def topk_adaptive(self, q: torch.Tensor, k: int, *, c: float = 0.0,
                       n_probe_init: int | None = None,
                       n_probe_max: int | None = None, fused: bool = False,
-                      init_stage: torch.Tensor | None = None
+                      init_stage: torch.Tensor | None = None, router=None
                       ) -> adaptive.AdaptiveTopK:
         """Certificate-gated staged probe: start at ``n_probe_init``
         clusters and widen geometrically, per query, until the gap
@@ -298,7 +298,9 @@ class IVFIndex:
         rows already done). Both take the same scores and tie-break, so
         they agree bit for bit; with init == max either equals
         :meth:`topk_batch` at that width bit for bit. ``init_stage``
-        starts rows further along the schedule."""
+        starts rows further along the schedule; ``router``
+        (:class:`repro_torch.models.router.ProbeRouter`) predicts it from
+        the centroid scores when it is not given."""
         st = self.state
         w_max, widths = _schedule(self.config, st.n_clusters, n_probe_init,
                                   n_probe_max)
@@ -306,6 +308,8 @@ class IVFIndex:
         c_scores = qf @ st.centroids.T  # (b, n_c)
         bound_table = adaptive.unprobed_bound_table(c_scores, st.radii, qf)
         _, probe = base.top_k(c_scores, w_max)
+        if router is not None and init_stage is None:
+            init_stage = router.init_stage(c_scores, qf, widths)
         if fused:
             o_scores = self._overflow_scores(qf)
 

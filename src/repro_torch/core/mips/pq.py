@@ -275,7 +275,7 @@ class IVFPQIndex:
     def topk_adaptive(self, q: torch.Tensor, k: int, *, c: float = 0.0,
                       n_probe_init: int | None = None,
                       n_probe_max: int | None = None, fused: bool = False,
-                      init_stage: torch.Tensor | None = None
+                      init_stage: torch.Tensor | None = None, router=None
                       ) -> adaptive.AdaptiveTopK:
         """Certificate-gated staged probe (see ``IVFIndex.topk_adaptive``).
         The certificate reads each stage's EXACT re-ranked values, for which
@@ -287,7 +287,8 @@ class IVFPQIndex:
         takes the top r and re-ranks them (``rerank_select``). Fused, each
         stage is ``pq_screen_select`` at the rows' widths, then
         ``rerank_select``. Both agree bit for bit; with init == max either
-        equals :meth:`topk_batch` at that width."""
+        equals :meth:`topk_batch` at that width. ``init_stage`` / ``router``
+        as for IVF."""
         st = self.state
         w_max, widths = _schedule(self.config, st.n_clusters, n_probe_init,
                                   n_probe_max)
@@ -295,6 +296,8 @@ class IVFPQIndex:
         c_scores, probe, coarse, lut, o_scores = self._screen_inputs(qf,
                                                                      w_max)
         bound_table = adaptive.unprobed_bound_table(c_scores, st.radii, qf)
+        if router is not None and init_stage is None:
+            init_stage = router.init_stage(c_scores, qf, widths)
         pool = w_max * st.cap + st.overflow_ids.shape[0]
         r = self._resolved_rerank(k, max(pool, k))
         if fused:

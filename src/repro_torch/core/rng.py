@@ -34,6 +34,7 @@ __all__ = [
     "STREAM_COMPLEMENT",
     "STREAM_HEIGHTS",
     "STREAM_DENSE",
+    "STREAM_STRICT",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -46,6 +47,8 @@ STREAM_POISSON = 1  # Exp(1) gaps whose partial sums give the Poisson count
 STREAM_COMPLEMENT = 2  # uniform indices into the complement of S
 STREAM_HEIGHTS = 3  # Exp(1) excess of the truncated-Gumbel tail heights
 STREAM_DENSE = 4  # Gumbel noise of the dense (exact-mode) sampler
+STREAM_STRICT = 5  # Gumbel noise of strict serving's exact re-sample of a
+#   token whose certificate failed (the reference folds 0x5743 into the key)
 
 
 class Draws(NamedTuple):

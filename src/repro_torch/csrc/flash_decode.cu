@@ -1,8 +1,22 @@
-// flash_decode: one-token GQA decode attention against a dense KV ring.
+// flash_decode: one-token GQA decode attention against a KV ring, dense
+// per sequence or paged in a shared block pool.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_decode.py::flash_decode
 // (grid (B, Hq, S/s_blk), online softmax over s_blk tiles, positions at or
 // past lengths[b] masked with -1e30, fp32 output).
+//
+// Two row addressings share one body (the RowAddr template below):
+//   * dense: sequence b's ring is (S, Hkv, hd) at k + b * S * Hkv * hd;
+//   * paged: the cache is a pool of (n_pool, block_len, Hkv, hd) blocks and
+//     sequence b's page table pages[b, :n_pages] maps ring row r to block
+//     pages[b, r / block_len], offset r % block_len (S = n_pages *
+//     block_len). Each block stages the page ids its 64-row split spans in
+//     shared memory once; a row's address is then one shared-memory read,
+//     a divide and a multiply-add. The reference gathers the ring view
+//     first; here the pool is read in place, so the bytes moved are the
+//     dense kernel's. Rows at or past lengths[b] are never read, so the
+//     pages past a sequence's length (the sentinel) are never dereferenced;
+//     their ids are clamped into the pool anyway.
 //
 // What bounds it on an H100: bytes. Each decoded token reads the K and V
 // rows of its sequence once, 2 * len * Hkv * hd * sizeof(T) bytes, and does
@@ -65,6 +79,68 @@ constexpr int kStages = 2;          // tiles in flight
 constexpr int kMaxDimsPerLane = 8;  // hd <= 256
 constexpr int kCombineThreads = 256;  // >= hd: one thread per output dim
 constexpr int kCombineChunk = 32;     // split records staged at a time
+
+// The page table of the paged layout (unused by the dense one).
+struct PageTable {
+  const int* pages;  // (B, n_pages) physical block per ring page
+  int n_pages;
+  int block_len;  // ring rows per block
+  int n_pool;     // blocks in the pool; page ids are clamped below it
+};
+
+// Element offset of ring row `row` of this block's (sequence, KV head) in
+// k / v: the dense ring's, or the paged pool's through the staged pages.
+template <bool kPaged>
+struct RowAddr;
+
+template <>
+struct RowAddr<false> {
+  size_t base;    // the sequence's ring, at its KV head
+  size_t stride;  // elements per ring row (Hkv * hd)
+  __device__ __forceinline__ size_t operator()(int row) const {
+    return base + static_cast<size_t>(row) * stride;
+  }
+};
+
+template <>
+struct RowAddr<true> {
+  const int* spages;  // shared memory: page ids from page0 on
+  int page0;
+  int block_len;
+  size_t head;    // kvh * hd
+  size_t stride;  // elements per pool row (Hkv * hd)
+  __device__ __forceinline__ size_t operator()(int row) const {
+    const int pg = row / block_len;
+    const size_t prow = static_cast<size_t>(spages[pg - page0]) * block_len +
+                        (row - pg * block_len);
+    return prow * stride + head;
+  }
+};
+
+// The row addressing of (sequence b, KV head kvh) for the split of rows
+// [row0, row0 + nrows). Paged: stages the split's page ids in spages
+// (kSplit ints: a 64-row split spans at most 64 pages) and syncs the block;
+// every thread of the block must call it.
+template <bool kPaged>
+__device__ __forceinline__ RowAddr<kPaged> row_addr(
+    const PageTable& pt, int* spages, int b, int kvh, int S, int Hkv, int hd,
+    int row0, int nrows) {
+  const size_t stride = static_cast<size_t>(Hkv) * hd;
+  if constexpr (kPaged) {
+    const int page0 = row0 / pt.block_len;
+    const int npg = (row0 + nrows - 1) / pt.block_len - page0 + 1;
+    const int* row_pages =
+        pt.pages + static_cast<size_t>(b) * pt.n_pages + page0;
+    for (int i = threadIdx.x; i < npg; i += blockDim.x)
+      spages[i] = min(max(row_pages[i], 0), pt.n_pool - 1);
+    __syncthreads();
+    return RowAddr<true>{spages, page0, pt.block_len,
+                         static_cast<size_t>(kvh) * hd, stride};
+  } else {
+    return RowAddr<false>{(static_cast<size_t>(b) * S * Hkv + kvh) * hd,
+                          stride};
+  }
+}
 
 template <typename T>
 __device__ __forceinline__ float to_float(T x);
@@ -173,12 +249,13 @@ __host__ __device__ __forceinline__ size_t q_bytes(int G, int hd) {
 // Workspace of one (sequence, query head): n_split records of hd + 2 floats
 // (acc[hd], m, l).
 // kDims: output dims per lane, ceil(hd / 32) rounded up to a power of two.
-template <typename T, int kDims>
+template <typename T, int kDims, bool kPaged>
 __global__ void __launch_bounds__(1024) flash_decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ lengths, float* __restrict__ ws, int S, int Hq,
-    int Hkv, int hd, int n_split, float scale, int vec) {
+    int Hkv, int hd, int n_split, float scale, int vec, PageTable pt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int spages[kPaged ? kSplit : 1];
   const int G = Hq / Hkv;
   const int split = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -200,10 +277,8 @@ __global__ void __launch_bounds__(1024) flash_decode_split_kernel(
   T* sKV = reinterpret_cast<T*>(smem_raw + q_bytes(G, hd));
   const size_t tile_elems = static_cast<size_t>(kTile) * ld;
 
-  const size_t row_stride = static_cast<size_t>(Hkv) * hd;
-  const size_t base = (static_cast<size_t>(b) * S * Hkv + kvh) * hd;
-  const T* kb = k + base;
-  const T* vb = v + base;
+  const RowAddr<kPaged> rows =
+      row_addr<kPaged>(pt, spages, b, kvh, S, Hkv, hd, row0, nrows);
   const int n_tiles = (nrows + kTile - 1) / kTile;
 
   // Stage tile t (rows row0 + t * kTile ...) into buffer t % kStages; one
@@ -220,17 +295,17 @@ __global__ void __launch_bounds__(1024) flash_decode_split_kernel(
         for (int i = tid; i < nr * cpr; i += nthr) {
           const int r = i / cpr;
           const int c = (i - r * cpr) * kE;
-          const size_t off = static_cast<size_t>(r0 + r) * row_stride + c;
-          cp_async16(sK + r * ld + c, kb + off);
-          cp_async16(sV + r * ld + c, vb + off);
+          const size_t off = rows(r0 + r) + c;
+          cp_async16(sK + r * ld + c, k + off);
+          cp_async16(sV + r * ld + c, v + off);
         }
       } else {
         for (int i = tid; i < nr * hd; i += nthr) {
           const int r = i / hd;
           const int c = i - r * hd;
-          const size_t off = static_cast<size_t>(r0 + r) * row_stride + c;
-          sK[r * ld + c] = kb[off];
-          sV[r * ld + c] = vb[off];
+          const size_t off = rows(r0 + r) + c;
+          sK[r * ld + c] = k[off];
+          sV[r * ld + c] = v[off];
         }
       }
     }
@@ -366,12 +441,14 @@ __host__ __device__ __forceinline__ size_t mma_smem(int Gp, int hd) {
   return kv + qb + ss + sp + sc;
 }
 
+template <bool kPaged>
 __global__ void __launch_bounds__(1024) flash_decode_split_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
     float* __restrict__ ws, int S, int Hq, int Hkv, int hd, int n_split,
-    float scale) {
+    float scale, PageTable pt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int spages[kPaged ? kSplit : 1];
   using bf16 = __nv_bfloat16;
   const int G = Hq / Hkv;
   const int Gp = (G + 7) & ~7;
@@ -399,10 +476,8 @@ __global__ void __launch_bounds__(1024) flash_decode_split_mma_kernel(
   bf16* sPl = sPh + Gp * kPPitch;
   float* sCorr = reinterpret_cast<float*>(sPl + Gp * kPPitch);
 
-  const size_t row_stride = static_cast<size_t>(Hkv) * hd;
-  const size_t base = (static_cast<size_t>(b) * S * Hkv + kvh) * hd;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
+  const RowAddr<kPaged> rows =
+      row_addr<kPaged>(pt, spages, b, kvh, S, Hkv, hd, row0, nrows);
   const int n_tiles = (nrows + kTile - 1) / kTile;
   const int cpr = hd / 8;  // 16-byte chunks per row
 
@@ -416,9 +491,9 @@ __global__ void __launch_bounds__(1024) flash_decode_split_mma_kernel(
         const int r = i / cpr;
         const int c = (i - r * cpr) * 8;
         if (r < nr) {
-          const size_t off = static_cast<size_t>(r0 + r) * row_stride + c;
-          cp_async16(sK + r * ld + c, kb + off);
-          cp_async16(sV + r * ld + c, vb + off);
+          const size_t off = rows(r0 + r) + c;
+          cp_async16(sK + r * ld + c, k + off);
+          cp_async16(sV + r * ld + c, v + off);
         } else {  // rows past the sequence: p is 0 there, and so must V be
           *reinterpret_cast<uint4*>(sV + r * ld + c) = make_uint4(0, 0, 0, 0);
         }
@@ -606,10 +681,10 @@ __global__ void __launch_bounds__(kCombineThreads)
   if (tid < hd) out[static_cast<size_t>(bh) * hd + tid] = acc / l;
 }
 
-template <typename T, int kDims>
+template <typename T, int kDims, bool kPaged>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
            float* out, float* ws, int B, int S, int Hq, int Hkv, int hd,
-           cudaStream_t stream) {
+           const PageTable& pt, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int n_split = (S + kSplit - 1) / kSplit;
   const int threads = 32 * (G < 4 ? 4 : G);
@@ -623,7 +698,7 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
       std::is_same<T, __nv_bfloat16>::value && vec && hd % 16 == 0;
   if (smem > 48 * 1024 && !use_mma) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_split_kernel<T, kDims>,
+        flash_decode_split_kernel<T, kDims, kPaged>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -634,21 +709,22 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
     const size_t smem_mma = mma_smem((G + 7) & ~7, hd);
     if (smem_mma > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
-          flash_decode_split_mma_kernel,
+          flash_decode_split_mma_kernel<kPaged>,
           cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem_mma));
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    flash_decode_split_mma_kernel<<<grid, threads, smem_mma, stream>>>(
+    flash_decode_split_mma_kernel<kPaged><<<grid, threads, smem_mma, stream>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), lengths, ws, S, Hq, Hkv, hd,
-        n_split, scale);
+        n_split, scale, pt);
   } else {
-    flash_decode_split_kernel<T, kDims><<<grid, threads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), lengths, ws, S, Hq, Hkv, hd, n_split,
-        scale, vec);
+    flash_decode_split_kernel<T, kDims, kPaged>
+        <<<grid, threads, smem, stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), lengths, ws, S, Hq, Hkv, hd, n_split,
+            scale, vec, pt);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -660,18 +736,22 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
 
 // The launch for q/k/v of type T, with as many output dims per lane as hd
 // needs.
-template <typename T>
+template <typename T, bool kPaged>
 int launch_dims(const void* q, const void* k, const void* v,
                 const int* lengths, float* out, float* ws, int B, int S,
-                int Hq, int Hkv, int hd, cudaStream_t s) {
+                int Hq, int Hkv, int hd, const PageTable& pt,
+                cudaStream_t s) {
   if (hd <= 32)
-    return launch<T, 1>(q, k, v, lengths, out, ws, B, S, Hq, Hkv, hd, s);
+    return launch<T, 1, kPaged>(q, k, v, lengths, out, ws, B, S, Hq, Hkv,
+                                hd, pt, s);
   if (hd <= 64)
-    return launch<T, 2>(q, k, v, lengths, out, ws, B, S, Hq, Hkv, hd, s);
+    return launch<T, 2, kPaged>(q, k, v, lengths, out, ws, B, S, Hq, Hkv,
+                                hd, pt, s);
   if (hd <= 128)
-    return launch<T, 4>(q, k, v, lengths, out, ws, B, S, Hq, Hkv, hd, s);
-  return launch<T, kMaxDimsPerLane>(q, k, v, lengths, out, ws, B, S, Hq, Hkv,
-                                    hd, s);
+    return launch<T, 4, kPaged>(q, k, v, lengths, out, ws, B, S, Hq, Hkv,
+                                hd, pt, s);
+  return launch<T, kMaxDimsPerLane, kPaged>(q, k, v, lengths, out, ws, B, S,
+                                            Hq, Hkv, hd, pt, s);
 }
 
 }  // namespace
@@ -690,8 +770,32 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   if (split_rows != kSplit) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PageTable none{nullptr, 0, 1, 1};
   if (dtype == 1)
-    return launch_dims<__nv_bfloat16>(q, k, v, lengths, out, ws, B, S, Hq,
-                                      Hkv, hd, s);
-  return launch_dims<float>(q, k, v, lengths, out, ws, B, S, Hq, Hkv, hd, s);
+    return launch_dims<__nv_bfloat16, false>(q, k, v, lengths, out, ws, B, S,
+                                             Hq, Hkv, hd, none, s);
+  return launch_dims<float, false>(q, k, v, lengths, out, ws, B, S, Hq, Hkv,
+                                   hd, none, s);
+}
+
+// The paged layout: k_pool / v_pool are (n_pool, block_len, Hkv, hd) and
+// pages (B, n_pages) int32 maps each sequence's ring pages to pool blocks;
+// the ring is S = n_pages * block_len rows (ws is sized with that S).
+// Otherwise as flash_decode_launch.
+extern "C" int flash_decode_paged_launch(
+    const void* q, const void* k_pool, const void* v_pool, const int* pages,
+    const int* lengths, float* out, float* ws, int B, int n_pages,
+    int block_len, int n_pool, int Hq, int Hkv, int hd, int split_rows,
+    int dtype, void* stream) {
+  if (split_rows != kSplit || block_len < 1 || n_pool < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PageTable pt{pages, n_pages, block_len, n_pool};
+  const int S = n_pages * block_len;
+  if (dtype == 1)
+    return launch_dims<__nv_bfloat16, true>(q, k_pool, v_pool, lengths, out,
+                                            ws, B, S, Hq, Hkv, hd, pt, s);
+  return launch_dims<float, true>(q, k_pool, v_pool, lengths, out, ws, B, S,
+                                  Hq, Hkv, hd, pt, s);
 }

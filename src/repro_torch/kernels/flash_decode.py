@@ -7,6 +7,13 @@ fp32 attention output ``(B, Hq, hd)``. Positions at or past ``lengths[b]``
 are masked. The plain version is :func:`repro_torch.kernels.ref
 .flash_decode_ref`.
 
+With ``pages`` ``(B, n_pages)`` the cache is a shared block pool ``(n_pool,
+block_len, Hkv, hd)`` and ring row ``r`` of sequence ``b`` lives in block
+``pages[b, r // block_len]`` at offset ``r % block_len``; the kernel reads
+the pool through the page table in place (its launches count as
+``flash_decode_paged``). Its plain version, :func:`repro_torch.kernels.ref
+.flash_decode_paged_ref`, gathers the ring view first.
+
 The kernel splits each sequence into ``SPLIT_ROWS``-row blocks and combines
 their partial softmax states in a second kernel, both enqueued by one C
 call; the output and the split workspace share one allocation.
@@ -19,7 +26,8 @@ from repro_torch.kernels import build
 
 __all__ = ["flash_decode", "launches"]
 
-launches = {"flash_decode": 0}  # kernel launches; reset by ops.reset_launch_counts
+# kernel launches (dense and paged layouts); reset by ops.reset_launch_counts
+launches = {"flash_decode": 0, "flash_decode_paged": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_ROWS = 64  # cache rows per split: the kernel's kSplit, which it checks
@@ -32,13 +40,24 @@ def workspace_floats(b: int, s: int, hq: int, hd: int) -> int:
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; raises on anything it does not take."""
+                 lengths: torch.Tensor, pages: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors; raises on anything it does not take.
+    ``pages``: the paged layout (``k_cache`` / ``v_cache`` are the pool)."""
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k_cache.shape)}"
                          f" v{tuple(v_cache.shape)}")
     b, hq, hd = q.shape
     bk, s, hkv, hdk = k_cache.shape
+    if pages is not None:
+        if pages.dim() != 2 or pages.shape[0] != b:
+            raise ValueError(f"pages {tuple(pages.shape)} must be ({b}, "
+                             "n_pages)")
+        n_pool, block_len = bk, s
+        s = pages.shape[1] * block_len  # the ring each page table spans
+        if n_pool < 1 or block_len < 1:
+            raise ValueError(f"empty pool {tuple(k_cache.shape)}")
+        bk = b
     if lengths.shape != (b,):
         raise ValueError(f"lengths {tuple(lengths.shape)} must be ({b},)")
     if bk != b or hdk != hd or hq % hkv or hq // hkv > 32 or hd > 256:
@@ -48,7 +67,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype}: "
                          "q, k and v must share float32 or bfloat16")
-    for t in (q, k_cache, v_cache, lengths):
+    for t in (q, k_cache, v_cache, lengths) + (() if pages is None
+                                                  else (pages,)):
         if not t.is_cuda:
             raise ValueError("flash_decode kernel needs CUDA tensors")
     q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
@@ -57,11 +77,23 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     buf = torch.empty(n_out + workspace_floats(b, s, hq, hd),
                       dtype=torch.float32, device=q.device)
     out = buf[:n_out].view(b, hq, hd)
-    fn = build.bind("flash_decode", "flash_decode_launch",
-                    [build.P] * 6 + [build.I] * 7 + [build.P])
+    ws = buf.data_ptr() + 4 * n_out
+    if pages is None:
+        fn = build.bind("flash_decode", "flash_decode_launch",
+                        [build.P] * 6 + [build.I] * 7 + [build.P])
+        err = fn(build.ptr(q), build.ptr(k_cache), build.ptr(v_cache),
+                 build.ptr(lengths), build.ptr(out), ws, b, s, hq, hkv, hd,
+                 SPLIT_ROWS, _DTYPES[q.dtype], build.stream())
+        build.check(err, "flash_decode")
+        launches["flash_decode"] += 1
+        return out
+    pages = pages.to(torch.int32).contiguous()
+    fn = build.bind("flash_decode", "flash_decode_paged_launch",
+                    [build.P] * 7 + [build.I] * 9 + [build.P])
     err = fn(build.ptr(q), build.ptr(k_cache), build.ptr(v_cache),
-             build.ptr(lengths), build.ptr(out), buf.data_ptr() + 4 * n_out,
-             b, s, hq, hkv, hd, SPLIT_ROWS, _DTYPES[q.dtype], build.stream())
-    build.check(err, "flash_decode")
-    launches["flash_decode"] += 1
+             build.ptr(pages), build.ptr(lengths), build.ptr(out), ws, b,
+             pages.shape[1], block_len, n_pool, hq, hkv, hd, SPLIT_ROWS,
+             _DTYPES[q.dtype], build.stream())
+    build.check(err, "flash_decode_paged")
+    launches["flash_decode_paged"] += 1
     return out

@@ -57,11 +57,14 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
 
 
-def flash_decode(q, k_cache, v_cache, lengths) -> torch.Tensor:
-    """(B,Hq,hd), (B,S,Hkv,hd) x2, (B,) -> (B,Hq,hd) f32."""
+def flash_decode(q, k_cache, v_cache, lengths, pages=None) -> torch.Tensor:
+    """(B,Hq,hd), (B,S,Hkv,hd) x2, (B,) -> (B,Hq,hd) f32; with ``pages``
+    (B,n_pages) the caches are the paged pool (n_pool,block_len,Hkv,hd)."""
     if _on_cuda(q, "flash_decode"):
-        return _fd.flash_decode(q, k_cache, v_cache, lengths)
-    return ref.flash_decode_ref(q, k_cache, v_cache, lengths)
+        return _fd.flash_decode(q, k_cache, v_cache, lengths, pages=pages)
+    if pages is None:
+        return ref.flash_decode_ref(q, k_cache, v_cache, lengths)
+    return ref.flash_decode_paged_ref(q, k_cache, v_cache, lengths, pages)
 
 
 def ivf_gather_score(member_vecs, member_ids, probe, q

@@ -18,6 +18,7 @@ from repro_torch.core.quant.pq import lut_scores
 
 __all__ = [
     "flash_decode_ref",
+    "flash_decode_paged_ref",
     "ivf_gather_score_ref",
     "pq_lut_score_ref",
     "topk_select_ref",
@@ -47,6 +48,22 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhs,bshd->bhd", p, vf)
+
+
+def flash_decode_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, lengths: torch.Tensor,
+                           pages: torch.Tensor) -> torch.Tensor:
+    """The paged layout: (B,Hq,hd), (n_pool,block_len,Hkv,hd) x2, (B,),
+    (B,n_pages) -> (B,Hq,hd) f32. Gathers each sequence's ring view through
+    its page table (page ids clamped into the pool, as the reference's
+    gather clamps its sentinel) and attends over it with
+    :func:`flash_decode_ref`."""
+    b, n_pages = pages.shape
+    block_len = k_pool.shape[1]
+    idx = torch.clamp(pages.long(), 0, k_pool.shape[0] - 1)
+    shape = (b, n_pages * block_len) + k_pool.shape[2:]
+    return flash_decode_ref(q, k_pool[idx].reshape(shape),
+                            v_pool[idx].reshape(shape), lengths)
 
 
 def ivf_gather_score_ref(member_vecs: torch.Tensor, member_ids: torch.Tensor,

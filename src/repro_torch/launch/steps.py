@@ -1,7 +1,8 @@
-"""Step functions (counterpart of ``repro/launch/steps.py``, dense layout):
-the train step with fp32 gradient accumulation, the fused multi-step train
-loop, per-slot sample keys, the slot-state transition, the decode window
-and batched prefill admission.
+"""Step functions (counterpart of ``repro/launch/steps.py``): the train
+step with fp32 gradient accumulation, the fused multi-step train loop,
+per-slot sample keys, the slot-state transition, the decode window and
+batched prefill admission (dense or paged KV layout, optionally strict),
+and the single-step serving steps the reference engine runs.
 
 Where the reference scans a decode window or a train window inside one
 jitted dispatch, the port loops over it in Python; state stays on the
@@ -17,8 +18,9 @@ from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 
 __all__ = ["TrainConfig", "token_keys", "make_train_step",
-           "make_train_loop_step", "slot_keys", "make_decode_loop_step",
-           "make_prefill_into_cache_step"]
+           "make_train_loop_step", "slot_keys", "make_serve_step",
+           "make_decode_loop_step", "make_prefill_into_cache_step",
+           "make_reference_serve_step", "make_prefill_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +145,18 @@ def make_train_loop_step(model: Model, tcfg: TrainConfig):
     return loop_step
 
 
+def make_serve_step(model: Model):
+    """``serve_step(params, cache, ids, pos, keys, index=None) -> (next_ids,
+    ok, cache, pos + 1)``: one decode step with explicit per-slot keys."""
+
+    def serve_step(params, cache, ids, pos, keys, index=None):
+        nxt, ok, cache, _ = model.decode_step(params, cache, ids, pos, index,
+                                              keys=keys)
+        return nxt, ok, cache, pos + 1
+
+    return serve_step
+
+
 def slot_keys(seed: int, rids: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Per-slot sample keys: (B, 3) int64 rows (seed, request id, position)
     for the counter-based generator (:mod:`repro_torch.core.rng`).
@@ -175,42 +189,64 @@ def _advance(state: dict, nxt: torch.Tensor, eos_id: int, max_seq: int
 
 
 def make_decode_loop_step(model: Model, window: int, eos_id: int,
-                          max_seq: int):
-    """``decode_loop(params, cache, state, seed, index=None) -> (cache,
-    state, tokens (T,B), ok (T,B), emitted (T,B))``: ``window`` decode steps
-    with per-slot active masks and on-device EOS / length-budget checks."""
+                          max_seq: int, strict: bool = False,
+                          paged: bool = False):
+    """``decode_loop(params, cache, state, seed, index=None, router=None) ->
+    (cache, state, tokens (T,B), ok (T,B), emitted (T,B), widths (T,B))``:
+    ``window`` decode steps with per-slot active masks and on-device EOS /
+    length-budget checks.
 
-    def decode_loop(params, cache, state, seed: int, index=None):
-        toks, oks, emitted = [], [], []
+    ``widths`` is each token's effective probe width under the head's
+    adaptive probe (-1 on fixed-width paths); ``router`` goes to each step's
+    head. ``strict`` re-samples certificate-failed live tokens exactly.
+    ``paged`` reads the slot page tables from ``state["pages"]`` ((B,
+    n_pages) physical-block ids, sentinel for unallocated) and passes each
+    slot's ``active`` flag as the KV ``write_mask``: a retired slot's blocks
+    may already belong to another request, so its writes go to the sink."""
+
+    def decode_loop(params, cache, state, seed: int, index=None,
+                    router=None):
+        toks, oks, emitted, widths = [], [], [], []
         for _ in range(window):
             keys = slot_keys(seed, state["rid"], state["pos"])
-            nxt, ok, cache = model.decode_step(params, cache, state["ids"],
-                                               state["pos"], index, keys=keys)
+            nxt, ok, cache, width = model.decode_step(
+                params, cache, state["ids"], state["pos"], index, keys=keys,
+                strict=strict, strict_live=state["active"], router=router,
+                pages=state["pages"] if paged else None,
+                write_mask=state["active"] if paged else None)
             state, em = _advance(state, nxt, eos_id, max_seq)
             toks.append(state["ids"])
             oks.append(ok)
             emitted.append(em)
+            widths.append(width)
         return (cache, state, torch.stack(toks), torch.stack(oks),
-                torch.stack(emitted))
+                torch.stack(emitted), torch.stack(widths))
 
     return decode_loop
 
 
 def make_prefill_into_cache_step(model: Model, max_seq: int, eos_id: int,
-                                 max_new_tokens: int):
+                                 max_new_tokens: int, strict: bool = False,
+                                 paged: bool = False):
     """``prefill_admit(params, cache, state, tokens (Bn,Lp), lengths, slots,
-    rids, seed, index=None) -> (cache, state, first_ids, ok)``.
+    rids, seed, index=None, pages=None) -> (cache, state, first_ids, ok)``.
 
     Writes each admitted prompt's KV ring straight into its slot, samples
     the first output token and commits the slot records on the device.
-    Rows with slot >= B are admission padding: their writes are dropped."""
+    Rows with slot >= B are admission padding: their writes are dropped.
+    ``paged``: ``pages`` ((Bn, n_pages) physical blocks per admitted row,
+    sentinel-filled for pad rows) routes the rings into the shared pool and
+    is committed into ``state["pages"]`` at each row's slot, where the
+    decode loop walks it."""
 
     def prefill_admit(params, cache, state, tokens, lengths, slots, rids,
-                      seed: int, index=None):
+                      seed: int, index=None, pages=None):
         lengths = lengths.long()
         keys = slot_keys(seed, rids, lengths - 1)
         nxt, ok, cache = model.prefill_into_cache(
-            params, cache, tokens, lengths, slots, keys, max_seq, index)
+            params, cache, tokens, lengths, slots, keys, max_seq, index,
+            strict=strict, strict_live=rids >= 0,  # pad rows sample garbage
+            pages=pages if paged else None)
         budget = torch.full_like(lengths, max_new_tokens - 1)
         eos_hit = (nxt == eos_id) if eos_id >= 0 else torch.zeros_like(ok)
         alive = ~(eos_hit | (budget <= 0) | (lengths + 1 > max_seq - 1))
@@ -218,9 +254,40 @@ def make_prefill_into_cache_step(model: Model, max_seq: int, eos_id: int,
         keep = torch.nonzero(slots < b)[:, 0]
         sel = slots[keep].long()
         new = {name: t.clone() for name, t in state.items()}
-        for name, val in (("ids", nxt), ("pos", lengths), ("active", alive),
-                          ("budget", budget), ("rid", rids)):
+        vals = [("ids", nxt), ("pos", lengths), ("active", alive),
+                ("budget", budget), ("rid", rids)]
+        if paged:
+            vals.append(("pages", pages))
+        for name, val in vals:
             new[name][sel] = val[keep].to(new[name].dtype)
         return cache, new, nxt, ok
 
     return prefill_admit
+
+
+def make_reference_serve_step(model: Model, strict: bool = False):
+    """Single-token serve step with the engine's key derivation:
+    ``serve_step(params, cache, ids, pos, rids, seed, index=None,
+    router=None) -> (next_ids, ok, cache, pos + 1, width)``. The
+    teacher-forced comparator the engine is held against (same samples,
+    one step per token)."""
+
+    def serve_step(params, cache, ids, pos, rids, seed: int, index=None,
+                   router=None, pages=None, write_mask=None):
+        keys = slot_keys(seed, rids, pos)
+        nxt, ok, cache, width = model.decode_step(
+            params, cache, ids, pos, index, keys=keys, strict=strict,
+            router=router, pages=pages, write_mask=write_mask)
+        return nxt, ok, cache, pos + 1, width
+
+    return serve_step
+
+
+def make_prefill_step(model: Model, max_seq: int):
+    """``prefill_step(params, batch, keys, index=None) -> (next_ids, ok,
+    pos, cache)``: :meth:`repro_torch.models.model.Model.prefill`."""
+
+    def prefill_step(params, batch, keys, index=None):
+        return model.prefill(params, batch, keys, max_seq, index)
+
+    return prefill_step

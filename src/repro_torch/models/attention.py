@@ -1,5 +1,6 @@
-"""GQA attention with a dense ring-buffer KV cache (counterpart of
-``repro/models/attention.py``, attention family, dense layout).
+"""GQA attention with a ring-buffer KV cache, dense per slot or paged in a
+shared block pool (counterpart of ``repro/models/attention.py``, attention
+family).
 
 Prefill attention is plain PyTorch: fp32 scores with the causal (and
 sliding-window) mask, fp32 softmax, output cast back to the compute dtype
@@ -8,7 +9,8 @@ forward (:func:`forward`) uses :func:`blockwise_attention`, the reference's
 online softmax over KV blocks with each query block recomputed in the
 backward pass, so the (L, L) score matrix never exists whole. Decode
 attention goes through the ``flash_decode`` kernel
-(:mod:`repro_torch.kernels.ops`).
+(:mod:`repro_torch.kernels.ops`), which walks the page table itself on the
+paged layout.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dense_init, rope
 
 __all__ = ["init", "attention", "blockwise_attention", "forward", "prefill",
-           "init_cache", "decode"]
+           "init_cache", "init_pool", "cache_bytes_per_slot", "decode"]
 
 _NEG = -1e30
 
@@ -227,25 +229,73 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
-           pos: torch.Tensor, *, window: int | None = None
-           ) -> tuple[torch.Tensor, dict]:
-    """Single-token decode against the dense per-slot KV ring.
+def init_pool(cfg: ArchConfig, n_blocks: int, block_len: int, dtype,
+              device=None) -> dict:
+    """Zeroed shared paged KV pool: ``n_blocks`` blocks of ``block_len``
+    positions, owned by no slot, plus one sink block at id ``n_blocks``
+    (the page tables' sentinel), so ``(n_blocks + 1, block_len, KV, hd)``
+    per leaf. The sink takes the writes the reference's out-of-range
+    scatter drops (sentinel pages, rows whose ``write_mask`` is False)
+    without a host-side filter; nothing reads it below a row's
+    ``lengths``."""
+    shape = (n_blocks + 1, block_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
-    The new token's K/V are written IN PLACE at ring slot ``pos % s_c`` of
-    ``cache`` (the reference returns an updated copy; overwriting saves a
-    full cache copy per layer and step), then ``flash_decode`` attends over
-    the first ``min(pos + 1, s_c)`` slots.
+
+def cache_bytes_per_slot(cfg: ArchConfig, max_seq: int, dtype,
+                         window: int | None = None) -> int:
+    """Device bytes ONE dense slot reserves for this layer's KV ring: what
+    the paged pool frees serving from."""
+    win = cfg.window if window is None else window
+    s_c = min(win, max_seq) if win else max_seq
+    itemsize = torch.empty((), dtype=dtype, device="meta").element_size()
+    return 2 * s_c * cfg.n_kv_heads * cfg.head_dim * itemsize
+
+
+def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
+           pos: torch.Tensor, *, window: int | None = None,
+           pages: torch.Tensor | None = None,
+           write_mask: torch.Tensor | None = None
+           ) -> tuple[torch.Tensor, dict]:
+    """Single-token decode against a per-slot KV ring OR a paged pool.
+
+    Dense (``pages=None``): ``cache`` leaves are ``(B, s_c, KV, hd)`` rings
+    owned by their slot; the new token's K/V are written IN PLACE at ring
+    slot ``pos % s_c`` (the reference returns an updated copy; overwriting
+    saves a full cache copy per layer and step).
+
+    Paged: ``cache`` leaves are the shared ``(n_blocks + 1, block_len, KV,
+    hd)`` pool and ``pages[b, i]`` names the physical block behind slot
+    ``b``'s i-th ring page (``s_c = n_pages * block_len``): the write goes
+    to block ``pages[b, (pos % s_c) // block_len]`` at offset ``(pos % s_c)
+    % block_len``, or to the sink block ``n_blocks`` for rows whose
+    ``write_mask`` is False (retired slots, whose blocks may already belong
+    to another request). ``flash_decode`` then attends over the first
+    ``min(pos + 1, s_c)`` ring rows through the page table, reading the
+    pool in place (no gathered view).
     """
     b = x.shape[0]
     dt = x.dtype
-    s_c = cache["k"].shape[1]
     q, k, v = _qkv(p, cfg, x, pos[:, None])
-    slot = torch.remainder(pos.long(), s_c)
     ar = torch.arange(b, device=x.device)
-    cache["k"][ar, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][ar, slot] = v[:, 0].to(cache["v"].dtype)
+    if pages is None:
+        s_c = cache["k"].shape[1]
+        slot = torch.remainder(pos.long(), s_c)
+        cache["k"][ar, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][ar, slot] = v[:, 0].to(cache["v"].dtype)
+    else:
+        sink, block_len = cache["k"].shape[0] - 1, cache["k"].shape[1]
+        s_c = pages.shape[1] * block_len
+        slot = torch.remainder(pos.long(), s_c)
+        phys = pages.long()[ar, slot // block_len]
+        if write_mask is not None:  # retired slot: its blocks may be reowned
+            phys = torch.where(write_mask, phys, torch.full_like(phys, sink))
+        off = slot % block_len
+        cache["k"][phys, off] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][phys, off] = v[:, 0].to(cache["v"].dtype)
     lengths = torch.clamp(pos + 1, max=s_c).to(torch.int32)
-    o = ops.flash_decode(q[:, 0], cache["k"], cache["v"], lengths)
+    o = ops.flash_decode(q[:, 0], cache["k"], cache["v"], lengths,
+                         pages=pages)
     out = o.to(dt).reshape(b, 1, cfg.d_attn) @ p["wo"].to(dt)
     return out, cache

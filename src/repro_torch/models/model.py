@@ -133,31 +133,73 @@ class Model:
         return total, {"nll": nll, "aux": aux, "log_z": out.log_z.mean()}
 
     # ---------------------------------------------------------------- decode
-    def init_cache(self, batch: int, max_seq: int, dtype=None) -> list:
+    def init_cache(self, batch: int, max_seq: int, dtype=None,
+                   paged: "transformer.PagedLayout | None" = None) -> list:
+        """``paged`` swaps the KV leaves for the shared block pool
+        (:func:`repro_torch.models.transformer.init_cache`)."""
         dtype = self.compute_dtype if dtype is None else dtype
         return transformer.init_cache(self.cfg, batch, max_seq, dtype,
-                                      device=self.device)
+                                      device=self.device, paged=paged)
+
+    def _sample(self, params, hq, index, keys, draws, strict, strict_live,
+                router) -> ah.SampleResult:
+        return ah.head_sample(self._out_embed(params), hq, self.head_cfg,
+                              index, keys=keys, draws=draws, strict=strict,
+                              strict_live=strict_live, router=router)
 
     def decode_step(self, params, cache, ids: torch.Tensor, pos: torch.Tensor,
                     index=None, *, keys: torch.Tensor | None = None,
-                    draws=None) -> tuple[torch.Tensor, torch.Tensor, Any]:
+                    draws=None, strict: bool = False, strict_live=None,
+                    router=None, pages: torch.Tensor | None = None,
+                    write_mask: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, Any, torch.Tensor]:
         """One serving step: (B,) last ids + (B,) positions -> (next ids
-        (B,), ok (B,), cache updated in place).
+        (B,), ok (B,), cache updated in place, width (B,)).
+
+        ``width`` is each slot's effective probe width under the head's
+        certificate-gated adaptive probe, -1 on fixed-width paths; ``router``
+        (:class:`repro_torch.models.router.ProbeRouter`) predicts each
+        slot's starting stage. ``strict`` re-samples certificate-failed
+        tokens exactly (:func:`repro_torch.core.amortized_head.head_sample`;
+        ``strict_live`` marks the live rows).
 
         ``keys`` ((B, 3) int64, :func:`repro_torch.launch.steps.slot_keys`)
         makes each slot's sample a function of (request id, position)
-        alone; ``draws`` injects the raw random numbers instead."""
+        alone; ``draws`` injects the raw random numbers instead.
+
+        ``pages`` ((B, n_pages) page table) switches the KV leaves to the
+        paged pool; ``write_mask`` ((B,) bool, the engine's ``active``
+        flags) sends retired slots' KV writes to the pool's sink block, so
+        recycled blocks are never overwritten."""
         x = params["embed"][ids][:, None].to(self.compute_dtype)  # (B, 1, d)
-        h, cache = transformer.apply_trunk_decode(params, self.cfg, x, cache,
-                                                  pos)
-        res = ah.head_sample(self._out_embed(params), h[:, 0], self.head_cfg,
-                             index, keys=keys, draws=draws)
-        return res.index, res.ok, cache
+        h, cache = transformer.apply_trunk_decode(
+            params, self.cfg, x, cache, pos, pages=pages,
+            write_mask=write_mask)
+        res = self._sample(params, h[:, 0], index, keys, draws, strict,
+                           strict_live, router)
+        return res.index, res.ok, cache, res.width
+
+    def prefill(self, params, batch: dict, keys: torch.Tensor | None,
+                max_seq: int, index=None, *, draws=None
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, list]:
+        """Prompt forward + cache build + first sampled token for a batch
+        of equal-length prompts ``batch["tokens"]`` (B, L) -> (next ids
+        (B,), ok (B,), pos (B,) = L, cache (leaves (layers, B, s_c, KV,
+        hd)))."""
+        x, pos, _ = self._embed_inputs(params, batch)
+        b, l, _ = x.shape
+        h, cache = transformer.apply_trunk_prefill(params, self.cfg, x, pos,
+                                                   max_seq=max_seq)
+        res = self._sample(params, h[:, -1], index, keys, draws, False, None,
+                           None)
+        return (res.index, res.ok,
+                torch.full((b,), l, dtype=torch.int64, device=x.device), cache)
 
     def prefill_into_cache(self, params, cache, tokens: torch.Tensor,
                            lengths: torch.Tensor, slots: torch.Tensor,
                            keys: torch.Tensor | None, max_seq: int,
-                           index=None, *, draws=None
+                           index=None, *, draws=None, strict: bool = False,
+                           strict_live=None, pages: torch.Tensor | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor, Any]:
         """Batched prefill written straight into serving-cache slots.
 
@@ -165,7 +207,9 @@ class Model:
         ``tokens`` (Bn, Lp), builds each row's KV ring as of its true
         ``lengths[b]``, writes it into ``cache`` at ``slots[b]`` (rows with
         slot >= B are admission padding and dropped) and samples the first
-        output token from the last valid hidden state.
+        output token from the last valid hidden state. ``pages`` ((Bn,
+        n_pages) physical blocks per row, sentinel-filled for pad rows)
+        routes each ring into the paged pool instead.
 
         Returns (next ids (Bn,), ok (Bn,), cache)."""
         x = params["embed"][tokens].to(self.compute_dtype)  # (Bn, Lp, d)
@@ -175,7 +219,8 @@ class Model:
             params, self.cfg, x, pos, max_seq=max_seq, lengths=lengths)
         last = (lengths.to(x.device).long() - 1)
         hq = h[torch.arange(b, device=x.device), last]  # (Bn, d)
-        res = ah.head_sample(self._out_embed(params), hq, self.head_cfg,
-                             index, keys=keys, draws=draws)
-        cache = transformer.insert_cache_slots(cache, part, slots)
+        res = self._sample(params, hq, index, keys, draws, strict,
+                           strict_live, None)
+        cache = transformer.insert_cache_slots(cache, part, slots,
+                                               pages=pages)
         return res.index, res.ok, cache

@@ -10,10 +10,15 @@ non-reentrant ``torch.utils.checkpoint`` where the reference wraps each scan
 step in ``jax.checkpoint`` (``REMAT``): only layer-boundary activations are
 kept for the backward pass.
 KV caches mirror the same structure, ``(layers, B, s_c, KV, hd)`` per leaf,
-and decode updates them in place.
+and decode updates them in place. The paged layout (:class:`PagedLayout`)
+swaps each leaf for a shared block pool ``(layers, n_blocks + 1, block_len,
+KV, hd)`` addressed through per-slot page tables; its last block is the
+sink that takes the writes a page table does not map (see
+:func:`repro_torch.models.attention.init_pool`).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -32,6 +37,8 @@ __all__ = [
     "insert_cache_slots",
     "init_cache",
     "apply_trunk_decode",
+    "PagedLayout",
+    "ring_len",
 ]
 
 
@@ -47,6 +54,39 @@ def check_supported(cfg: ArchConfig) -> None:
             f"{cfg.name}: only attention-family decoder configs "
             "(layer_pattern='attn', no MoE, no frontend) are ported so far"
         )
+
+
+def ring_len(cfg: ArchConfig, max_seq: int) -> int:
+    """KV ring length s_c of the attention layers: what a slot's page table
+    must cover (``n_pages * block_len == s_c``)."""
+    return min(cfg.window, max_seq) if cfg.window else max_seq
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedLayout:
+    """Paged-pool geometry for the attention KV cache.
+
+    ``n_blocks`` physical blocks of ``block_len`` positions are shared by
+    all serving slots; a per-slot page table of ``ring_len(cfg, max_seq) //
+    block_len`` entries maps ring pages onto physical blocks. Block id
+    ``n_blocks`` is the sentinel for unallocated pages: the pool holds one
+    more block there, the sink, which takes the writes of sentinel pages and
+    of masked rows and is never read below a row's ``lengths``."""
+
+    block_len: int
+    n_blocks: int
+
+    def n_pages(self, cfg: ArchConfig, max_seq: int) -> int:
+        s_c = ring_len(cfg, max_seq)
+        if s_c % self.block_len:
+            raise ValueError(
+                f"block_len={self.block_len} must divide the KV ring length "
+                f"s_c={s_c} (window/max_seq geometry)")
+        return s_c // self.block_len
+
+    @property
+    def sentinel(self) -> int:
+        return self.n_blocks
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
@@ -157,12 +197,31 @@ def apply_trunk_prefill(params: dict, cfg: ArchConfig, x: torch.Tensor,
     return h, [{"0": {"k": torch.stack(ks), "v": torch.stack(vs)}}]
 
 
-def insert_cache_slots(full: list, part: list, slots: torch.Tensor) -> list:
+def insert_cache_slots(full: list, part: list, slots: torch.Tensor, *,
+                       pages: torch.Tensor | None = None) -> list:
     """Write a prefill-built cache ``part`` (leaves (layers, Bn, ...)) into
     batch slots of the serving cache ``full`` (leaves (layers, B, ...)), in
     place. The slot's whole ring is replaced, so a recycled slot carries
     nothing over. Rows whose slot id is >= B (admission padding) are
-    dropped, as the reference's out-of-range scatter drops them."""
+    dropped, as the reference's out-of-range scatter drops them.
+
+    Paged layout (``pages`` (Bn, n_pages) given): ``full``'s leaves are the
+    shared pool (layers, n_blocks + 1, block_len, KV, hd); each row's ring
+    (layers, Bn, s_c, KV, hd) is cut into pages and written to its physical
+    blocks ``pages[b, i]``. Sentinel entries (``n_blocks``: unallocated
+    pages, admission pad rows) land in the sink block, where the reference's
+    scatter drops them, so no index is filtered on the host."""
+    if pages is not None:
+        pages = pages.long()
+        for g_full, g_part in zip(full, part):
+            for name, f in g_full["0"].items():
+                p = g_part["0"][name]
+                lyr, bn = p.shape[:2]
+                block_len = f.shape[2]
+                pr = p.reshape((lyr, bn, pages.shape[1], block_len)
+                               + p.shape[3:])
+                f[:, pages.to(f.device)] = pr.to(f.dtype)
+        return full
     for g_full, g_part in zip(full, part):
         for name, f in g_full["0"].items():
             p = g_part["0"][name]
@@ -172,20 +231,30 @@ def insert_cache_slots(full: list, part: list, slots: torch.Tensor) -> list:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
-               device=None) -> list:
+               device=None, paged: PagedLayout | None = None) -> list:
     """Zeroed serving cache, ``[{"0": {"k", "v"}}]`` with leaves (layers,
-    batch, s_c, KV, hd)."""
+    batch, s_c, KV, hd); with ``paged``, the shared block pool (layers,
+    n_blocks + 1, block_len, KV, hd) instead, batch-free (the slot -> block
+    map is the page table handed to decode and insert)."""
     check_supported(cfg)
-    one = attention.init_cache(cfg, batch, max_seq, dtype, device="meta")
+    if paged is not None:
+        paged.n_pages(cfg, max_seq)  # validate the geometry
+        one = attention.init_pool(cfg, paged.n_blocks, paged.block_len,
+                                  dtype, device="meta")
+    else:
+        one = attention.init_cache(cfg, batch, max_seq, dtype, device="meta")
     return [{"0": {k: torch.zeros((cfg.n_layers,) + v.shape, dtype=dtype,
                                   device=device) for k, v in one.items()}}]
 
 
 def apply_trunk_decode(params: dict, cfg: ArchConfig, x: torch.Tensor,
-                       caches: list, pos: torch.Tensor
+                       caches: list, pos: torch.Tensor, *,
+                       pages: torch.Tensor | None = None,
+                       write_mask: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, list]:
     """(B, 1, d) embedded tokens at positions ``pos`` (B,) -> (final-normed
-    h (B, 1, d), caches updated in place)."""
+    h (B, 1, d), caches updated in place). ``pages`` / ``write_mask``: the
+    paged layout (:func:`repro_torch.models.attention.decode`)."""
     (group,) = params["blocks"]
     stack = group["0"]
     cache = caches[0]["0"]
@@ -195,7 +264,7 @@ def apply_trunk_decode(params: dict, cfg: ArchConfig, x: torch.Tensor,
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
         mix, _ = attention.decode(
             p["mix"], cfg, rms_norm(h, p["norm1"], cfg.norm_eps), layer_cache,
-            pos, window=cfg.window,
+            pos, window=cfg.window, pages=pages, write_mask=write_mask,
         )
         h = _mlp(p, cfg, h + mix)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), caches

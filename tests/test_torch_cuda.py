@@ -7,7 +7,9 @@ backward's tile of h, one table row, PQ subspace counts 4, 8
 and 16, codebooks narrower than 256; flash_decode lengths around its split
 of the sequence, query-group sizes 1 to 32 and head dims 16 to 256;
 duplicate, out-of-range and piled-up IVF probes, the IVF probe at the
-paper's caps (3,400 rows a cluster at d 256, 4,248 at d 300); the split IVF screen at
+paper's caps (3,400 rows a cluster at d 256, 4,248 at d 300); the paged flash_decode with block
+lengths 1 to 128 over permuted pools, sentinel pages and rows past each
+length poisoned with NaN; the split IVF screen at
 1 to 256 queries, pools at and past a power of two and up to its 16,384
 slots, k from 1 to past the pool, probe widths 0 to past n_probe, dead
 cluster tails; the same for the split IVF-PQ screen; the split tail argmax
@@ -127,6 +129,82 @@ def test_flash_decode_batch_of_four_is_bitwise_per_sequence(gen):
         alone = flash_decode.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1],
                                           lengths[i:i + 1])
         assert torch.equal(alone[0], got[i])
+
+
+def _paged(gen, dtype, b, n_pages, block_len, hkv, hd, lengths, extra=3):
+    """A permuted block pool (one sink block last) and page tables: each
+    sequence's pages past its length hold the sentinel (the sink's id)."""
+    n_blocks = b * n_pages + extra
+    shape = (n_blocks + 1, block_len, hkv, hd)
+    kp = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    perm = torch.randperm(n_blocks, generator=gen, device="cuda")
+    pages = perm[: b * n_pages].view(b, n_pages).int()
+    live = -(-lengths.long() // block_len)  # pages a sequence's rows touch
+    page = torch.arange(n_pages, device="cuda")[None]
+    pages = torch.where((page < live[:, None]) | (lengths[:, None] == 0),
+                        pages, n_blocks)
+    return kp, vp, pages.int()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,hd", [(32, 4, 64), (8, 8, 128), (4, 2, 24)])
+@pytest.mark.parametrize("block_len", [1, 16, 48, 64, 128])
+def test_flash_decode_paged_kernel(gen, dtype, hq, hkv, hd, block_len):
+    """The paged layout against its plain version (gather + dense plain
+    version), and bit for bit against the dense kernel over the gathered
+    view: the same rows in the same order, so the same arithmetic. Lengths
+    0 (every row, sentinels clamped into the pool), 1, within a split,
+    across splits and full; block_len 1 to past the kernel's split."""
+    b, n_pages = 5, -(-200 // block_len)
+    s = n_pages * block_len
+    lengths = torch.tensor([0, 1, 63, 130, s], device="cuda",
+                           dtype=torch.int32)
+    q = torch.randn((b, hq, hd), generator=gen, device="cuda").to(dtype)
+    kp, vp, pages = _paged(gen, dtype, b, n_pages, block_len, hkv, hd,
+                           lengths)
+    n0 = flash_decode.launches["flash_decode_paged"]
+    got = ops.flash_decode(q, kp, vp, lengths, pages=pages)
+    assert flash_decode.launches["flash_decode_paged"] == n0 + 1
+    want = ref.flash_decode_paged_ref(q, kp, vp, lengths, pages)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+    idx = pages.long().clamp(max=kp.shape[0] - 1)
+    view = (b, s, hkv, hd)
+    dense = flash_decode.flash_decode(q, kp[idx].reshape(view),
+                                      vp[idx].reshape(view), lengths)
+    assert torch.equal(got, dense)
+    assert torch.equal(flash_decode.flash_decode(q, kp, vp, lengths,
+                                                 pages=pages), got)
+
+
+@pytest.mark.parametrize("block_len", [16, 64])
+def test_flash_decode_paged_never_reads_past_lengths(gen, block_len):
+    """NaN in the sink block and in every block a sequence does not own:
+    a row at or past lengths[b] read by the kernel would poison its output
+    (a -1e30 score weighs 0, but 0 * NaN is NaN). Tinyllama's heads, bf16
+    (tensor cores) and fp32."""
+    b, hq, hkv, hd, n_pages = 4, 32, 4, 64, 2048 // block_len
+    lengths = torch.tensor([1, 700, 2047, 2048], device="cuda",
+                           dtype=torch.int32)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((b, hq, hd), generator=gen, device="cuda").to(dtype)
+        kp, vp, pages = _paged(gen, dtype, b, n_pages, block_len, hkv, hd,
+                               lengths)
+        want = ref.flash_decode_paged_ref(q, kp, vp, lengths, pages)
+        owned = torch.zeros(kp.shape[0], dtype=torch.bool, device="cuda")
+        owned[pages.long().flatten()] = True
+        owned[-1] = False  # the sink
+        # rows past each length inside a sequence's last block stay live
+        # data of that block; poison every row no sequence may read
+        for i in range(b):
+            last = (int(lengths[i]) - 1) // block_len
+            blk = int(pages[i, last])
+            kp[blk, int(lengths[i]) - last * block_len:] = float("nan")
+            vp[blk, int(lengths[i]) - last * block_len:] = float("nan")
+        kp[~owned], vp[~owned] = float("nan"), float("nan")
+        got = flash_decode.flash_decode(q, kp, vp, lengths, pages=pages)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
 
 
 def _tables(gen, n_c=12, cap=40, d=64, b=5, n_probe=4, o_cap=24):
@@ -592,6 +670,10 @@ def test_kernels_reject_bad_inputs(gen):
     with pytest.raises(ValueError, match="lengths"):
         flash_decode.flash_decode(torch.zeros(2, 2, 8, device="cuda"), kv, kv,
                                   torch.ones(1, device="cuda"))
+    with pytest.raises(ValueError, match="pages"):
+        flash_decode.flash_decode(torch.zeros(2, 2, 8, device="cuda"), kv, kv,
+                                  torch.ones(2, device="cuda"),
+                                  pages=torch.zeros(3, 2, device="cuda"))
     codes, mids, coarse, o_sc, o_ids, probe, lut = _pq_tables(gen)
     with pytest.raises(ValueError, match="ksub"):
         pq_lut_score.pq_lut_score(codes, probe, torch.zeros(

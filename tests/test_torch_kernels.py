@@ -179,12 +179,22 @@ def test_ops_dispatch_cpu_uses_plain_versions_and_counts_no_launch():
     out = ops.flash_decode(q, kv, kv, torch.tensor([2, 5]))
     assert torch.equal(out, ref.flash_decode_ref(q, kv, kv,
                                                  torch.tensor([2, 5])))
+    # the paged layout: a pool of 3 blocks of 2 rows (the last the sink),
+    # page tables that reorder them
+    pool = torch.randn(3, 2, 2, 8)
+    pages = torch.tensor([[1, 0, 2], [0, 2, 2]])
+    out = ops.flash_decode(q, pool, pool, torch.tensor([3, 2]), pages=pages)
+    assert torch.equal(out, ref.flash_decode_paged_ref(
+        q, pool, pool, torch.tensor([3, 2]), pages))
+    view = pool[pages].reshape(2, 6, 2, 8)
+    assert torch.equal(out, ref.flash_decode_ref(q, view, view,
+                                                 torch.tensor([3, 2])))
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
-    assert set(ops.KERNELS) == {"flash_decode", "ivf_gather_score",
-                                "ivf_screen_select", "pq_lut_score",
-                                "pq_screen_select", "rerank_select",
-                                "tail_gather_argmax", "fused_estimator",
-                                "fused_estimator_bwd"}
+    assert set(ops.KERNELS) == {"flash_decode", "flash_decode_paged",
+                                "ivf_gather_score", "ivf_screen_select",
+                                "pq_lut_score", "pq_screen_select",
+                                "rerank_select", "tail_gather_argmax",
+                                "fused_estimator", "fused_estimator_bwd"}
 
 
 def test_ops_rejects_devices_without_a_kernel_or_plain_version():

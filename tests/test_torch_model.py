@@ -206,7 +206,7 @@ def test_prefill_and_decode_step_sample_like_jax(fused):
     xe = jp["embed"][ids][:, None].astype(jnp.float32)
     jh2, _ = jtr.apply_trunk_decode(jp, jcfg, xe, jcache, jnp.asarray(dpos))
     draws = _draws_for(jmodel, jp, jh2[:, 0], jindex, keys)
-    tnxt2, _, _ = tmodel.decode_step(tp, tcache, _t(ids), _t(dpos), tindex,
+    tnxt2, _, _, _ = tmodel.decode_step(tp, tcache, _t(ids), _t(dpos), tindex,
                                      draws=draws)
     np.testing.assert_array_equal(tnxt2.numpy(), np.asarray(jnxt2))
 

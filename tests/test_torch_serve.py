@@ -1,9 +1,13 @@
 """The port's serving slice as a whole on ``device="cpu"``: continuous
 batching through slot recycling, the internal sample contracts (decode
-window T=N ≡ T=1, fused ≡ unfused), the launcher and its JSON report, the
-no-silent-CPU rule, and that the port never loads JAX."""
+window T=N ≡ T=1, fused ≡ unfused), the launcher and its JSON report (with
+each serving-tier flag: paged, slo, strict, the reference engine, the
+adaptive probe and its router), what it still refuses, the no-silent-CPU
+rule, and that the port never loads JAX."""
 import ast
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.core.mips import IVFIndex, IVFPQIndex
+from repro_torch.launch import serve as serve_launcher
 from repro_torch.models.model import Model
 from repro_torch.serve.server import ServeConfig, Server
 
@@ -152,14 +157,63 @@ def test_launcher_cpu_ivfpq_report():
     assert rep["index_mb"] < _launch_serve("ivf")["index_mb"] / 4
 
 
-def test_launcher_rejects_unported_flags():
+@pytest.mark.parametrize("flags,what", [
+    (("--mips", "lsh"), "--mips lsh: not in the PyTorch port yet"),
+    (("--arch", "mamba2-780m"), "only attention-family decoder configs"),
+])
+def test_launcher_rejects_unported_flags(flags, what):
+    """What the port still refuses: the LSH index and the trunk families it
+    does not have (here an SSM one)."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
-         "--smoke", "--device", "cpu", "--block-len", "16"],
+         "--smoke", "--device", "cpu", *flags],
         capture_output=True, text=True, env=_env(), timeout=240,
     )
     assert out.returncode != 0
-    assert "paged KV block pool is not in the PyTorch port yet" in out.stderr
+    assert what in out.stderr
+
+
+def _launch(*flags) -> dict:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve_launcher.main(
+            ["--arch", ARCH, "--smoke", "--vocab", "4096", "--mips", "ivf",
+             "--device", "cpu", "--requests", "3", "--slots", "2",
+             "--new-tokens", "4", "--max-seq", "64", *flags])
+    rep = json.loads(out.getvalue())
+    assert set(rep) == _reference_report_keys()
+    new = int(flags[flags.index("--new-tokens") + 1]
+              if "--new-tokens" in flags else 4)
+    assert rep["requests"] == 3 and rep["decoded_tokens"] == 3 * new
+    return rep
+
+
+@pytest.mark.parametrize("flags", [
+    ("--block-len", "16"),
+    ("--block-len", "16", "--n-blocks", "4", "--new-tokens", "40"),
+    ("--sched", "slo", "--ttft-slo", "0.001"),
+    ("--strict",),
+    ("--engine", "reference"),
+    ("--adaptive-probe", "--n-probe-init", "2", "--n-probe-max", "8"),
+    ("--adaptive-probe", "--n-probe-init", "2", "--n-probe-max", "8",
+     "--probe-router", "fit", "--fused-decode"),
+], ids=["paged", "paged-tight", "slo", "strict", "reference", "adaptive",
+        "adaptive-router-fused"])
+def test_launcher_new_flags(flags):
+    rep = _launch(*flags)
+    if "--block-len" in flags:
+        assert 0.0 < rep["block_util_peak"] <= 1.0
+    if "--n-blocks" in flags:  # 4 blocks of 16 hold one 44-56 position
+        assert rep["block_stalls"] > 0  # request at a time: stalls
+    if "--engine" in flags:
+        assert rep["prefill_dispatches"] == 0 and rep["steps"] > 12
+    if "--strict" in flags:
+        assert rep["fallbacks"] == round(12 * (1 - rep["ok_rate"]))
+    if "--adaptive-probe" in flags:
+        hist = rep["probe_width_hist"]
+        assert sum(hist.values()) == 3 * 3 and set(hist) <= {"2", "4", "8"}
+    else:
+        assert rep["probe_width_hist"] == {}
 
 
 def test_entry_points_without_cuda_or_device_raise():
