@@ -62,15 +62,37 @@ unfused bit for bit for IVF and IVF-PQ, and the stage kernels
 (``ivf_screen_select``, ``pq_screen_select``, ``rerank_select``) their
 plain versions at mixed per-row widths.
 
+Last, the ``[families]`` phase: the other trunk families at full width
+(random weights from ``--seed``, bf16 compute, fp32 masters, the IVF
+head), each cut in depth only, with the cut printed. The kernels first,
+at the shapes these families give them, each against its plain version:
+``flash_decode`` at recurrentgemma-9b's heads (16 query heads on one KV
+head of 256) and qwen3-moe's (32 on 4, 128) over a 2,048-position ring,
+``ivf_gather_score`` and ``ivf_screen_select`` at mamba2-780m's head (d
+1,536, k 704; the screen bit for bit the gather plus a top-k),
+``fused_estimator`` and its backward at mamba2-780m's training chunk.
+Then mamba2-780m at full depth (48 layers) served (8 requests x 32
+tokens, fused T=8 ≡ unfused T=1) and trained (6 steps, refresh and
+checkpoint every 3, the resume from step 3 within rtol 1e-3);
+recurrentgemma-9b at 8 layers served with the unfused head (its 28,224-slot
+pool is past the fused screens' 16,384), paged at block_len 64 ≡ dense;
+qwen3-moe-30b-a3b at 2 layers served twice with bitwise equal tokens and
+trained 3 steps (aux, the dropped-assignment share at prefill and in
+training, the experts' load); paligemma-3b and hubert-xlarge at 2 layers
+trained 2 steps each, and hubert's encode step once. Each model's line
+gives tokens/s, TTFT and ITL p50, step time, peak device memory, index MB
+and its seconds beside the card's name and power limit.
+
     python3 chip_smoke.py            # from the repository root
 
 Output, in order: the GPU line of nvidia-smi, build and check lines, the
-serve, ``[serve-tier]``, train and ``[paper]`` reports, one ``{"kernels": [...]}`` line, the card's name
-and power limit, and last ``{"ok": true, "device": {...}}``. Any failed
+serve, ``[serve-tier]``, train, ``[paper]`` and ``[families]`` reports,
+one ``{"kernels": [...]}`` line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failed
 phase exits non-zero before the last line. Without CUDA, or without the
 repository beside it, the script exits non-zero and prints no result.
 
-Tolerances: ids and indices exact; fp32 values rtol=1e-5, atol=1e-5;
+Tolerances (the ``[families]`` phase's too): ids and indices exact; fp32 values rtol=1e-5, atol=1e-5;
 on small-integer inputs the IVF and IVF-PQ kernels' values bit for bit;
 rerank_select and ivf_gather_score on random fp32 rows rtol=1e-5 and an
 atol of 1e-5 times the largest magnitude (2048-term dot products summed in
@@ -1689,11 +1711,12 @@ TRAIN_KERNELS = {
 }
 
 
-def train(torch, seed: int, cfg, mips: str) -> tuple[dict, dict]:
+def train(torch, seed: int, cfg, mips: str, label: str = "[train]"
+          ) -> tuple[dict, dict]:
     """The training phase of one head index: 6 full-width steps through
     ``Trainer`` with the amortized head on the kernels, then a resume from
-    the step-3 checkpoint. Returns (launch counts of the 6-step run,
-    stats)."""
+    the step-3 checkpoint; its lines start with ``label``. Returns (launch
+    counts of the 6-step run, stats)."""
     from repro_torch.kernels import ops
     from repro_torch.train.trainer import Trainer
 
@@ -1710,7 +1733,7 @@ def train(torch, seed: int, cfg, mips: str) -> tuple[dict, dict]:
     counts = ops.launch_counts()
     log = tr.metrics_log
     for e in log:
-        print(f"[train] {mips} step {e['step']} loss={e['loss']:.5f} "
+        print(f"{label} {mips} step {e['step']} loss={e['loss']:.5f} "
               f"nll={e['nll']:.5f} log_z={e['log_z']:.4f} "
               f"grad_norm={e['grad_norm']:.4f} dt={e['dt'] * 1e3:.1f} ms",
               flush=True)
@@ -1724,8 +1747,8 @@ def train(torch, seed: int, cfg, mips: str) -> tuple[dict, dict]:
              "run_wall_s": wall, "index_refreshes": tr.index_refreshes,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
              "index_mb": tr.head_index.memory_bytes() / 1e6}
-    print(f"[train] {mips} {json.dumps(stats)}", flush=True)
-    print(f"[train] launches {json.dumps(counts)}", flush=True)
+    print(f"{label} {mips} {json.dumps(stats)}", flush=True)
+    print(f"{label} launches {json.dumps(counts)}", flush=True)
     check(res["status"] == "done" and len(losses) == TRAIN_STEPS,
           f"train {mips}: the run did not take its 6 steps")
     check(all(math.isfinite(x) for x in losses),
@@ -1748,7 +1771,7 @@ def train(torch, seed: int, cfg, mips: str) -> tuple[dict, dict]:
     resumed = [e["loss"] for e in tr2.metrics_log]
     want = losses[TRAIN_EVERY:]
     rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
-    print(f"[train] {mips} resume from step {TRAIN_EVERY}: losses {resumed} vs "
+    print(f"{label} {mips} resume from step {TRAIN_EVERY}: losses {resumed} vs "
           f"{want}, max rel diff {rel:.3g}, bitwise {resumed == want}, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(len(resumed) == len(want) and rel <= RESUME_RTOL,
@@ -2265,6 +2288,502 @@ def paper_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- families
+# the other trunk families at full width; every config but mamba2-780m is
+# cut in depth only (its n_layers), to fit the phase's time and the card
+FAMILY_CUTS = {
+    "mamba2-780m": None,  # full depth: 48 layers
+    "recurrentgemma-9b": 8,  # two (rec, rec, attn) periods + (rec, rec)
+    "qwen3-moe-30b-a3b": 2,
+    "paligemma-3b": 2,
+    "hubert-xlarge": 2,
+}
+FAMILY_TRAIN_STEPS = {"qwen3-moe-30b-a3b": 3, "paligemma-3b": 2,
+                      "hubert-xlarge": 2}
+FAMILY_RING = 2048  # flash_decode's ring at the new head geometries
+FAMILY_OPT = dict(lr=1e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+
+
+def family_cfg(name: str):
+    """The configuration ``name`` as the phase runs it (IVF head, cut in
+    depth by ``FAMILY_CUTS``), with its cut printed on a line of its own."""
+    from repro_torch.configs import get
+
+    full = get(name)
+    depth = FAMILY_CUTS[name]
+    cfg = full.scaled(head_mips="ivf")
+    if depth is None:
+        print(f"[families] cut {name}: none ({full.n_layers} layers, "
+              f"d {full.d_model}, vocab {full.vocab})", flush=True)
+        return cfg
+    print(f"[families] cut {name}: n_layers {full.n_layers} -> {depth} "
+          f"(width unchanged: d {full.d_model}, vocab {full.vocab})",
+          flush=True)
+    return cfg.scaled(n_layers=depth)
+
+
+def tag_record(rec: dict, tag: str, err: float, timed, plain_ms: float,
+               lib_ms, nb: float, flops: float, peak: float,
+               **extra) -> None:
+    """A kernel's check and times at another path's shape, as keys
+    ``<tag>_*`` of its record (the record's own keys stay the main path's)."""
+    ms, host = timed
+    b_ms, b_by = bound_ms(nb, flops, peak)
+    rec.update({f"{tag}_max_abs_err": err, f"{tag}_ms": ms,
+                f"{tag}_host_us": host, f"{tag}_plain_ms": plain_ms,
+                f"{tag}_bound_ms": b_ms, f"{tag}_bound_by": b_by,
+                f"{tag}_library_ms": lib_ms},
+               **{f"{tag}_{k}": v for k, v in extra.items()})
+    print(f"[families] kernel {rec['name']} {tag}: ok max_abs_err={err:.3g} "
+          f"ms={ms:.4f} host_us={host:.1f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms} "
+          + json.dumps(extra), flush=True)
+
+
+def family_kernel_checks(torch, records: list[dict]) -> None:
+    """The kernels at the geometries the new families give them, each held
+    against its plain version as :func:`kernel_checks` holds it:
+    ``flash_decode`` at recurrentgemma's heads (16 query heads on one KV
+    head of 256) and qwen3-moe's (32 on 4, 128) over a 2,048-position ring,
+    two sequences at the full ring; ``ivf_gather_score`` and
+    ``ivf_screen_select`` at mamba2-780m's head (d 1,536, its IVF geometry
+    and k); ``fused_estimator`` and its backward at mamba2-780m's training
+    chunk (256 tokens of k + l candidates over the 50,280 x 1,536 table)."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import fused_estimator as kfe
+    from repro_torch.kernels import ivf_gather_score as kigs
+    from repro_torch.kernels import ref
+    from repro_torch.serve.server import ServeConfig
+
+    by_name = {r["name"]: r for r in records}
+    timer = Timer(torch, ITERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2323)
+    scfg = ServeConfig(batch_slots=SLOTS, max_seq=MAX_SEQ,
+                       max_new_tokens=NEW_TOKENS)
+    for name, tag in (("recurrentgemma-9b", "griffin"),
+                      ("qwen3-moe-30b-a3b", "qwen3")):
+        g = geometry(get(name), scfg)
+        lengths = torch.randint(1, FAMILY_RING + 1, (g.slots,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        lengths[0] = lengths[1] = FAMILY_RING
+        lengths[-1] = 1
+        rec = flash_decode_case(torch, gen, g, timer, FAMILY_RING, lengths)
+        tag_record(by_name["flash_decode"], tag, rec["err"], rec["timed"],
+                   rec["plain_ms"], rec["lib_ms"], rec["nb"], rec["flops"],
+                   BF16_FLOPS, positions=FAMILY_RING, heads=[g.hq, g.hkv, g.hd])
+
+    g = geometry(get("mamba2-780m"), scfg)
+    print(f"[families] mamba2-780m head geometry "
+          f"{json.dumps(dataclasses.asdict(g))}", flush=True)
+    b = g.slots
+    mv = int_valued(torch, gen, (g.n_c, g.cap, g.d))
+    fill = torch.rand((g.n_c, g.cap), generator=gen, device="cuda")
+    mids = torch.randint(0, g.n, (g.n_c, g.cap), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    mids = torch.where(fill < g.n / (g.n_c * g.cap), mids,
+                       torch.full_like(mids, -1))
+    probe = torch.stack([torch.randperm(g.n_c, generator=gen,
+                                        device="cuda")[: g.n_probe]
+                         for _ in range(b)]).int()
+    qv = int_valued(torch, gen, (b, g.d))
+    gs, gi = kigs.ivf_gather_score(mv, mids, probe, qv)
+    want_s, want_i = ref.ivf_gather_score_ref(mv, mids, probe, qv)
+    torch.cuda.synchronize()
+    check(torch.equal(gs, want_s) and torch.equal(gi, want_i),
+          "ivf_gather_score at d 1536 disagrees with its plain version")
+    uniq = torch.unique(probe)
+    tag_record(by_name["ivf_gather_score"], "mamba2", 0.0,
+               timer.both(lambda: kigs.ivf_gather_score(mv, mids, probe, qv),
+                          "ivf_gather_score mamba2"),
+               timer(lambda: ref.ivf_gather_score_ref(mv, mids, probe, qv),
+                     "ivf_gather_score mamba2 plain"), None,
+               uniq.numel() * g.cap * (g.d + 1) * 4 + nbytes(probe, qv)
+               + b * g.n_probe * g.cap * 8,
+               2.0 * b * g.n_probe * g.cap * g.d, FP32_FLOPS,
+               d=g.d, queries=b)
+    o_ids = torch.randint(0, g.n, (g.o_cap,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    o_ids[torch.rand((g.o_cap,), generator=gen, device="cuda") < 0.5] = -1
+    o_sc = int_valued(torch, gen, (b, g.o_cap), -200, 200)
+    sargs = (mv, mids, o_sc, o_ids, probe, qv)
+    got_v, got_i = kdf.ivf_screen_select(*sargs, k=g.k)
+    want_v, want_i = ref.ivf_screen_select_ref(*sargs, g.k)
+    # the fused screen equals the unfused kernel probe + top-k bit for bit
+    pool_s = torch.cat([gs.reshape(b, -1), o_sc], 1)
+    pool_i = torch.cat([gi.reshape(b, -1), o_ids[None].expand(b, -1)], 1)
+    pool_s = torch.where(pool_i >= 0, pool_s, float("-inf"))
+    v3, i3 = ref.topk_select_ref(pool_s, pool_i, g.k)
+    torch.cuda.synchronize()
+    check(torch.equal(got_v, want_v) and torch.equal(got_i, want_i),
+          "ivf_screen_select at d 1536 disagrees with its plain version")
+    check(torch.equal(v3, got_v) and torch.equal(i3, got_i),
+          "ivf_screen_select != ivf_gather_score + top-k at d 1536")
+    live_rows = int((mids[probe.long()] >= 0).sum().item())
+    live_uniq = int((mids[uniq.long()] >= 0).sum().item())
+    tag_record(by_name["ivf_screen_select"], "mamba2", 0.0,
+               timer.both(lambda: kdf.ivf_screen_select(*sargs, k=g.k),
+                          "ivf_screen_select mamba2"),
+               timer(lambda: ref.ivf_screen_select_ref(*sargs, g.k),
+                     "ivf_screen_select mamba2 plain"), None,
+               live_uniq * g.d * 4 + uniq.numel() * g.cap * 4
+               + nbytes(o_sc, o_ids, probe, qv) + b * g.k * 8,
+               2.0 * g.d * live_rows, FP32_FLOPS, d=g.d, k=g.k,
+               pool=g.n_probe * g.cap + g.o_cap)
+    del mv, mids, sargs, pool_s, pool_i
+
+    # fused_estimator and its backward at mamba2's training chunk
+    t, k = HEAD_CHUNK, g.k
+    m = 2 * k
+    emb, ids, h, log_w = estimator_inputs(torch, gen, g.n, g.d, t, k)
+    args = (emb, ids, h, log_w)
+    got_z, got_v, got_y = kfe.fused_estimator(*args, return_y=True)
+    want_z, want_v, want_y = ref.fused_estimator_ref(*args, return_y=True)
+    torch.cuda.synchronize()
+    live = torch.isfinite(log_w)
+    check(close(torch, got_z, want_z) and close(torch, got_v, want_v)
+          and close(torch, got_y[live], want_y[live]),
+          "fused_estimator at d 1536 disagrees with its plain version")
+    err = max((got_z - want_z)[live.any(1)].abs().max().item(),
+              (got_v - want_v)[live.any(1)].abs().max().item())
+    rows_live = int(torch.unique(ids[live]).numel())
+    tag_record(by_name["fused_estimator"], "mamba2", err,
+               timer.both(lambda: kfe.fused_estimator(*args, return_y=True),
+                          "fused_estimator mamba2"),
+               timer(lambda: ref.fused_estimator_ref(*args, return_y=True),
+                     "fused_estimator mamba2 plain"), None,
+               rows_live * g.d * 4 + nbytes(ids, log_w, h) + t * 4
+               + t * g.d * 4 + t * m * 4,
+               4.0 * g.d * int(live.sum().item()), FP32_FLOPS, d=g.d, k=k,
+               tokens=t)
+    gvec = 0.5 + torch.rand((t,), generator=gen, device="cuda")
+    live_tok = torch.ones(t, dtype=torch.bool, device="cuda")
+    live_tok[7] = False
+    bargs = (emb, ids[live_tok], h[live_tok], log_w[live_tok],
+             want_z[live_tok], gvec[live_tok])
+    yb = got_y[live_tok]
+    got_d, got_p = kfe.fused_estimator_bwd(*bargs, y=yb)
+    want_d, want_p = ref.fused_estimator_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    check(close(torch, got_d, want_d) and close(torch, got_p, want_p)
+          and close(torch, got_p[:, :k], want_p[:, :k]),
+          "fused_estimator_bwd at d 1536 disagrees with its plain version")
+    err = max((got_d - want_d).abs().max().item(),
+              (got_p - want_p).abs().max().item())
+    tag_record(by_name["fused_estimator_bwd"], "mamba2", err,
+               timer.both(lambda: kfe.fused_estimator_bwd(*bargs, y=yb),
+                          "fused_estimator_bwd mamba2"),
+               timer(lambda: ref.fused_estimator_bwd_ref(*bargs, y=yb),
+                     "fused_estimator_bwd mamba2 plain"), None,
+               nbytes(bargs[1], bargs[2], *bargs[4:], yb) + g.n * g.d * 4
+               + int(live_tok.sum().item()) * m * 4,
+               2.0 * g.d * int(torch.isfinite(bargs[3]).sum().item()),
+               FP32_FLOPS, d=g.d, k=k, tokens=int(live_tok.sum().item()))
+    print(f"[timer] [families] calls whose host issue outlasted the hold: "
+          f"{json.dumps(timer.uncovered)}", flush=True)
+    del timer, emb, args, bargs
+    torch.cuda.empty_cache()
+
+
+def family_serve(torch, name: str, label: str, cfg, params, prompts,
+                 counts: dict, index=None, **scfg_kw):
+    """One serving run of ``prompts`` (8 requests x 32 new tokens on 4
+    slots of a 512-position cache): launch counts at 0 just before it, read
+    just after and added to ``counts``; every request must get all its
+    tokens, ids in range. Returns (server, results, report)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import report
+    from repro_torch.serve.server import ServeConfig, Server
+
+    kw = dict(batch_slots=SLOTS, max_seq=MAX_SEQ, max_new_tokens=NEW_TOKENS,
+              decode_window=WINDOW)
+    kw.update(scfg_kw)
+    srv = Server(cfg, params, ServeConfig(**kw), precision_policy="bf16",
+                 device="cuda", index=index)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = srv.run(prompts)
+    torch.cuda.synchronize()
+    run = ops.launch_counts()
+    for k, n in run.items():
+        counts[k] = counts.get(k, 0) + n
+    rep = report(res, srv)
+    print(f"[families] {name} serve {label} {json.dumps(rep)}", flush=True)
+    print(f"[families] {name} serve {label} launches {json.dumps(run)}",
+          flush=True)
+    check(len(res) == len(prompts)
+          and all(r.status == "ok" and len(r.tokens) == kw["max_new_tokens"]
+                  for r in res), f"{name} {label}: a request lost tokens")
+    check(all(0 <= tok < cfg.vocab for r in res for tok in r.tokens),
+          f"{name} {label}: a token id out of range")
+    return srv, res, rep, run
+
+
+def family_train(torch, name: str, cfg, seed: int, steps: int, counts: dict,
+                 encode: bool = False) -> dict:
+    """``steps`` training steps of ``cfg`` (batch 2 x 1,024 positions, the
+    synthetic stream with its frontend's inputs, bf16 compute, fp32 masters,
+    the IVF head index built over a copy of the output embedding, or the
+    exact head where the config sets it) through
+    ``launch.steps.make_train_step``, the trainer's step function, without
+    the trainer's checkpoints. Counts at 0 before the steps, read after,
+    added to ``counts``. Checks finite losses and aux; for an MoE, prints
+    aux, the dropped-assignment share and the experts' load; with
+    ``encode``, one ``make_encode_step`` call on the first batch."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import DataConfig, SyntheticStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import OptConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, "bf16", device="cuda")
+    params = model.init(seed)
+    opt = adamw.init(params)
+    index = None
+    if model.head_uses_index:
+        index = model.make_head_index(
+            params, db=model.head_index_db(params).clone())
+    step_fn = steps_lib.make_train_step(model, steps_lib.TrainConfig(
+        opt=OptConfig(**FAMILY_OPT), precision="bf16"))
+    data = SyntheticStream(cfg, DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                           seed=seed))
+    batches = [{k: torch.from_numpy(np.asarray(v)).cuda()
+                for k, v in next(data).items()} for _ in range(steps)]
+    if cfg.is_moe:
+        moe.TRACE = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    log, times = [], []
+    try:
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch, (seed, i), index)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            log.append({k: float(v) for k, v in m.items()})
+        run = ops.launch_counts()
+        trace = moe.TRACE
+    finally:
+        moe.TRACE = None
+    for k, n in run.items():
+        counts[k] = counts.get(k, 0) + n
+    for i, e in enumerate(log):
+        print(f"[families] {name} train step {i} loss={e['loss']:.5f} "
+              f"nll={e['nll']:.5f} aux={e['aux']:.5f} "
+              f"grad_norm={e['grad_norm']:.4f} dt={times[i] * 1e3:.1f} ms",
+              flush=True)
+    tokens = batches[0]["labels"].numel()
+    stats = {"steps": steps, "label_tokens_per_step": tokens,
+             "step_ms_median": 1e3 * statistics.median(times[1:] or times),
+             "first_step_ms": 1e3 * times[0],
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "index_mb": index.memory_bytes() / 1e6 if index else 0.0}
+    stats["tokens_per_s"] = tokens / (stats["step_ms_median"] / 1e3)
+    check(all(math.isfinite(e["loss"]) and math.isfinite(e["aux"])
+              for e in log), f"{name} train: a non-finite loss or aux")
+    if cfg.is_moe:
+        dropped = sum(int(r["dropped"]) for r in trace)
+        assigned = sum(r["assigned"] for r in trace)
+        load = torch.stack([r["load"] for r in trace]).sum(0).float()
+        stats.update(
+            aux=[e["aux"] for e in log], dropped_share=dropped / assigned,
+            expert_load={"min": int(load.min()), "max": int(load.max()),
+                         "mean": float(load.mean()),
+                         "max_over_mean": float(load.max() / load.mean())})
+        check(all(e["aux"] > 0 for e in log), f"{name} train: aux is 0")
+    if encode:
+        enc = steps_lib.make_encode_step(model)
+        logits = enc(model.compute_params(params), batches[0])
+        torch.cuda.synchronize()
+        stats["encode_logits_shape"] = list(logits.shape)
+        check(tuple(logits.shape) == (TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"{name} encode: logits of the wrong shape or not finite")
+    print(f"[families] {name} train {json.dumps(stats)}", flush=True)
+    print(f"[families] {name} train launches {json.dumps(run)}", flush=True)
+    del params, opt, index, batches, model
+    torch.cuda.empty_cache()
+    return stats
+
+
+def family_prompts(cfg, seed: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [list(rng.integers(0, cfg.vocab, size=rng.integers(4, 13)))
+            for _ in range(REQUESTS)]
+
+
+def families_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
+    """The ``[families]`` phase: the kernels at the new geometries
+    (:func:`family_kernel_checks`), then the other trunk families at full
+    width through the entry points a user calls (``Model``, ``Server``,
+    ``Trainer``, the train and encode steps):
+
+    * mamba2-780m, full depth: fused T=8 ≡ unfused T=1 tokens on one index;
+      6 training steps through ``Trainer`` (refresh and checkpoint every
+      3) and the resume from step 3 within rtol 1e-3;
+    * recurrentgemma-9b, 8 layers: the unfused head (its 8-probe pool of
+      28,224 slots is past the fused screens' 16,384, so the config asks
+      for the unfused probe); paged at block_len 64 ≡ dense;
+    * qwen3-moe-30b-a3b, 2 layers: unfused serving twice, bitwise equal
+      tokens; 3 training steps with aux, drops and expert load;
+    * paligemma-3b and hubert-xlarge, 2 layers: 2 training steps each (256
+      patch embeddings; frames), and one encode step for hubert.
+
+    Adds each kernel's launches on these paths (``launches_families``) to
+    ``records``."""
+    import gc
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.decode_fused import SCREEN_POOL_MAX
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.serve.server import ServeConfig
+
+    out: dict = {"card": smi}
+    counts: dict = {}
+    t0 = time.perf_counter()
+    family_kernel_checks(torch, records)
+    print(f"[families] kernel checks done in {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+
+    def begin(name):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter(), family_cfg(name)
+
+    def end(name, t_start, stats):
+        stats["phase_s"] = time.perf_counter() - t_start
+        stats["peak_mem_gb"] = max(stats.get("peak_mem_gb", 0.0),
+                                   torch.cuda.max_memory_allocated() / 1e9)
+        print(f"[families] {name} summary ({smi}) {json.dumps(stats)}",
+              flush=True)
+        out[name] = stats
+
+    def serve_stats(rep):
+        return {k: rep[k] for k in ("tokens_per_s", "ttft_p50_ms",
+                                    "itl_p50_ms", "ok_rate", "index_mb",
+                                    "cache_mb")}
+
+    # ---- mamba2-780m: full width and depth, served and trained
+    name = "mamba2-780m"
+    t_start, cfg = begin(name)
+    params = Model(cfg, "bf16", device="cuda").init(seed)
+    prompts = family_prompts(cfg, seed)
+    srv, res_f, rep_f, run_f = family_serve(
+        torch, name, f"fused T={WINDOW}", cfg.scaled(head_fused_decode=True),
+        params, prompts, counts)
+    _, res_u, rep_u, run_u = family_serve(
+        torch, name, "unfused T=1", cfg, params, prompts, counts,
+        index=srv.index, decode_window=1)
+    same = sum(a.tokens == b.tokens for a, b in zip(res_f, res_u))
+    print(f"[families] {name} fused T={WINDOW} == unfused T=1 tokens: "
+          f"{same}/{len(prompts)} requests", flush=True)
+    check(same == len(prompts), f"{name}: fused T=8 and unfused T=1 served "
+          "different tokens")
+    for k in ("ivf_screen_select", "tail_gather_argmax"):
+        check(run_f[k] > 0, f"{name} fused serve never launched {k}")
+    check(run_u["ivf_gather_score"] > 0,
+          f"{name} unfused serve never launched ivf_gather_score")
+    stats = {"serve_fused": serve_stats(rep_f),
+             "serve_unfused": serve_stats(rep_u)}
+    del srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_counts, tstats = train(torch, seed, get(name), "ivf",
+                               label=f"[families] {name}")
+    for k, n in run_counts.items():
+        counts[k] = counts.get(k, 0) + n
+    stats["train"] = tstats
+    end(name, t_start, stats)
+
+    # ---- recurrentgemma-9b: unfused head by config, paged == dense
+    name = "recurrentgemma-9b"
+    t_start, cfg = begin(name)
+    g = geometry(cfg, ServeConfig(batch_slots=SLOTS, max_seq=MAX_SEQ,
+                                  max_new_tokens=NEW_TOKENS))
+    pool = g.n_probe * g.cap + g.o_cap
+    print(f"[families] {name} head pool {pool} slots (n_probe {g.n_probe} x "
+          f"cap {g.cap} + overflow {g.o_cap}) > SCREEN_POOL_MAX "
+          f"{SCREEN_POOL_MAX}: served with the unfused probe", flush=True)
+    check(pool > SCREEN_POOL_MAX and not cfg.head_fused_decode,
+          f"{name}: the unfused head is not the config's choice")
+    params = Model(cfg, "bf16", device="cuda").init(seed)
+    prompts = family_prompts(cfg, seed)
+    srv, res_d, rep_d, run_d = family_serve(torch, name, "dense", cfg,
+                                            params, prompts, counts)
+    _, res_p, rep_p, run_p = family_serve(torch, name, "paged block_len=64",
+                                          cfg, params, prompts, counts,
+                                          index=srv.index, block_len=64)
+    same = sum(a.tokens == b.tokens for a, b in zip(res_d, res_p))
+    print(f"[families] {name} paged block_len=64 == dense tokens: "
+          f"{same}/{len(prompts)} requests", flush=True)
+    check(same == len(prompts), f"{name}: paged and dense served different "
+          "tokens")
+    check(run_d["flash_decode"] > 0 and run_p["flash_decode_paged"] > 0
+          and run_d["ivf_gather_score"] > 0,
+          f"{name}: a kernel of its path was never launched")
+    stats = {"serve_dense": serve_stats(rep_d),
+             "serve_paged": serve_stats(rep_p), "head_pool_slots": pool}
+    del srv, params
+    end(name, t_start, stats)
+
+    # ---- qwen3-moe-30b-a3b: repeatable serving, training with aux
+    name = "qwen3-moe-30b-a3b"
+    t_start, cfg = begin(name)
+    params = Model(cfg, "bf16", device="cuda").init(seed)
+    prompts = family_prompts(cfg, seed)
+    moe.TRACE = []
+    try:
+        srv, res_a, rep_a, run_a = family_serve(torch, name, "unfused run 1",
+                                                cfg, params, prompts, counts)
+        trace = moe.TRACE
+    finally:
+        moe.TRACE = None
+    _, res_b, _, _ = family_serve(torch, name, "unfused run 2", cfg, params,
+                                  prompts, counts, index=srv.index)
+    same = sum(a.tokens == b.tokens for a, b in zip(res_a, res_b))
+    print(f"[families] {name} two decode runs, bitwise equal tokens: "
+          f"{same}/{len(prompts)} requests", flush=True)
+    check(same == len(prompts), f"{name}: two runs served different tokens")
+    check(run_a["flash_decode"] > 0 and run_a["ivf_gather_score"] > 0,
+          f"{name}: a kernel of its serving path was never launched")
+    decode_t = SLOTS * cfg.experts_per_token
+    pre = [r for r in trace if r["assigned"] != decode_t]
+    dec = [r for r in trace if r["assigned"] == decode_t]
+    share = {k: (sum(int(r["dropped"]) for r in v)
+                 / max(sum(r["assigned"] for r in v), 1))
+             for k, v in (("prefill", pre), ("decode", dec))}
+    print(f"[families] {name} dropped-assignment share while serving "
+          f"(pad tokens take capacity): {json.dumps(share)}", flush=True)
+    stats = {"serve": serve_stats(rep_a), "serve_dropped_share": share}
+    del srv, params, trace
+    stats["train"] = family_train(torch, name, cfg, seed,
+                                  FAMILY_TRAIN_STEPS[name], counts)
+    end(name, t_start, stats)
+
+    # ---- paligemma-3b and hubert-xlarge: training (and hubert's encode)
+    for name in ("paligemma-3b", "hubert-xlarge"):
+        t_start, cfg = begin(name)
+        stats = {"train": family_train(torch, name, cfg, seed,
+                                       FAMILY_TRAIN_STEPS[name], counts,
+                                       encode=cfg.encoder_only)}
+        end(name, t_start, stats)
+
+    for rec in records:
+        rec["launches_families"] = counts.get(rec["name"], 0)
+    print(f"[families] launches {json.dumps(counts)}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2341,13 +2860,18 @@ def main() -> int:
     paper_phase(torch, args.seed, records, smi)
     print(f"[paper] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    families_phase(torch, args.seed, records, smi)
+    print(f"[families] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     # launches: each path's count, read just after its own run — serving
     # (each kernel's count on the first serving run that launches it, the
     # fused run before the unfused one, IVF before IVF-PQ; the paged kernel
     # on the first paged run of [serve-tier]) and the 6-step
     # training runs (IVF, then IVF-PQ for the PQ kernels); "launches" is
     # the count on the newest path that runs the kernel (training where it
-    # ran there, else serving)
+    # ran there, else serving); the [paper] and [families] paths' counts
+    # stand beside it (launches_paper, launches_adaptive, launches_families)
     # path_us: device us per call of the kernel on the same path, from the
     # profiled repeats of it (serving: 4 prompts; training: one step)
     for rec in records:

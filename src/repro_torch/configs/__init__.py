@@ -1,7 +1,5 @@
 """Architecture registry (counterpart of ``repro/configs``): ``get(name)`` /
-``get_smoke(name)`` / ``ARCHS``. Every family is registered as data; the
-port's ``Model`` runs the attention family only (``layer_pattern == "attn"``,
-no MoE) and raises ``NotImplementedError`` for the rest."""
+``get_smoke(name)`` / ``ARCHS``: the ten LM families as data."""
 from __future__ import annotations
 
 import importlib

@@ -35,17 +35,34 @@ def tree_from_numpy(tree: Any, device=None) -> Any:
 
 def params_from_jax(np_tree: dict, cfg: ArchConfig, device=None) -> dict:
     """The JAX param pytree of ``cfg`` (``transformer.init_params``'s
-    structure, as numpy arrays) -> the port's params."""
-    transformer.check_supported(cfg)
+    structure, as numpy arrays) -> the port's params. The block groups and
+    each group's stacked layer count must be :func:`transformer
+    .block_groups`' and ``embed`` present unless the frontend is the audio
+    stub, or ``ValueError``."""
     params = tree_from_numpy(np_tree, device)
     vp, d = cfg.vocab_padded, cfg.d_model
-    if tuple(params["embed"].shape) != (vp, d) or len(params["blocks"]) != 1:
-        raise ValueError(f"param tree does not match {cfg.name}: embed "
-                         f"{tuple(params['embed'].shape)}, "
-                         f"{len(params['blocks'])} block groups")
-    n = params["blocks"][0]["0"]["norm1"].shape[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"{n} stacked layers, config has {cfg.n_layers}")
+    want_embed = cfg.frontend != "audio_stub"
+    embed = params.get("embed")
+    if (embed is not None) != want_embed or (
+            embed is not None and tuple(embed.shape) != (vp, d)):
+        raise ValueError(
+            f"param tree does not match {cfg.name}: embed "
+            f"{None if embed is None else tuple(embed.shape)}, expected "
+            f"{(vp, d) if want_embed else None}")
+    groups = transformer.block_groups(cfg)
+    if len(params["blocks"]) != len(groups):
+        raise ValueError(f"{len(params['blocks'])} block groups, config has "
+                         f"{len(groups)}")
+    for g, (stack, (pattern, count)) in enumerate(zip(params["blocks"],
+                                                      groups)):
+        if sorted(stack) != sorted(str(j) for j in range(len(pattern))):
+            raise ValueError(f"block group {g} holds layers {sorted(stack)}, "
+                             f"config pattern {pattern}")
+        for j in stack:
+            n = stack[j]["norm1"].shape[0]
+            if n != count:
+                raise ValueError(f"block group {g} layer {j}: {n} stacked "
+                                 f"layers, config has {count}")
     return params
 
 

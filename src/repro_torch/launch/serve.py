@@ -6,8 +6,8 @@ amortized lazy-Gumbel sampler, on CUDA unless ``--device`` says otherwise.
       --mips ivf --fused-decode --requests 8 --new-tokens 32
 
 Weights are random, drawn from seed 0; prompts are random token ids. Every
-flag of the reference launcher is taken except ``--mips lsh`` and the
-trunk families the port does not have yet, which are refused.
+flag of the reference launcher is taken except ``--mips lsh``, which is
+refused; so are encoder-only archs (no decode), as in the reference.
 """
 from __future__ import annotations
 
@@ -17,7 +17,6 @@ import json
 import numpy as np
 
 from repro_torch.configs import ARCHS, get, get_smoke
-from repro_torch.models import transformer
 from repro_torch.models.model import Model
 from repro_torch.serve.server import ServeConfig, Server
 
@@ -131,10 +130,6 @@ def main(argv=None) -> None:
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
-    try:
-        transformer.check_supported(cfg)
-    except NotImplementedError as e:
-        ap.error(f"--arch {args.arch}: {e}")
     if args.head:
         cfg = cfg.scaled(head_mode=args.head)
     if args.mips:

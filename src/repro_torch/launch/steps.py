@@ -2,7 +2,8 @@
 step with fp32 gradient accumulation, the fused multi-step train loop,
 per-slot sample keys, the slot-state transition, the decode window and
 batched prefill admission (dense or paged KV layout, optionally strict),
-and the single-step serving steps the reference engine runs.
+the single-step serving steps the reference engine runs, and the encoder's
+step.
 
 Where the reference scans a decode window or a train window inside one
 jitted dispatch, the port loops over it in Python; state stays on the
@@ -20,7 +21,8 @@ from repro_torch.optim import adamw
 __all__ = ["TrainConfig", "token_keys", "make_train_step",
            "make_train_loop_step", "slot_keys", "make_serve_step",
            "make_decode_loop_step", "make_prefill_into_cache_step",
-           "make_reference_serve_step", "make_prefill_step"]
+           "make_reference_serve_step", "make_prefill_step",
+           "make_encode_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,3 +293,13 @@ def make_prefill_step(model: Model, max_seq: int):
         return model.prefill(params, batch, keys, max_seq, index)
 
     return prefill_step
+
+
+def make_encode_step(model: Model):
+    """Encoder-only archs: ``encode_step(params, batch) -> logits (B, L,
+    vocab)`` (:meth:`repro_torch.models.model.Model.encode`)."""
+
+    def encode_step(params, batch):
+        return model.encode(params, batch)
+
+    return encode_step

@@ -56,21 +56,18 @@ def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool, window: int = 0) -> torch.Tensor:
+              causal: bool, window: int = 0, prefix: int = 0) -> torch.Tensor:
     """(B, L, H, hd) queries against (B, L, KV, hd) keys/values -> (B, L, H,
-    hd) in q's dtype; fp32 scores and softmax, masked entries -1e30."""
+    hd) in q's dtype; fp32 scores and softmax, masked entries -1e30.
+    ``prefix``: the first ``prefix`` positions are attended bidirectionally
+    (prefix-LM)."""
     b, l, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
     qf = q.float().reshape(b, l, kvh, g, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * (1.0 / hd ** 0.5)
-    qpos = torch.arange(l, device=q.device)[:, None]
-    kpos = torch.arange(l, device=q.device)[None, :]
-    ok = torch.ones((l, l), dtype=torch.bool, device=q.device)
-    if causal:
-        ok = kpos <= qpos
-    if window > 0:
-        ok = ok & (kpos > qpos - window)
+    pos = torch.arange(l, device=q.device)
+    ok = _mask(pos, pos, causal=causal, window=window, prefix=prefix)
     scores = torch.where(ok, scores, torch.full_like(scores, _NEG))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
@@ -174,7 +171,7 @@ def forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
-            max_seq: int, *, window: int | None = None,
+            max_seq: int, *, window: int | None = None, prefix: int = 0,
             lengths: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """Forward + KV-cache build -> (out (B, L, d), {"k", "v"} (B, s_c, KV,
     hd)).
@@ -190,7 +187,7 @@ def prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
     win = cfg.window if window is None else window
     q, k, v = _qkv(p, cfg, x, positions)
     out = attention(q, k, v, causal=cfg.causal and not cfg.encoder_only,
-                    window=win)
+                    window=win, prefix=prefix)
     s_c = min(win, max_seq) if win else max_seq
     shape = (b, s_c, cfg.n_kv_heads, cfg.head_dim)
     if lengths is not None:

@@ -1,5 +1,6 @@
 """Shared building blocks (counterpart of ``repro/models/layers.py``): norms,
-RoPE, SwiGLU MLP and the fan-in truncated-normal initializer."""
+RoPE, SwiGLU MLP, the per-row causal-conv tail and the fan-in
+truncated-normal initializer."""
 from __future__ import annotations
 
 import math
@@ -7,7 +8,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dense_init", "rms_norm", "rope", "swiglu", "mlp_init"]
+__all__ = ["dense_init", "masked_conv_tail", "rms_norm", "rope", "swiglu",
+           "mlp_init"]
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -28,6 +30,22 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
     """Truncated-normal fan-in init, fp32 master weights."""
     fan_in = shape[in_axis]
     return _trunc_normal(shape, gen, device) * (1.0 / math.sqrt(fan_in))
+
+
+def masked_conv_tail(x: torch.Tensor, lengths: torch.Tensor,
+                     w1: int) -> torch.Tensor:
+    """Per-row causal-conv tail for right-padded batched prefill: the ``w1``
+    rows of ``x`` (B, L, C) just before each row's ``lengths[b]`` position,
+    what a token-by-token decode of the same prompt would hold in its conv
+    cache. Rows shorter than ``w1`` are zero-filled, as a zero-initialized
+    decode conv cache is."""
+    idx = (lengths.to(x.device).long()[:, None] - w1
+           + torch.arange(w1, device=x.device)[None])  # (B, w1)
+    tail = torch.gather(
+        x, 1, idx.clamp(0, x.shape[1] - 1)[..., None].expand(-1, -1,
+                                                             x.shape[2]))
+    return torch.where((idx >= 0)[..., None], tail,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """Public model API (counterpart of ``repro/models/model.py``): init, the
-training loss, head index, batched prefill into cache slots, and the decode
-step.
+training loss, head index, prefill (batched into cache slots, or with the
+vision stub's image prefix), the decode step, the encoder's logits, and
+parameter counts, over every family of ``configs/``.
 
 The LM head is the paper's amortized log-linear head
-(:mod:`repro_torch.core.amortized_head`). Only the attention family is
-ported; other families raise ``NotImplementedError``.
+(:mod:`repro_torch.core.amortized_head`). The modality frontends are stubs,
+as in the reference: the audio stub takes precomputed frame embeddings
+(``batch["frames"]``), the vision stub precomputed patch embeddings
+(``batch["patches"]``) that it puts before the text tokens.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from repro_torch.core import amortized_head as ah
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 
-__all__ = ["Model", "head_config"]
+__all__ = ["Model", "head_config", "param_count", "active_param_count"]
 
 _AUX_WEIGHT = 0.01  # MoE load-balance loss weight (the reference's)
 
@@ -51,7 +54,6 @@ class Model:
     """
 
     def __init__(self, cfg: ArchConfig, precision_policy=None, device=None):
-        transformer.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.policy = precision.get_policy(precision_policy)
@@ -80,12 +82,23 @@ class Model:
     # ---------------------------------------------------------------- embed
     def _embed_inputs(self, params, batch) -> tuple[torch.Tensor,
                                                     torch.Tensor, int]:
-        """Token frontend -> (x (B, L, d) compute dtype, positions (B, L),
-        prefix). The audio / vision stubs come with their families."""
-        x = params["embed"][batch["tokens"].long()].to(self.compute_dtype)
+        """-> (x (B, L, d) compute dtype, positions (B, L), prefix): frame
+        embeddings for the audio stub; patch embeddings then token
+        embeddings for the vision stub (``prefix`` = its image tokens,
+        attended bidirectionally); token embeddings otherwise."""
+        cfg = self.cfg
+        prefix = 0
+        if cfg.frontend == "audio_stub":
+            x = batch["frames"].to(self.compute_dtype)
+        else:
+            x = params["embed"][batch["tokens"].long()].to(self.compute_dtype)
+            if cfg.frontend == "vision_stub":
+                x = torch.cat([batch["patches"].to(self.compute_dtype), x],
+                              dim=1)
+                prefix = cfg.n_prefix_tokens
         b, l, _ = x.shape
         pos = torch.arange(l, device=x.device)[None].expand(b, l)
-        return x, pos, 0
+        return x, pos, prefix
 
     # ---------------------------------------------------------------- index
     @property
@@ -124,6 +137,8 @@ class Model:
         cfg = self.cfg
         x, pos, prefix = self._embed_inputs(params, batch)
         h, aux = transformer.apply_trunk(params, cfg, x, pos, prefix=prefix)
+        if cfg.frontend == "vision_stub":
+            h = h[:, cfg.n_prefix_tokens:]  # the loss reads text positions
         b, l, d = h.shape
         out = ah.head_loss(self._out_embed(params), h.reshape(b * l, d),
                            batch["labels"].reshape(-1).long(), self.head_cfg,
@@ -183,13 +198,14 @@ class Model:
                 max_seq: int, index=None, *, draws=None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, list]:
         """Prompt forward + cache build + first sampled token for a batch
-        of equal-length prompts ``batch["tokens"]`` (B, L) -> (next ids
-        (B,), ok (B,), pos (B,) = L, cache (leaves (layers, B, s_c, KV,
-        hd)))."""
-        x, pos, _ = self._embed_inputs(params, batch)
+        of equal-length prompts ``batch["tokens"]`` (B, L) (with the vision
+        stub, ``batch["patches"]`` before them) -> (next ids (B,), ok (B,),
+        pos (B,) = the prompt's full length, cache)."""
+        x, pos, prefix = self._embed_inputs(params, batch)
         b, l, _ = x.shape
         h, cache = transformer.apply_trunk_prefill(params, self.cfg, x, pos,
-                                                   max_seq=max_seq)
+                                                   max_seq=max_seq,
+                                                   prefix=prefix)
         res = self._sample(params, h[:, -1], index, keys, draws, False, None,
                            None)
         return (res.index, res.ok,
@@ -211,7 +227,12 @@ class Model:
         n_pages) physical blocks per row, sentinel-filled for pad rows)
         routes each ring into the paged pool instead.
 
-        Returns (next ids (Bn,), ok (Bn,), cache)."""
+        Returns (next ids (Bn,), ok (Bn,), cache). Token-LM frontends only:
+        a modality stub raises ``NotImplementedError``, as in the
+        reference."""
+        if self.cfg.frontend != "none":
+            raise NotImplementedError(
+                "prefill_into_cache serves token-LM frontends only")
         x = params["embed"][tokens].to(self.compute_dtype)  # (Bn, Lp, d)
         b, l, _ = x.shape
         pos = torch.arange(l, device=x.device)[None].expand(b, l)
@@ -224,3 +245,48 @@ class Model:
         cache = transformer.insert_cache_slots(cache, part, slots,
                                                pages=pages)
         return res.index, res.ok, cache
+
+    # ---------------------------------------------------------------- encoder
+    def encode(self, params, batch) -> torch.Tensor:
+        """Encoder-only archs (hubert): per-frame fp32 logits (B, L, vocab)
+        over the output embedding."""
+        x, pos, _ = self._embed_inputs(params, batch)
+        h, _ = transformer.apply_trunk(params, self.cfg, x, pos)
+        logits = h.float() @ self._out_embed(params).float().T
+        return logits[..., : self.cfg.vocab]
+
+
+# -------------------------------------------------------------------- counts
+def _meta_params(cfg: ArchConfig) -> dict:
+    """The parameter tree of ``cfg`` on the meta device: shapes, no
+    storage."""
+    return transformer.init_params(torch.Generator(), cfg, device="meta")
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def param_count(cfg: ArchConfig) -> int:
+    """Number of parameters of ``cfg`` (nothing is allocated)."""
+    return sum(t.numel() for _, t in _leaves(_meta_params(cfg)))
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Parameters touched per token (MoE: the routed experts' share only),
+    the 6·N_active·D convention."""
+    total = param_count(cfg)
+    if not cfg.is_moe:
+        return total
+    frac = 1.0 - cfg.experts_per_token / cfg.n_experts
+    inactive = sum(int(frac * t.numel())
+                   for path, t in _leaves(_meta_params(cfg))
+                   if t.dim() == 4 and path[-1] in ("w1", "w2", "w3"))
+    return total - inactive

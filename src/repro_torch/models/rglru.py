@@ -1,0 +1,148 @@
+"""Griffin / RecurrentGemma recurrent block: conv + RG-LRU (counterpart of
+``repro/models/rglru.py``).
+
+The RG-LRU linear recurrence ``h_t = a_t ⊙ h_{t-1} + sqrt(1-a_t²) ⊙ (i_t ⊙
+u_t)`` is associative over (a, b) pairs, (a₂,b₂)∘(a₁,b₁) = (a₁a₂, a₂b₁+b₂).
+Training and prefill evaluate it with a Hillis–Steele doubling scan over the
+sequence (log₂ L elementwise steps, fp32) where the reference calls
+``jax.lax.associative_scan``; the two sum in different orders, so they agree
+to rounding, not bit for bit. Decode is the O(1) state update. Gate
+projections are block-diagonal (8 blocks), as in Griffin, and run in fp32;
+``1 - a²`` is ``-expm1(2 log a)`` for stability near a → 1. The gelu is the
+tanh approximation (``jax.nn.gelu``'s default).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import dense_init, masked_conv_tail
+from repro_torch.models.ssm import _causal_conv, softplus
+
+__all__ = ["init", "forward", "init_cache", "cache_bytes_per_slot", "decode",
+           "scan"]
+
+_N_BLOCKS = 8
+_C_SCALE = 8.0  # Griffin's fixed `c` multiplier on the recurrence gate
+
+
+def init(gen: torch.Generator, cfg: ArchConfig, count: int,
+         device=None) -> dict:
+    """``count`` stacked recurrent mixers, fp32, in the reference's
+    structure."""
+    d, w = cfg.d_model, cfg.lru_dim
+    wb = w // _N_BLOCKS
+    lam = torch.linspace(2.0, 6.0, w, dtype=torch.float32, device=device)
+    return {
+        "w_gate_branch": dense_init(gen, (count, d, w), device=device),
+        "w_in": dense_init(gen, (count, d, w), device=device),
+        "conv": dense_init(gen, (count, cfg.conv_width, w), in_axis=1,
+                           device=device),
+        "w_a": dense_init(gen, (count, _N_BLOCKS, wb, wb), device=device),
+        "w_i": dense_init(gen, (count, _N_BLOCKS, wb, wb), device=device),
+        # Λ such that a^c = sigmoid(Λ)^c spreads over (0.9, 0.999)
+        "lam": lam[None].repeat(count, 1),
+        "w_out": dense_init(gen, (count, w, d), device=device),
+    }
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def _gates(p: dict, u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Block-diagonal gate projections in fp32. u: (..., W) -> (log_a,
+    gate_i), both (..., W) fp32."""
+    shp = u.shape
+    w = shp[-1]
+    ub = u.reshape(shp[:-1] + (_N_BLOCKS, w // _N_BLOCKS)).float()
+    r = torch.sigmoid(torch.einsum("...nk,nkj->...nj", ub, p["w_a"]))
+    gi = torch.sigmoid(torch.einsum("...nk,nkj->...nj", ub, p["w_i"]))
+    # log a_t = -c * softplus(Λ) * r_t   (a in (0, 1), near 1 for small r)
+    log_a = -_C_SCALE * softplus(p["lam"]) * r.reshape(shp)
+    return log_a, gi.reshape(shp)
+
+
+def scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t (h_{-1} = 0) along axis 1,
+    by Hillis–Steele doubling: at offset s every position combines with the
+    prefix ending s places before it. (B, L, W) fp32 -> h (B, L, W)."""
+    l = a.shape[1]
+    s = 1
+    while s < l:
+        a_prev = F.pad(a[:, :-s], (0, 0, s, 0), value=1.0)
+        b_prev = F.pad(b[:, :-s], (0, 0, s, 0), value=0.0)
+        a, b = a * a_prev, a * b_prev + b
+        s *= 2
+    return b
+
+
+def _rglru(p: dict, u: torch.Tensor,
+           lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """u: (B, L, W) conv output -> the recurrence's output, fp32."""
+    log_a, gi = _gates(p, u)
+    if lengths is not None:  # pads become the identity (a = 1, b = 0)
+        valid = (torch.arange(u.shape[1], device=u.device)[None, :]
+                 < lengths.to(u.device)[:, None])
+        log_a = torch.where(valid[..., None], log_a,
+                            torch.zeros((), device=u.device))
+    a = torch.exp(log_a)
+    beta = torch.sqrt(-torch.expm1(2.0 * log_a))  # sqrt(1 - a^2)
+    return scan(a, beta * gi * u.float())
+
+
+def forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
+            return_cache: bool = False,
+            lengths: torch.Tensor | None = None):
+    """(B, L, d) -> (B, L, d) [, cache {"state" (B, W) fp32, "conv" (B,
+    width-1, W)}]. ``lengths`` (right-padded batched prefill): pads get
+    log a = 0, the recurrence's identity, so the cached state is the state
+    after each row's last valid token."""
+    dt = x.dtype
+    gate = _gelu(x @ p["w_gate_branch"].to(dt))
+    u_raw = x @ p["w_in"].to(dt)
+    u = _causal_conv(u_raw, p["conv"].to(dt))
+    h = _rglru(p, u, lengths=lengths)
+    out = (h.to(dt) * gate) @ p["w_out"].to(dt)
+    if not return_cache:
+        return out
+    w1 = cfg.conv_width - 1
+    tail = (u_raw[:, -w1:] if lengths is None
+            else masked_conv_tail(u_raw, lengths, w1))
+    return out, {"state": h[:, -1], "conv": tail}
+
+
+def init_cache(cfg: ArchConfig, batch: int, dtype, device=None) -> dict:
+    """Per-slot decode state, fixed-size in the sequence (a (W,) fp32 state
+    and the conv tail): slot-resident in the paged layout too."""
+    w = cfg.lru_dim
+    return {"state": torch.zeros((batch, w), dtype=torch.float32,
+                                 device=device),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype,
+                                device=device)}
+
+
+def cache_bytes_per_slot(cfg: ArchConfig, dtype) -> int:
+    """Device bytes one serving slot's RG-LRU state costs (max_seq-free)."""
+    w = cfg.lru_dim
+    itemsize = torch.empty((), dtype=dtype, device="meta").element_size()
+    return 4 * w + (cfg.conv_width - 1) * w * itemsize
+
+
+def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict
+           ) -> tuple[torch.Tensor, dict]:
+    """x: (B, 1, d) -> ((B, 1, d), new cache): the O(1) recurrent update,
+    the conv taken in fp32 against the fp32 ``conv``."""
+    dt = x.dtype
+    gate = _gelu(x @ p["w_gate_branch"].to(dt))  # (B, 1, W)
+    u = x @ p["w_in"].to(dt)
+    window = torch.cat([cache["conv"], u], dim=1)  # (B, width, W)
+    u_c = torch.einsum("bwc,wc->bc", window.float(),
+                       p["conv"].float()).to(dt)  # (B, W)
+    log_a, gi = _gates(p, u_c)
+    a = torch.exp(log_a)
+    beta = torch.sqrt(-torch.expm1(2.0 * log_a))
+    h = a * cache["state"] + beta * gi * u_c.float()
+    out = (h[:, None].to(dt) * gate) @ p["w_out"].to(dt)
+    return out, {"state": h, "conv": window[:, 1:]}

@@ -111,8 +111,15 @@ class RequestResult:
 
 
 def _bucket(n: int, chunk: int) -> int:
-    """Prompt-length bucket: a multiple of ``chunk``."""
-    return -(-n // chunk) * chunk
+    """Prompt-length bucket: a multiple of ``chunk``, then coarsened as the
+    reference does, so that the trunk's tiling holds on the padded length
+    (the SSM's chunk of 128 must divide it past 128 positions)."""
+    out = -(-n // chunk) * chunk
+    if out <= 128:
+        return out
+    if out <= 512:
+        return -(-out // 128) * 128
+    return -(-out // 512) * 512
 
 
 class Server:
@@ -213,7 +220,8 @@ class Server:
             "block_stalls": 0,
             # device bytes of the serving cache (pool or rings)
             "cache_bytes": sum(t.numel() * t.element_size()
-                               for g in self.cache for t in g["0"].values()),
+                               for g in self.cache for layer in g.values()
+                               for t in layer.values()),
         }
         # head MIPS index: built once over the frozen output embedding
         self.index = (index if index is not None
@@ -594,10 +602,9 @@ class Server:
     def _run_reference(self, prompts, seed: int) -> list[RequestResult]:
         """Teacher-forced single-step loop: one step per token, prompts fed
         through the decode path. The engine's comparator (the same key
-        derivation, so the same samples). A recycled slot's ring keeps the
-        previous request's rows past the new one's position, which the
-        decode ``lengths`` mask (the reference zeroes the slot for its
-        recurrent families' state, which the port does not have yet)."""
+        derivation, so the same samples). An admitted slot's cache is
+        zeroed, so recurrent state (SSM, RG-LRU, conv tails) never carries
+        over from the slot's previous request."""
         s = self.scfg
         dev = self.device
         nslots = s.batch_slots
@@ -620,6 +627,10 @@ class Server:
             rids_h[slot] = rid
             pos_h[slot] = 0
             ids_h[slot] = 0
+            for group in cache:  # leaves (layers, B, ...): batch is axis 1
+                for layer in group.values():
+                    for t in layer.values():
+                        t[:, slot] = 0
 
         for i in range(nslots):
             admit(i)

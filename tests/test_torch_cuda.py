@@ -14,7 +14,9 @@ length poisoned with NaN; the split IVF screen at
 slots, k from 1 to past the pool, probe widths 0 to past n_probe, dead
 cluster tails; the same for the split IVF-PQ screen; the split tail argmax
 at tail lengths around its chunk of slots, ties across chunks and between
--0.0 and +0.0, and batches that stride). Marked ``cuda``: they skip without
+-0.0 and +0.0, and batches that stride); then the trunk families on the
+card against the CPU: the MoE (bitwise repeatable, the CPU's dispatch),
+the SSD and RG-LRU scans, and the compute-dtype cast set. Marked ``cuda``: they skip without
 an NVIDIA GPU; run them on one with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -37,6 +39,8 @@ from repro_torch.core.mips import IVFPQIndex, PQConfig
 from repro_torch.kernels import decode_fused, flash_decode, fused_estimator
 from repro_torch.kernels import ivf_gather_score, pq_lut_score
 from repro_torch.kernels import ops, ref
+from repro_torch.configs import get_smoke
+from repro_torch.models import moe, rglru, ssm, transformer
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -1212,3 +1216,90 @@ def test_stratified_logz_kernel_path_equals_plain_path(gen):
         assert ops.launch_counts()["fused_estimator_bwd"] == 1
         for a, b in zip(want, [lz.detach(), te.grad, th.grad]):
             torch.testing.assert_close(b, a, **TOL)
+
+
+# ---------------------------------------------------------------- families
+def _family_params(name, module, gen):
+    cfg = get_smoke(name)
+    p = module.init(gen, cfg, 1, device="cuda")
+    return cfg, {k: v[0] for k, v in p.items()}
+
+
+def _cpu(tree):
+    return {k: v.cpu() for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_forward_on_the_card_is_repeatable_and_matches_the_cpu(gen,
+                                                                    dtype):
+    """The sort-dispatched MoE: two launches bitwise equal (no atomics in
+    the combine), dispatch indices equal to the CPU's, output allclose
+    (bf16: rtol 2e-2 and an atol of 2e-2 times the largest magnitude)."""
+    cfg, p = _family_params("qwen3-moe-30b-a3b", moe, gen)
+    x = torch.randn((96, cfg.d_model), generator=gen, device="cuda").to(dtype)
+    a, aux_a = moe.forward(p, cfg, x)
+    b, aux_b = moe.forward(p, cfg, x)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    want, aux_w = moe.forward(_cpu(p), cfg, x.cpu())
+    ra, rw = moe.route(p, cfg, x), moe.route(_cpu(p), cfg, x.cpu())
+    for k in ("idx", "order", "rank", "keep", "slot"):
+        assert torch.equal(ra[k].cpu(), rw[k]), k
+    if dtype == torch.float32:
+        torch.testing.assert_close(a.cpu(), want, **TOL)
+    else:
+        scale = want.float().abs().max().item()
+        torch.testing.assert_close(a.float().cpu(), want.float(), rtol=2e-2,
+                                   atol=2e-2 * scale)
+    torch.testing.assert_close(aux_a.cpu(), aux_w, rtol=1e-4, atol=1e-5)
+
+
+def test_ssd_and_rglru_forward_on_the_card_match_the_cpu(gen):
+    """The chunked SSD scan (two chunks of 16) and the RG-LRU doubling scan
+    on the card against the CPU, fp32 (TF32 off): rtol=atol=1e-4."""
+    cfg, p = _family_params("mamba2-780m", ssm, gen)
+    x = torch.randn((2, 32, cfg.d_model), generator=gen, device="cuda")
+    out, cache = ssm.forward(p, cfg, x, chunk=16, return_cache=True)
+    want, wc = ssm.forward(_cpu(p), cfg, x.cpu(), chunk=16, return_cache=True)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cache["state"].cpu(), wc["state"], rtol=1e-4,
+                               atol=1e-4)
+    y, _ = ssm.decode(p, cfg, x[:, :1], cache)
+    wy, _ = ssm.decode(_cpu(p), cfg, x[:, :1].cpu(), wc)
+    torch.testing.assert_close(y.cpu(), wy, rtol=1e-4, atol=1e-4)
+
+    cfg, p = _family_params("recurrentgemma-9b", rglru, gen)
+    x = torch.randn((2, 33, cfg.d_model), generator=gen, device="cuda")
+    out, cache = rglru.forward(p, cfg, x, return_cache=True)
+    want, wc = rglru.forward(_cpu(p), cfg, x.cpu(), return_cache=True)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cache["state"].cpu(), wc["state"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "mamba2-780m",
+                                  "recurrentgemma-9b", "qwen3-moe-30b-a3b"])
+def test_compute_params_cast_set_on_the_card(gen, name):
+    """On CUDA params the cast set is the CPU's: the matmul weights in bf16
+    (the rank-4 expert weights too), conv taps, gates and norms in fp32."""
+    cfg = get_smoke(name)
+    params = transformer.init_params(gen, cfg, device="cuda")
+    run = transformer.compute_params(params, torch.bfloat16)
+    cpu = transformer.compute_params(
+        transformer.init_params(torch.Generator().manual_seed(0), cfg),
+        torch.bfloat16)
+
+    def dtypes(tree, path=()):
+        if isinstance(tree, dict):
+            return {q: d for k, v in tree.items()
+                    for q, d in dtypes(v, path + (k,)).items()}
+        if isinstance(tree, list):
+            return {q: d for i, v in enumerate(tree)
+                    for q, d in dtypes(v, path + (i,)).items()}
+        return {} if tree is None else {path: tree.dtype}
+
+    assert dtypes(run) == dtypes(cpu)
+    for path, dt in dtypes(run).items():
+        if path[-1] in ("conv", "lam", "w_a", "w_i", "dt_bias", "a_log",
+                        "d_skip") or "norm" in str(path[-1]):
+            assert dt == torch.float32, path
+

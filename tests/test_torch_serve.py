@@ -159,11 +159,12 @@ def test_launcher_cpu_ivfpq_report():
 
 @pytest.mark.parametrize("flags,what", [
     (("--mips", "lsh"), "--mips lsh: not in the PyTorch port yet"),
-    (("--arch", "mamba2-780m"), "only attention-family decoder configs"),
+    (("--arch", "hubert-xlarge"), "is encoder-only: no decode serving"),
 ])
 def test_launcher_rejects_unported_flags(flags, what):
-    """What the port still refuses: the LSH index and the trunk families it
-    does not have (here an SSM one)."""
+    """What the serving launcher refuses: the LSH index, which the port
+    does not have yet, and encoder-only archs, which do not decode (as
+    the reference launcher refuses them)."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
          "--smoke", "--device", "cpu", *flags],
