@@ -83,10 +83,32 @@ trained 2 steps each, and hubert's encode step once. Each model's line
 gives tokens/s, TTFT and ITL p50, step time, peak device memory, index MB
 and its seconds beside the card's name and power limit.
 
+Last, the ``[index-side]`` phase, at tinyllama-1.1b's full width (random
+weights from ``--seed``, the ``[serve]`` prompts): the SRP-LSH head (8
+tables × 10 bits, bucket cap 144 by the head's sizing) served fused T=8
+and unfused T=1 over one index (same tokens; ``dropped_count``, tokens/s,
+ITL p50, ``ok_rate``, index MB) and trained through ``Trainer`` (2 ×
+1,024 tokens, 3 steps, refresh and checkpoint every 2; the resume from
+step 2, which rebuilds the index from the saved rows, must give the
+uninterrupted run's loss bit for bit); structured search through the
+head's IVF index with the amortized log Z (4 beams × 8 steps, expand_k
+64): stochastic beam search twice (bitwise equal, distinct beams), MAP
+against greedy decoding (beam width 1: top beam's logp ≥ greedy's, within
+1e-3 relative, batch 4 against batch 1); deep-kNN over the 23 taps on the
+launcher's band classification with an exact and an IVF index per tap
+(the exact index's neighbours = the fp64 brute-force cosine kNN up to ties
+at the k-th value, same nonconformity where no tie); the LSH sampler (32
+tables × 6 bits, cap = n, no row dropped) against Algorithm 3 on the
+paper's 160,000 × 256 ImageNet table (RMSE against the exact log Z,
+device-event ms a query); IVF-PQ at the head's geometry built with
+anisotropic η 4 and 0 (build seconds, recall@576). Each kernel record
+gains ``launches_index_side``.
+
     python3 chip_smoke.py            # from the repository root
 
 Output, in order: the GPU line of nvidia-smi, build and check lines, the
-serve, ``[serve-tier]``, train, ``[paper]`` and ``[families]`` reports,
+serve, ``[serve-tier]``, train, ``[paper]``, ``[families]`` and
+``[index-side]`` reports,
 one ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed
 phase exits non-zero before the last line. Without CUDA, or without the
@@ -705,7 +727,7 @@ def estimator_inputs(torch, gen, n: int, d: int, t: int, k: int,
     ("popular"), uniform over the table ("uniform"), or one set of k ids
     for every token ("shared"); T: uniform tail draws of weight
     log((n - k) / k). ~10 % of S slots dead, and token 7 all dead (log_z
-    -inf, expv NaN, as the Pallas kernel gives)."""
+    -inf, expv NaN, as the Pallas kernel gives) where t > 7."""
     emb = torch.randn((n, d), generator=gen, device="cuda") * 0.02
     h = torch.randn((t, d), generator=gen, device="cuda")
     if s_ids == "popular":
@@ -722,7 +744,8 @@ def estimator_inputs(torch, gen, n: int, d: int, t: int, k: int,
                                   device="cuda")], dim=1)
     log_w[:, :k][torch.rand((t, k), generator=gen, device="cuda") < 0.1] = \
         float("-inf")
-    log_w[7] = float("-inf")
+    if t > 7:
+        log_w[7] = float("-inf")
     return emb, ids, h, log_w
 
 
@@ -2324,9 +2347,10 @@ def family_cfg(name: str):
 
 def tag_record(rec: dict, tag: str, err: float, timed, plain_ms: float,
                lib_ms, nb: float, flops: float, peak: float,
-               **extra) -> None:
+               label: str = "[families]", **extra) -> None:
     """A kernel's check and times at another path's shape, as keys
-    ``<tag>_*`` of its record (the record's own keys stay the main path's)."""
+    ``<tag>_*`` of its record (the record's own keys stay the main path's),
+    printed on a ``<label> kernel`` line."""
     ms, host = timed
     b_ms, b_by = bound_ms(nb, flops, peak)
     rec.update({f"{tag}_max_abs_err": err, f"{tag}_ms": ms,
@@ -2334,10 +2358,44 @@ def tag_record(rec: dict, tag: str, err: float, timed, plain_ms: float,
                 f"{tag}_bound_ms": b_ms, f"{tag}_bound_by": b_by,
                 f"{tag}_library_ms": lib_ms},
                **{f"{tag}_{k}": v for k, v in extra.items()})
-    print(f"[families] kernel {rec['name']} {tag}: ok max_abs_err={err:.3g} "
+    print(f"{label} kernel {rec['name']} {tag}: ok max_abs_err={err:.3g} "
           f"ms={ms:.4f} host_us={host:.1f} plain_ms={plain_ms:.4f} "
           f"bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms} "
           + json.dumps(extra), flush=True)
+
+
+def estimator_check(torch, gen, timer: Timer, rec: dict, tag: str, n: int,
+                    d: int, t: int, k: int, label: str = "[families]"):
+    """``fused_estimator`` at (t tokens, m = 2k slots, an n x d table)
+    against its plain version (rtol 1e-5, as :func:`kernel_checks`), its
+    check and times as keys ``<tag>_*`` of ``rec``. Returns (emb, ids, h,
+    log_w, y, log_z) for a backward check on the same inputs."""
+    from repro_torch.kernels import fused_estimator as kfe
+    from repro_torch.kernels import ref
+
+    emb, ids, h, log_w = estimator_inputs(torch, gen, n, d, t, k)
+    args = (emb, ids, h, log_w)
+    got_z, got_v, got_y = kfe.fused_estimator(*args, return_y=True)
+    want_z, want_v, want_y = ref.fused_estimator_ref(*args, return_y=True)
+    torch.cuda.synchronize()
+    live = torch.isfinite(log_w)
+    check(close(torch, got_z, want_z) and close(torch, got_v, want_v)
+          and close(torch, got_y[live], want_y[live]),
+          f"fused_estimator at {tag} ({t} x {2 * k}, d {d}) disagrees with "
+          f"its plain version")
+    err = max((got_z - want_z)[live.any(1)].abs().max().item(),
+              (got_v - want_v)[live.any(1)].abs().max().item())
+    rows_live = int(torch.unique(ids[live]).numel())
+    tag_record(rec, tag, err,
+               timer.both(lambda: kfe.fused_estimator(*args, return_y=True),
+                          f"fused_estimator {tag}"),
+               timer(lambda: ref.fused_estimator_ref(*args, return_y=True),
+                     f"fused_estimator {tag} plain"), None,
+               rows_live * d * 4 + nbytes(ids, log_w, h) + t * 4
+               + t * d * 4 + t * 2 * k * 4,
+               4.0 * d * int(live.sum().item()), FP32_FLOPS, label=label,
+               d=d, k=k, tokens=t)
+    return emb, ids, h, log_w, got_y, want_z
 
 
 def family_kernel_checks(torch, records: list[dict]) -> None:
@@ -2436,27 +2494,9 @@ def family_kernel_checks(torch, records: list[dict]) -> None:
     # fused_estimator and its backward at mamba2's training chunk
     t, k = HEAD_CHUNK, g.k
     m = 2 * k
-    emb, ids, h, log_w = estimator_inputs(torch, gen, g.n, g.d, t, k)
-    args = (emb, ids, h, log_w)
-    got_z, got_v, got_y = kfe.fused_estimator(*args, return_y=True)
-    want_z, want_v, want_y = ref.fused_estimator_ref(*args, return_y=True)
-    torch.cuda.synchronize()
-    live = torch.isfinite(log_w)
-    check(close(torch, got_z, want_z) and close(torch, got_v, want_v)
-          and close(torch, got_y[live], want_y[live]),
-          "fused_estimator at d 1536 disagrees with its plain version")
-    err = max((got_z - want_z)[live.any(1)].abs().max().item(),
-              (got_v - want_v)[live.any(1)].abs().max().item())
-    rows_live = int(torch.unique(ids[live]).numel())
-    tag_record(by_name["fused_estimator"], "mamba2", err,
-               timer.both(lambda: kfe.fused_estimator(*args, return_y=True),
-                          "fused_estimator mamba2"),
-               timer(lambda: ref.fused_estimator_ref(*args, return_y=True),
-                     "fused_estimator mamba2 plain"), None,
-               rows_live * g.d * 4 + nbytes(ids, log_w, h) + t * 4
-               + t * g.d * 4 + t * m * 4,
-               4.0 * g.d * int(live.sum().item()), FP32_FLOPS, d=g.d, k=k,
-               tokens=t)
+    emb, ids, h, log_w, got_y, want_z = estimator_check(
+        torch, gen, timer, by_name["fused_estimator"], "mamba2", g.n, g.d, t,
+        k)
     gvec = 0.5 + torch.rand((t,), generator=gen, device="cuda")
     live_tok = torch.ones(t, dtype=torch.bool, device="cuda")
     live_tok[7] = False
@@ -2482,16 +2522,18 @@ def family_kernel_checks(torch, records: list[dict]) -> None:
                FP32_FLOPS, d=g.d, k=k, tokens=int(live_tok.sum().item()))
     print(f"[timer] [families] calls whose host issue outlasted the hold: "
           f"{json.dumps(timer.uncovered)}", flush=True)
-    del timer, emb, args, bargs
+    del timer, emb, bargs
     torch.cuda.empty_cache()
 
 
 def family_serve(torch, name: str, label: str, cfg, params, prompts,
-                 counts: dict, index=None, **scfg_kw):
+                 counts: dict, index=None, tag: str = "[families]",
+                 **scfg_kw):
     """One serving run of ``prompts`` (8 requests x 32 new tokens on 4
     slots of a 512-position cache): launch counts at 0 just before it, read
     just after and added to ``counts``; every request must get all its
-    tokens, ids in range. Returns (server, results, report)."""
+    tokens, ids in range. Lines start with ``tag``. Returns (server,
+    results, report, the run's launch counts)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import report
     from repro_torch.serve.server import ServeConfig, Server
@@ -2509,8 +2551,8 @@ def family_serve(torch, name: str, label: str, cfg, params, prompts,
     for k, n in run.items():
         counts[k] = counts.get(k, 0) + n
     rep = report(res, srv)
-    print(f"[families] {name} serve {label} {json.dumps(rep)}", flush=True)
-    print(f"[families] {name} serve {label} launches {json.dumps(run)}",
+    print(f"{tag} {name} serve {label} {json.dumps(rep)}", flush=True)
+    print(f"{tag} {name} serve {label} launches {json.dumps(run)}",
           flush=True)
     check(len(res) == len(prompts)
           and all(r.status == "ok" and len(r.tokens) == kw["max_new_tokens"]
@@ -2784,6 +2826,562 @@ def families_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- index side
+# the index side at tinyllama-1.1b's full width (22 layers, d 2048, vocab
+# 32,000, seed-drawn weights): the LSH head served and trained, structured
+# search and deep-kNN on the trunk, the LSH sampler against Algorithm 3 on
+# the paper's 160,000-row ImageNet table, the anisotropic IVF-PQ build
+INDEX_TAG = "[index-side]"
+INDEX_TRAIN_STEPS, INDEX_TRAIN_EVERY = 3, 2  # a resume from step 2
+BEAMS = dict(n_beams=4, horizon=8, expand_k=64, logz="amortized")
+BEAM_PROMPT = 4  # prompt tokens of the structured search
+DKNN = dict(classes=4, train=256, cal=64, test=64, seq=16, k=8)
+LSH_SAMPLER = dict(tables=32, bits=6, queries=64)
+ANISO_ETA = 4.0  # the anisotropic build's eta, beside the standard one (0)
+
+
+def index_gather_check(torch, timer: Timer, rec: dict, tag: str, index,
+                       q) -> None:
+    """``ivf_gather_score`` over an IVF index's members at its own probe of
+    queries ``q`` against its plain version (ids equal, scores as
+    :func:`values_close` ``scaled``), its check and times as keys
+    ``<tag>_*`` of ``rec``."""
+    from repro_torch.core import mips
+    from repro_torch.kernels import ivf_gather_score as kigs
+    from repro_torch.kernels import ref
+
+    st = index.state
+    n_probe = min(index.config.n_probe, st.n_clusters)
+    qf = q.float()
+    _, probe = mips.top_k(qf @ st.centroids.T, n_probe)
+    args = (st.member_vecs, st.member_ids, probe, qf)
+    gs, gi = kigs.ivf_gather_score(*args)
+    ws, wi = ref.ivf_gather_score_ref(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(gi, wi) and values_close(torch, gs, ws, scaled=True),
+          f"ivf_gather_score at {tag} disagrees with its plain version: "
+          f"{max_err(gs, ws)}")
+    b, d = qf.shape
+    uniq = torch.unique(probe)
+    tag_record(rec, tag, max_err(gs, ws),
+               timer.both(lambda: kigs.ivf_gather_score(*args),
+                          f"ivf_gather_score {tag}"),
+               timer(lambda: ref.ivf_gather_score_ref(*args),
+                     f"ivf_gather_score {tag} plain"), None,
+               uniq.numel() * st.cap * (d + 1) * 4 + nbytes(probe, qf)
+               + b * n_probe * st.cap * 8,
+               2.0 * b * n_probe * st.cap * d, FP32_FLOPS, label=INDEX_TAG,
+               d=d, queries=b, n_probe=n_probe, clusters=st.n_clusters,
+               cap=st.cap)
+
+
+def index_kernel_checks(torch, cfg, records: list[dict]) -> None:
+    """The kernels at the geometries this phase gives them and no earlier
+    phase checks, each against its plain version: ``fused_estimator`` at
+    structured search's amortized log Z (the beams' queries, expand_k + l
+    slots over the head's table) and at Algorithm 3 on the ImageNet bench
+    table (64 queries, k + l slots, d 256); ``ivf_gather_score`` over
+    deep-kNN's per-tap IVF index (the training reps' count, d_model, its
+    probe of the calibration batch). Algorithm 3's IVF probe is checked
+    where its index is built (:func:`index_lsh_sampler`)."""
+    from repro_torch.configs.paper_loglinear import IMAGENET_BENCH as pc
+    from repro_torch.core import mips
+    from repro_torch.core.gumbel import default_kl
+    from repro_torch.launch.workloads import index_cfg
+    from repro_torch.workloads import dknn
+
+    by_name = {r["name"]: r for r in records}
+    timer = Timer(torch, ITERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2424)
+    rec = by_name["fused_estimator"]
+    estimator_check(torch, gen, timer, rec, "index_structured", cfg.vocab,
+                    cfg.d_model, BEAMS["n_beams"], BEAMS["expand_k"],
+                    label=INDEX_TAG)
+    torch.cuda.empty_cache()
+    k = default_kl(pc.n, pc.delta)
+    estimator_check(torch, gen, timer, rec, "index_alg3", pc.n, pc.d,
+                    LSH_SAMPLER["queries"], k, label=INDEX_TAG)
+    torch.cuda.empty_cache()
+    reps = dknn.normalize_reps(torch.randn(
+        (DKNN["train"] + DKNN["cal"], cfg.d_model), generator=gen,
+        device="cuda"))
+    index = mips.build_index(index_cfg("ivf"), reps[:DKNN["train"]])
+    index_gather_check(torch, timer, by_name["ivf_gather_score"],
+                       "index_dknn", index, reps[DKNN["train"]:])
+    print(f"[timer] {INDEX_TAG} calls whose host issue outlasted the hold: "
+          f"{json.dumps(timer.uncovered)}", flush=True)
+    del timer, index, reps
+    torch.cuda.empty_cache()
+
+
+def index_lsh_serve(torch, cfg, params, prompts, counts: dict, smi: str
+                    ) -> dict:
+    """The LSH head (8 tables x 10 bits, the head's bucket sizing) served
+    fused at T=8 and unfused at T=1 over one index: same tokens."""
+    lcfg = cfg.scaled(head_mips="lsh")
+    t0 = time.perf_counter()
+    srv, res_f, rep_f, run_f = family_serve(
+        torch, "lsh head", f"fused T={WINDOW}",
+        lcfg.scaled(head_fused_decode=True), params, prompts, counts,
+        tag=INDEX_TAG)
+    _, res_u, rep_u, run_u = family_serve(
+        torch, "lsh head", "unfused T=1", lcfg, params, prompts, counts,
+        index=srv.index, decode_window=1, tag=INDEX_TAG)
+    same = sum(a.tokens == b.tokens for a, b in zip(res_f, res_u))
+    idx = srv.index
+    out = {"fused_tokens_per_s": rep_f["tokens_per_s"],
+           "fused_itl_p50_ms": rep_f["itl_p50_ms"],
+           "unfused_tokens_per_s": rep_u["tokens_per_s"],
+           "unfused_itl_p50_ms": rep_u["itl_p50_ms"],
+           "ok_rate": rep_f["ok_rate"], "index_mb": rep_f["index_mb"],
+           "tables": idx.n_tables, "bits": idx.n_bits,
+           "bucket_cap": idx.bucket_cap, "dropped_count": idx.dropped_count,
+           "seconds": time.perf_counter() - t0}
+    print(f"{INDEX_TAG} lsh head fused T={WINDOW} == unfused T=1 tokens: "
+          f"{same}/{len(prompts)} requests", flush=True)
+    print(f"{INDEX_TAG} lsh head serve ({smi}) {json.dumps(out)}",
+          flush=True)
+    check(same == len(prompts), "lsh head: fused T=8 and unfused T=1 served "
+          "different tokens")
+    check(run_f["flash_decode"] > 0 and run_f["tail_gather_argmax"] > 0
+          and run_u["flash_decode"] > 0,
+          "lsh head: a kernel of its serving path was never launched")
+    return out
+
+
+def index_lsh_train(torch, seed: int, cfg, counts: dict, smi: str) -> dict:
+    """The LSH head trained through ``Trainer``: 3 steps of 2 x 1,024
+    tokens, refresh and checkpoint every 2, then a resume from the step-2
+    checkpoint (the LSH index is rebuilt from the saved rows alone): its
+    loss must equal the uninterrupted run's bit for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import TrainConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.trainer import RunConfig, Trainer
+
+    tcfg = cfg.scaled(head_mips="lsh")
+    run = RunConfig(num_steps=INDEX_TRAIN_STEPS, ckpt_every=INDEX_TRAIN_EVERY,
+                    log_every=1, keep_ckpts=2, seed=seed, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, index_refresh_every=INDEX_TRAIN_EVERY,
+                    train=TrainConfig(opt=OptConfig(
+                        lr=1e-4, warmup_steps=2,
+                        total_steps=INDEX_TRAIN_STEPS), precision="bf16"))
+    workdir = ROOT / "build" / "chip_smoke_index"
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = Trainer(tcfg, run, str(workdir), device="cuda")
+    res = tr.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_counts = ops.launch_counts()
+    for k, n in run_counts.items():
+        counts[k] = counts.get(k, 0) + n
+    log = tr.metrics_log
+    for e in log:
+        print(f"{INDEX_TAG} lsh head train step {e['step']} "
+              f"loss={e['loss']:.5f} nll={e['nll']:.5f} "
+              f"dt={e['dt'] * 1e3:.1f} ms", flush=True)
+    losses = [e["loss"] for e in log]
+    stats = {"steps": len(log),
+             "step_ms_median": 1e3 * statistics.median(
+                 e["dt"] for e in log[1:]),
+             "run_wall_s": wall, "index_refreshes": tr.index_refreshes,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "index_mb": tr.head_index.memory_bytes() / 1e6}
+    print(f"{INDEX_TAG} lsh head train launches {json.dumps(run_counts)}",
+          flush=True)
+    check(res["status"] == "done" and len(losses) == INDEX_TRAIN_STEPS,
+          "lsh train: the run did not take its steps")
+    check(all(math.isfinite(x) for x in losses), "lsh train: a non-finite "
+          "loss")
+    check(tr.index_refreshes == INDEX_TRAIN_STEPS // INDEX_TRAIN_EVERY,
+          "lsh train: the head index was not refreshed")
+    for name in ("fused_estimator", "fused_estimator_bwd"):
+        check(run_counts[name] > 0, f"lsh train never launched {name}")
+    del tr
+    torch.cuda.empty_cache()
+    shutil.rmtree(workdir / f"ckpt_{INDEX_TRAIN_STEPS:08d}")
+    tr2 = Trainer(tcfg, run, str(workdir), device="cuda")
+    tr2.train()
+    torch.cuda.synchronize()
+    resumed = [e["loss"] for e in tr2.metrics_log]
+    want = losses[INDEX_TRAIN_EVERY:]
+    stats["resume_bitwise"] = resumed == want
+    print(f"{INDEX_TAG} lsh head resume from step {INDEX_TRAIN_EVERY}: "
+          f"losses {resumed} vs {want}, bitwise {resumed == want}",
+          flush=True)
+    print(f"{INDEX_TAG} lsh head train ({smi}) {json.dumps(stats)}",
+          flush=True)
+    check(resumed == want, "lsh train: the resumed run is not bitwise the "
+          "uninterrupted one")
+    del tr2
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return stats
+
+
+def index_structured(torch, seed: int, cfg, params, counts: dict,
+                     smi: str) -> dict:
+    """Structured search at full width through the head's IVF index with
+    the amortized per-step log Z: stochastic beam search twice (bitwise
+    equal, distinct beams) and MAP against greedy decoding (beam width 1,
+    the same node keys and log Z draws)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.workloads import structured
+
+    model = Model(cfg.scaled(head_mips="ivf"), "bf16", device="cuda")
+    index = model.make_head_index(params)
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                  size=BEAM_PROMPT)
+    out: dict = {}
+
+    def run(tag, **kw):
+        bcfg = structured.BeamConfig(**{**BEAMS, **kw})
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        beams = structured.search(model, params, prompt, seed, bcfg, index)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        run_counts = ops.launch_counts()
+        for k, n in run_counts.items():
+            counts[k] = counts.get(k, 0) + n
+        rep = {"seconds": dt, "ok_rate": float(beams.ok_rate),
+               "tokens": beams.tokens.tolist(),
+               "logp": beams.logp.tolist(),
+               "exact": beams.exact.tolist()}
+        print(f"{INDEX_TAG} structured {tag} {json.dumps(rep)}", flush=True)
+        print(f"{INDEX_TAG} structured {tag} launches "
+              f"{json.dumps(run_counts)}", flush=True)
+        return beams, run_counts
+
+    a, run_a = run("sbs run 1")
+    b, _ = run("sbs run 2")
+    same = (torch.equal(a.tokens, b.tokens) and torch.equal(a.logp, b.logp)
+            and torch.equal(a.gumbel, b.gumbel))
+    distinct = len({tuple(r) for r in a.tokens.tolist()})
+    m, run_m = run("map", mode="map")
+    g, _ = run("greedy", mode="map", n_beams=1)
+    top, greedy = float(m.logp[0]), float(g.logp[0])
+    out = {"sbs_ok_rate": float(a.ok_rate), "map_ok_rate": float(m.ok_rate),
+           "sbs_bitwise_repeat": same, "sbs_distinct": distinct,
+           "map_top_logp": top, "greedy_logp": greedy}
+    print(f"{INDEX_TAG} structured ({smi}) {json.dumps(out)}", flush=True)
+    check(same, "structured sbs: two runs differ")
+    check(distinct == BEAMS["n_beams"] and bool(a.live.all()),
+          "structured sbs: the beams are not distinct")
+    # batch 4 against batch 1: the trunk's products may round differently
+    check(top >= greedy - 1e-3 * max(1.0, abs(greedy)),
+          f"structured map: top beam {top} below greedy {greedy}")
+    for name in ("flash_decode", "ivf_gather_score", "fused_estimator"):
+        check(run_a[name] > 0 and run_m[name] > 0,
+              f"structured never launched {name}")
+    del index
+    torch.cuda.empty_cache()
+    return out
+
+
+def index_dknn(torch, seed: int, cfg, params, counts: dict, smi: str
+               ) -> dict:
+    """Deep-kNN over tinyllama's 23 taps (22 block steps and the final
+    norm) on the launcher's band classification, an exact and an IVF index
+    per tap. Gate: the exact index's neighbours are the brute-force fp64
+    cosine kNN up to ties at the k-th value, and where they agree exactly
+    the p-values and predictions are the same."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.workloads import band_batches, index_cfg, taps
+    from repro_torch.models.model import Model
+    from repro_torch.workloads import dknn
+
+    model = Model(cfg, "bf16", device="cuda")
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+
+    def reps(n):
+        toks, labels = band_batches(cfg, n, DKNN["classes"], DKNN["seq"],
+                                    rng)
+        return taps(model, params, toks), torch.from_numpy(labels)
+
+    (tr, tl), (ca, cl), (te, wl) = (reps(DKNN["train"]), reps(DKNN["cal"]),
+                                    reps(DKNN["test"]))
+    torch.cuda.synchronize()
+    taps_s = time.perf_counter() - t0
+    n_taps = tr.shape[0]
+    check(n_taps == cfg.n_layers + 1, f"dknn: {n_taps} taps")
+    out: dict = {"n_taps": n_taps, "taps_s": taps_s}
+    results = {}
+    for name in ("exact", "ivf"):
+        dcfg = dknn.DKNNConfig(n_classes=DKNN["classes"], k=DKNN["k"],
+                               index_cfg=index_cfg(name))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        state = dknn.fit(tr, tl, ca, cl, dcfg)
+        res = dknn.classify(state, dknn.normalize_reps(te), dcfg)
+        torch.cuda.synchronize()
+        run_counts = ops.launch_counts()
+        for k, n in run_counts.items():
+            counts[k] = counts.get(k, 0) + n
+        results[name] = res
+        out[name] = {
+            "accuracy": float((res.pred.cpu() == wl).float().mean()),
+            "credibility_mean": float(res.credibility.mean()),
+            "confidence_mean": float(res.confidence.mean()),
+            "seconds": time.perf_counter() - t1}
+        print(f"{INDEX_TAG} dknn {name} launches {json.dumps(run_counts)}",
+              flush=True)
+        if name == "ivf":
+            check(run_counts["ivf_gather_score"] > 0,
+                  "dknn ivf never launched ivf_gather_score")
+    # brute force: fp64 cosine over the same taps
+    res = results["exact"]
+    a = tr.double() / torch.linalg.norm(tr.double(), dim=-1, keepdim=True)
+    b = te.double() / torch.linalg.norm(te.double(), dim=-1, keepdim=True)
+    cos = torch.einsum("jbd,jnd->jbn", b, a)  # (taps, test, train)
+    kth = torch.topk(cos, DKNN["k"], dim=2).values[..., -1:]
+    neigh = res.neighbors
+    got_cos = torch.gather(cos, 2, neigh)
+    inside = cos >= kth - 1e-6  # the brute-force top-k, ties included
+    tie_ok = bool((neigh >= 0).all()) and bool(
+        (got_cos >= kth - 1e-6).all()) and bool(
+        (inside.sum(2) >= DKNN["k"]).all())
+    exact_rows = (inside.sum(2) == DKNN["k"]).all(0)  # no tie at the k-th
+    labels = tl.cuda()
+    votes = torch.zeros((te.shape[1], DKNN["classes"]), device="cuda",
+                        dtype=torch.float64)
+    for j in range(n_taps):
+        top = torch.topk(cos[j], DKNN["k"], dim=1).indices
+        votes.scatter_add_(1, labels[top], torch.ones_like(top,
+                                                           dtype=votes.dtype))
+    alpha = n_taps * DKNN["k"] - votes
+    same_alpha = bool((alpha.float()[exact_rows]
+                       == res.alpha[exact_rows]).all())
+    out["brute_force"] = {"tie_ok": tie_ok,
+                          "rows_without_ties": int(exact_rows.sum()),
+                          "alpha_equal": same_alpha}
+    print(f"{INDEX_TAG} dknn ({smi}) {json.dumps(out)}", flush=True)
+    check(tie_ok and same_alpha, "dknn: the exact index's neighbours are "
+          "not the brute-force cosine kNN")
+    return out
+
+
+def index_lsh_sampler(torch, seed: int, counts: dict, records: list[dict],
+                      smi: str) -> dict:
+    """The LSH sampler (32 tables x 6 bits, bucket_cap = n, so lossless)
+    against Algorithm 3 (k = l = default_kl(n)) on the paper's ImageNet
+    benchmark table (160,000 x 256, clustered, made on the card), 64
+    queries θ = row / 0.05: RMSE against the exact log Z and device-event
+    ms a query of each. Algorithm 3 runs with the exact top-k probe (the
+    launcher's head-to-head) and through the [paper] phase's IVF probe
+    (sqrt(n) clusters, 16 probed), whose ``ivf_gather_score`` is checked
+    against its plain version here. At bucket_cap = n the sampler scores
+    every row (L·cap >= n), so it and the exact-probe Algorithm 3 do the
+    dense exact log Z's product and more."""
+    from repro_torch.configs.paper_loglinear import IMAGENET_BENCH as pc
+    from repro_torch.core import estimators as est
+    from repro_torch.core import mips
+    from repro_torch.core.gumbel import default_kl
+    from repro_torch.kernels import ops
+    from repro_torch.launch.workloads import (clustered_db,
+                                              estimator_head_to_head,
+                                              random_queries)
+
+    b = LSH_SAMPLER["queries"]
+    db = clustered_db(pc.n, pc.d, seed=seed, device="cuda")
+    h = random_queries(db, b, temperature=pc.temperature, seed=seed + 1)
+    k = default_kl(pc.n, pc.delta)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = estimator_head_to_head(db, h, k=k, l=k, tables=LSH_SAMPLER["tables"],
+                                 bits=LSH_SAMPLER["bits"], seed=seed)
+    torch.cuda.synchronize()
+    run_counts = ops.launch_counts()
+    for name, n in run_counts.items():
+        counts[name] = counts.get(name, 0) + n
+    lidx = res["index"]
+    exact = res["exact"]
+
+    def rmse(x):
+        return float(torch.sqrt(torch.mean((x.double() - exact.double())
+                                           ** 2)))
+
+    ivf = mips.build_index(mips.IVFConfig(
+        n_clusters=max(16, int(math.sqrt(pc.n))), kmeans_iters=4,
+        n_probe=PAPER_N_PROBE), db)
+    timer = Timer(torch, ITERS)
+    index_gather_check(torch, timer, {r["name"]: r for r in records}
+                       ["ivf_gather_score"], "index_alg3_ivf", ivf, h)
+    del timer
+
+    def alg3(index=None):
+        topk = est.topk_probe(db, h, k, index=index)
+        keys = torch.stack([torch.full((b,), seed), torch.arange(b),
+                            torch.zeros(b, dtype=torch.int64)], 1).cuda()
+        ids, log_w = est.amortized_candidates(topk, pc.n, k, keys=keys)
+        return est.stratified_logz(db, h, ids, log_w)
+
+    ops.reset_launch_counts()
+    alg3_ivf = alg3(ivf)
+    torch.cuda.synchronize()
+    for name, n in ops.launch_counts().items():
+        counts[name] = counts.get(name, 0) + n
+
+    out = {"n": pc.n, "d": pc.d, "queries": b, "k": k, "l": k,
+           "tables": lidx.n_tables, "bits": lidx.n_bits,
+           "bucket_cap": lidx.bucket_cap, "dropped": lidx.dropped_count,
+           "index_mb": lidx.memory_bytes() / 1e6,
+           "lsh_rmse": rmse(res["lsh"]), "alg3_rmse": rmse(res["alg3"]),
+           "alg3_ivf_rmse": rmse(alg3_ivf),
+           "first_pass_s": time.perf_counter() - t0,
+           "lsh_ms_per_query": event_ms(
+               torch, lambda: est.lsh_sampler_logz(lidx, h)) / b,
+           "alg3_ms_per_query": event_ms(torch, alg3) / b,
+           "alg3_ivf_ms_per_query": event_ms(torch, lambda: alg3(ivf)) / b,
+           "exact_ms_per_query": event_ms(
+               torch, lambda: est.exact_logz(db, h)) / b}
+    print(f"{INDEX_TAG} lsh sampler vs algorithm 3 launches "
+          f"{json.dumps(run_counts)}", flush=True)
+    print(f"{INDEX_TAG} lsh sampler vs algorithm 3 ({smi}) "
+          f"{json.dumps(out)}", flush=True)
+    check(out["dropped"] == 0, "lsh sampler: the buckets dropped rows")
+    check(all(math.isfinite(out[x])
+              for x in ("lsh_rmse", "alg3_rmse", "alg3_ivf_rmse")),
+          "lsh sampler: a non-finite estimate")
+    check(run_counts["fused_estimator"] > 0,
+          "algorithm 3 never launched fused_estimator")
+    del lidx, res, db, h, ivf
+    torch.cuda.empty_cache()
+    return out
+
+
+def index_anisotropic(torch, seed: int, cfg, params, prompts, counts: dict,
+                      smi: str) -> dict:
+    """IVF-PQ at the head's geometry (32,000 rows of d 2048; 8 x 256
+    codewords, n_probe 8, r 1,152) built with anisotropic eta 4 and with
+    the standard objective (0), same seed: build seconds and recall@576
+    against the exact top-k, queried unfused (``pq_lut_score``,
+    ``rerank_select``) by the hidden states of the serving prompts. The
+    re-rank of 2k covers most of the probed pool, so the codebooks decide
+    little of that recall; the screen's own recall (the LUT's top 576
+    alone, re-ranked with r = k) is the number the codebooks move."""
+    from repro_torch.core import mips
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+
+    model = Model(cfg, "bf16", device="cuda")
+    emb = model._out_embed(params)[: cfg.vocab].float()
+    trunk = model.compute_params(params)
+    hs = []
+    with torch.no_grad():
+        for p in prompts:
+            tok = torch.tensor(p, device="cuda").long()[None]
+            x = params["embed"][tok].to(model.compute_dtype)
+            pos = torch.arange(tok.shape[1], device="cuda")[None]
+            h, _ = transformer.apply_trunk_prefill(trunk, cfg, x, pos,
+                                                   max_seq=tok.shape[1])
+            hs.append(h[0].float())
+    q = torch.cat(hs)  # every prompt position's hidden state
+    k = model.head_cfg.k
+    exact = mips.build_index(mips.ExactConfig(), emb).topk_batch(q, k)
+    out: dict = {"queries": int(q.shape[0]), "k": k}
+    for eta in (ANISO_ETA, 0.0):
+        pcfg = mips.PQConfig(n_probe=cfg.head_n_probe, rerank=2 * k,
+                             anisotropic_eta=eta, seed=seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = mips.build_index(pcfg, emb)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        tk = idx.topk_batch(q, k)
+        torch.cuda.synchronize()
+        run_counts = ops.launch_counts()
+        for name, n in run_counts.items():
+            counts[name] = counts.get(name, 0) + n
+        rec = statistics.mean(recall(tk.ids, exact))
+        screen = type(idx)(dataclasses.replace(idx.config, rerank=k),
+                           idx.state).topk_batch(q, k)
+        out[f"eta_{eta:g}"] = {
+            "build_s": build_s, "recall_at_k": rec,
+            "screen_recall_at_k": statistics.mean(recall(screen.ids, exact)),
+            "index_mb": idx.memory_bytes() / 1e6}
+        check(run_counts["pq_lut_score"] > 0 and run_counts["rerank_select"]
+              > 0, f"anisotropic eta {eta}: a PQ kernel was never launched")
+        del idx
+    print(f"{INDEX_TAG} anisotropic ivfpq ({smi}) {json.dumps(out)}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def index_side_phase(torch, seed: int, records: list[dict], smi: str
+                     ) -> dict:
+    """The ``[index-side]`` phase at tinyllama-1.1b's full width: the LSH
+    head served (fused T=8 ≡ unfused T=1) and trained (resume bitwise),
+    structured search (sbs repeatable and distinct, MAP ≥ greedy), deep-kNN
+    (exact = brute force), the LSH sampler against Algorithm 3 (no row
+    dropped), the anisotropic IVF-PQ build. Adds each kernel's launches on
+    these paths (``launches_index_side``) to ``records``, and the checks
+    of the kernels at this phase's own geometries
+    (:func:`index_kernel_checks`)."""
+    import gc
+
+    from repro_torch.configs import get
+    from repro_torch.models.model import Model
+
+    cfg = get("tinyllama-1.1b")
+    params = Model(cfg, "bf16", device="cuda").init(seed)
+    prompts = family_prompts(cfg, seed)  # the [serve] phase's prompts
+    counts: dict = {}
+    out: dict = {"card": smi}
+    t0 = time.perf_counter()
+    index_kernel_checks(torch, cfg, records)
+    print(f"{INDEX_TAG} kernel checks done in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    steps = (("lsh_serve", lambda: index_lsh_serve(torch, cfg, params,
+                                                   prompts, counts, smi)),
+             ("structured", lambda: index_structured(torch, seed, cfg,
+                                                     params, counts, smi)),
+             ("dknn", lambda: index_dknn(torch, seed, cfg, params, counts,
+                                         smi)),
+             ("anisotropic", lambda: index_anisotropic(
+                 torch, seed, cfg, params, prompts, counts, smi)))
+    for name, fn in steps:
+        t0 = time.perf_counter()
+        out[name] = fn()
+        print(f"{INDEX_TAG} {name} done in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, fn in (("lsh_train", lambda: index_lsh_train(
+            torch, seed, cfg, counts, smi)),
+            ("lsh_sampler", lambda: index_lsh_sampler(torch, seed, counts,
+                                                      records, smi))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        print(f"{INDEX_TAG} {name} done in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for rec in records:
+        rec["launches_index_side"] = counts.get(rec["name"], 0)
+    print(f"{INDEX_TAG} launches {json.dumps(counts)}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2864,6 +3462,11 @@ def main() -> int:
     families_phase(torch, args.seed, records, smi)
     print(f"[families] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    index_side_phase(torch, args.seed, records, smi)
+    print(f"[index-side] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     # launches: each path's count, read just after its own run — serving
     # (each kernel's count on the first serving run that launches it, the
     # fused run before the unfused one, IVF before IVF-PQ; the paged kernel
@@ -2871,7 +3474,8 @@ def main() -> int:
     # training runs (IVF, then IVF-PQ for the PQ kernels); "launches" is
     # the count on the newest path that runs the kernel (training where it
     # ran there, else serving); the [paper] and [families] paths' counts
-    # stand beside it (launches_paper, launches_adaptive, launches_families)
+    # stand beside it (launches_paper, launches_adaptive, launches_families,
+    # launches_index_side)
     # path_us: device us per call of the kernel on the same path, from the
     # profiled repeats of it (serving: 4 prompts; training: one step)
     for rec in records:

@@ -13,12 +13,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.mips.ivf import IVFState
+from repro_torch.core.mips.lsh import LSHState
 from repro_torch.core.mips.pq import PQState
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 
 __all__ = ["tree_from_numpy", "params_from_jax", "opt_state_from_jax",
-           "ivf_state_from_jax", "pq_state_from_jax"]
+           "ivf_state_from_jax", "pq_state_from_jax", "lsh_state_from_jax"]
 
 
 def tree_from_numpy(tree: Any, device=None) -> Any:
@@ -92,3 +93,11 @@ def pq_state_from_jax(np_state, db: torch.Tensor) -> PQState:
     fields = [torch.from_numpy(np.array(x, copy=True)).to(db.device)
               for x in tuple(np_state)[:-1]]
     return PQState(*fields, db=db)
+
+
+def lsh_state_from_jax(np_leaves, device=None) -> LSHState:
+    """A JAX ``LSHIndex``'s leaves (``(proj, table_ids, db_aug, counts)``,
+    its pytree children, as numpy arrays) -> the port's :class:`LSHState`;
+    ``LSHIndex(config, state)`` serves it."""
+    return LSHState(*(torch.from_numpy(np.array(x, copy=True)).to(device)
+                      for x in np_leaves))

@@ -4,7 +4,7 @@
 - gumbel: lazy-Gumbel sampling (Algorithms 1 and 2, Poissonized tail)
 - partition / expectation: the Algorithm 3 / 4 stratified estimators
 - complement: exact uniform sampling from [n] \\ S
-- mips: exact / IVF / IVF-PQ top-k indexes and the adaptive probe
+- mips: exact / IVF / IVF-PQ / SRP-LSH top-k indexes and the adaptive probe
 - estimators: the estimator core of the LM head
 - amortized_head: the estimators packaged as an LM softmax head
 """

@@ -18,6 +18,7 @@ table and are sliced away up front.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -32,7 +33,6 @@ __all__ = ["HeadConfig", "HeadLossOut", "head_loss", "head_sample",
 
 _MODES = ("exact", "topk_only", "amortized")
 _MIPS = ("exact", "ivf", "ivfpq", "lsh")
-_PORTED_MIPS = ("exact", "ivf", "ivfpq")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +41,7 @@ class HeadConfig:
     k: int = 0  # |S|; 0 -> default_kl(n, delta)
     l: int = 0  # |T|; 0 -> same as k
     mode: str = "amortized"  # exact | topk_only | amortized
-    mips: str = "exact"  # exact | ivf | ivfpq  (lsh: not ported yet)
+    mips: str = "exact"  # exact | ivf | ivfpq | lsh
     n_probe: int = 8
     adaptive_probe: bool = False  # certificate-gated staged widening: probe
     #   n_probe_init clusters per token, widen geometrically (up to
@@ -109,7 +109,9 @@ def make_index(cfg: HeadConfig, emb: torch.Tensor, device=None, **build_kw
     (CUDA unless the caller names another), or None when the exact top-k
     path applies. ``emb`` must already live on that device; ``build_kw``
     go to the backend's ``build`` (IVF: ``init_cent``, ``iters``; IVF-PQ
-    also ``init_codebooks``, ``pq_iters``).
+    also ``init_codebooks``, ``pq_iters``; LSH takes none: its projections
+    come from the config's seed, so a build over the same rows gives the
+    same tables).
 
     The IVF-PQ index keeps ``emb`` itself as its re-rank rows: the resident
     table is passed unsliced when the vocabulary is unpadded, and a caller
@@ -121,20 +123,23 @@ def make_index(cfg: HeadConfig, emb: torch.Tensor, device=None, **build_kw
         raise ValueError(f"emb lives on {emb.device}, the index on {dev}")
     if not uses_index(cfg):
         return None
-    if cfg.mips not in _PORTED_MIPS:
-        raise NotImplementedError(
-            f"MIPS backend {cfg.mips!r} is not in the PyTorch port yet")
     if cfg.mips == "ivf":
         mips_cfg = mips.IVFConfig(n_probe=cfg.n_probe,
                                   n_probe_init=cfg.n_probe_init,
                                   n_probe_max=cfg.n_probe_max,
                                   use_kernel=cfg.use_kernel)
-    else:
+    elif cfg.mips == "ivfpq":
         # the exact re-rank covers the head's k with screening headroom
         mips_cfg = mips.PQConfig(n_probe=cfg.n_probe,
                                  n_probe_init=cfg.n_probe_init,
                                  n_probe_max=cfg.n_probe_max,
                                  rerank=2 * max(8, cfg.k))
+    else:  # lsh: buckets large enough that the tables' union can cover k
+        base_cfg = mips.LSHConfig()
+        cap_load = mips.default_bucket_cap(max(1, cfg.n), base_cfg.n_bits)
+        cap_k = max(8, math.ceil(2.0 * max(8, cfg.k) / base_cfg.n_tables
+                                 / 8.0) * 8)
+        mips_cfg = mips.LSHConfig(bucket_cap=max(cap_load, cap_k))
     db = emb if cfg.n == emb.shape[0] else emb[: cfg.n]
     return mips.build_index(mips_cfg, db, **build_kw)
 

@@ -1,11 +1,15 @@
 """Shard-local estimator core (counterpart of ``repro/core/estimators.py``).
 
 * sampling: the top-k probe, dead-slot sanitizing and the batched
-  lazy-Gumbel max (Algorithm 2), unfused and fused;
+  lazy-Gumbel max (Algorithm 2), unfused and fused, and its top-``num``
+  without replacement (:func:`local_gumbel_topk`, stochastic beam
+  search's expansion);
 * learning: S ∪ T candidates with stratum log-weights, the stratified
   ``log Ẑ`` (Algorithm 3) whose gradient is Algorithm 4's expectation
   estimator with f = φ, the loss partials and their one-shard combine, and
-  the token chunking of the head.
+  the token chunking of the head;
+* the Spring–Shrivastava LSH sampler (:func:`lsh_sampler_logz`), the second
+  ``log Z`` estimator behind Algorithm 3's interface.
 
 Conventions: ``emb`` is the feature table ``(v, d)`` and ids are row
 indices. Every estimator quantity is float32 whatever the trunk's
@@ -30,14 +34,17 @@ from repro_torch.core.complement import sample_complement
 from repro_torch.core.gumbel import (
     SampleResult,
     TopK,
+    TopKSampleResult,
     certificate,
     cutoff,
     default_m_cap,
     gumbel_max_dense,
     plan_tail,
     sample_fixed_b,
+    topk_fixed_b,
 )
 from repro_torch.core.mips.base import top_k
+from repro_torch.core.mips.lsh import log_collision_prob, query_codes
 from repro_torch.kernels import ops
 
 __all__ = [
@@ -47,11 +54,13 @@ __all__ = [
     "amortized_candidates",
     "topk_only_candidates",
     "stratified_logz",
+    "lsh_sampler_logz",
     "exact_logz",
     "target_partial",
     "loss_partials",
     "combine_loss",
     "local_gumbel_max",
+    "local_gumbel_topk",
     "dense_gumbel_max",
     "chunked_map",
 ]
@@ -156,18 +165,59 @@ def local_gumbel_max(emb: torch.Tensor, h: torch.Tensor, *, k: int, l: int,
         res = _fused_tail_argmax(embf, hf, ids_clean, topk.values, k_valid,
                                  nv, l=l, m_cap=m_cap, c=c, draws=draws)
     else:
-        last = embf.shape[0] - 1
-
-        def score_fn(ids):
-            rows = embf[torch.clamp(ids, max=last)]  # (t, m, d)
-            return torch.bmm(rows, hf[:, :, None])[..., 0]
-
-        res = sample_fixed_b(None, TopK(ids_clean, topk.values), nv, score_fn,
-                             l=l, m_cap=m_cap, c=c, k_valid=k_valid,
-                             draws=draws)
+        res = sample_fixed_b(None, TopK(ids_clean, topk.values), nv,
+                             _tail_score_fn(embf, hf), l=l, m_cap=m_cap, c=c,
+                             k_valid=k_valid, draws=draws)
     if width is not None:
         res = res._replace(width=width.long())
     return res
+
+
+def _tail_score_fn(embf: torch.Tensor, hf: torch.Tensor):
+    """(t, m) ids -> (t, m) scores ``emb[id] · h`` per token (a batched
+    matmul over the gathered rows; ids clamped to the table, defensively:
+    complement draws are already below it)."""
+    last = embf.shape[0] - 1
+
+    def score_fn(ids):
+        rows = embf[torch.clamp(ids, max=last)]  # (t, m, d)
+        return torch.bmm(rows, hf[:, :, None])[..., 0]
+
+    return score_fn
+
+
+def local_gumbel_topk(emb: torch.Tensor, h: torch.Tensor, *, num: int,
+                      k: int, l: int, keys: torch.Tensor | None = None,
+                      index: Any = None, n_valid=None, c: float = 0.0,
+                      m_cap: int | None = None,
+                      draws: rng.Draws | None = None) -> TopKSampleResult:
+    """Batched lazy-Gumbel top-``num`` WITHOUT replacement over the rows of
+    ``emb`` for queries ``h (t, d)``: :func:`local_gumbel_max`'s probe,
+    dead-slot sanitizing and key discipline, with
+    :func:`repro_torch.core.gumbel.topk_fixed_b` as the finish. Each token
+    gets the ``num`` largest perturbed values of ONE joint Gumbel draw
+    (Kool et al. 2019) and the Algorithm-2 certificate on the whole kept
+    set: the candidate draw of stochastic beam search
+    (:mod:`repro_torch.workloads.structured`), one call per expansion.
+
+    ``keys`` ((t, 3) int64) keys each token's draws (beam search derives
+    them from the node path, so a beam's draw does not depend on its
+    batch-mates); ``draws`` injects them instead."""
+    nv = emb.shape[0] if n_valid is None else n_valid
+    if m_cap is None:
+        m_cap = default_m_cap(l)
+    embf = emb.float()
+    hf = h.float()
+    topk = topk_probe(embf, hf, k, index=index, n_valid=n_valid)
+    ids_clean, k_valid = sanitize_topk(topk, nv)
+    if draws is None:
+        if keys is None:
+            raise ValueError("local_gumbel_topk needs keys or draws")
+        draws = rng.tail_draws(keys, k=k, m_cap=m_cap,
+                               hi=torch.clamp(nv - k_valid, min=1), lam=l)
+    return topk_fixed_b(None, TopK(ids_clean, topk.values), nv,
+                        _tail_score_fn(embf, hf), num=num, l=l, m_cap=m_cap,
+                        c=c, k_valid=k_valid, draws=draws)
 
 
 def _fused_tail_argmax(embf: torch.Tensor, hf: torch.Tensor,
@@ -284,13 +334,89 @@ def stratified_logz(emb: torch.Tensor, h: torch.Tensor, ids: torch.Tensor,
     route through the kernels' plain versions; without it the rows are
     gathered and differentiated through a logsumexp. All give the same
     value and gradients."""
-    ids = torch.clamp(ids.detach(), min=0)  # -1 pads carry weight -inf
+    # -1 pads, and the tail ids past the table that an empty complement
+    # draws (S covering every row), carry weight -inf: clamp them into the
+    # table, as the reference's gather clamps
+    ids = torch.clamp(ids.detach(), 0, emb.shape[0] - 1)
     log_w = log_w.float()  # stratum weights: fp32 always
     if use_kernel or h.is_cuda:
         return _FusedLogZ.apply(emb, h, ids, log_w)
     rows = emb[ids]  # (t, m, d) differentiable gather
     y = torch.einsum("tmd,td->tm", rows, h).float()
     return torch.logsumexp(y + log_w, dim=1)
+
+
+# bytes of the (t, tables, cap) candidate ids and weights the LSH sampler
+# holds at a time on its dense path
+_LSH_CHUNK_BYTES = 2 << 30
+
+
+def lsh_sampler_logz(index: Any, h: torch.Tensor, *, per_table: bool = False,
+                     min_bit_prob: float = 1e-7) -> torch.Tensor:
+    """Spring–Shrivastava (arXiv 1703.05160) unbiased LSH-sampler estimate
+    of ``log Z``, the second estimator behind Algorithm 3's interface, with
+    the buckets of an :class:`repro_torch.core.mips.LSHIndex` as the
+    proposal.
+
+    Per table ``t``, every row ``x`` in the query's bucket is weighted by
+    its exact collision probability ``q1(x) = p(x)^n_bits`` (SRP per-bit
+    agreement ``p = 1 - angle/π`` of the norm-completed vectors, as
+    ``LSHIndex.bucket_log_probs`` gives it; the query's augmented
+    coordinate is 0, so the score stays ``h·x``)::
+
+        Z_t = Σ_{x in bucket_t(h)} e^{y_x} / q1(x),   E[Z_t] = Z
+
+    and the estimate is the mean of the L per-table estimates. Unbiased
+    only with lossless buckets: check ``index.dropped_count == 0``.
+
+    The weight ``y - log q1`` does not depend on the table, so it is
+    computed once per (query, row) and each table gathers scalars from it:
+    the reference's ``(L, t, cap, d+1)`` row gather is never built. When
+    the tables hold fewer slots than the table has rows (``L·cap < n``),
+    only the query's live candidates are scored, each once
+    (``LSHIndex.score_candidates``); otherwise every row is, as one
+    product, and the tables are taken as many at a time as keep their
+    candidate ids and weights within 2 GB. Either way the work grows with
+    ``min(L·cap, n)``.
+
+    Returns (t,) ``log Ẑ``, or with ``per_table`` the (t, L) per-table
+    ``log Z_t`` (an empty bucket gives -inf, a legitimate ``Z_t = 0``).
+    ``min_bit_prob`` floors the per-bit probability so that a retrieved
+    near-antipodal row keeps a finite weight. All fp32."""
+    hf = h.float()
+    t = hf.shape[0]
+    db_aug = index.db_aug
+    n_tables, n_bits, cap = index.n_tables, index.n_bits, index.bucket_cap
+    q_norm = torch.linalg.norm(hf, dim=1)[:, None]
+    x_norm = torch.linalg.norm(db_aug, dim=1)
+    if n_tables * cap < db_aug.shape[0]:
+        cand = index.candidates(hf)  # (t, L·cap), table by table
+        y, first = index.score_candidates(hf, cand)
+        x_c = x_norm[torch.clamp(cand, min=0).long()]
+        w = y - log_collision_prob(y, q_norm, x_c, n_bits, min_bit_prob)
+        w = torch.where(cand >= 0, torch.gather(w, 1, first),
+                        torch.full_like(w, -math.inf))
+        log_zt = torch.logsumexp(w.reshape(t, n_tables, cap), dim=2).T
+    else:
+        y = hf @ db_aug[:, :-1].T  # (t, n): h·x, the augmented term is 0
+        w_row = y - log_collision_prob(y, q_norm, x_norm[None, :], n_bits,
+                                       min_bit_prob)  # (t, n) log(e^y / q1)
+        del y
+        codes = query_codes(index.proj, hf)  # (L, t)
+        chunk = max(1, _LSH_CHUNK_BYTES // max(1, t * cap * 16))
+        parts = []
+        for l0 in range(0, n_tables, chunk):
+            tabs = torch.arange(l0, min(l0 + chunk, n_tables),
+                                device=hf.device)
+            cand = index.table_ids[tabs[:, None], codes[tabs]]  # (c, t, cap)
+            w = torch.gather(w_row[None].expand(len(tabs), -1, -1), 2,
+                             torch.clamp(cand, min=0).long())
+            w = torch.where(cand >= 0, w, torch.full_like(w, -math.inf))
+            parts.append(torch.logsumexp(w, dim=2))  # (c, t)
+        log_zt = torch.cat(parts, dim=0)  # (L, t)
+    if per_table:
+        return log_zt.T
+    return torch.logsumexp(log_zt, dim=0) - math.log(n_tables)
 
 
 def exact_logz(emb: torch.Tensor, h: torch.Tensor, n_valid=None

@@ -2,6 +2,7 @@
 theory is documented there and in DESIGN.md §3): Algorithm 1
 (:func:`sample_adaptive_b`, the adaptive cutoff), Algorithm 2
 (:func:`sample_fixed_b`, the fixed cutoff), both with the Poissonized tail,
+Gumbel top-k without replacement over the same pool (:func:`topk_fixed_b`),
 the brute-force oracle :func:`gumbel_max_dense`, and the certificates: the
 sampler's (:func:`certificate`) and the adaptive probe's stopping rule
 (:func:`gap_certificate`).
@@ -25,6 +26,7 @@ from repro_torch.core.complement import complement_map
 __all__ = [
     "TopK",
     "SampleResult",
+    "TopKSampleResult",
     "TailPlan",
     "default_kl",
     "plan_tail",
@@ -33,6 +35,7 @@ __all__ = [
     "cutoff",
     "sample_adaptive_b",
     "sample_fixed_b",
+    "topk_fixed_b",
     "gumbel_max_dense",
     "default_m_cap",
 ]
@@ -237,3 +240,88 @@ def sample_fixed_b(keys, topk: TopK, n, score_fn, *, l: int,
     b = cutoff(n, kv, l)
     plan = plan_tail(None, topk.ids, n, b, l, m_cap, k_valid=kv, draws=draws)
     return _finish(topk, score_fn, b, m_cap, c, pert_s, plan)
+
+
+class TopKSampleResult(NamedTuple):
+    """Perturbed top-``num`` of one lazy-Gumbel draw per token, best first:
+    the ``num`` largest values of ONE joint Gumbel perturbation, i.e.
+    Gumbel top-k sampling without replacement (the first ``num`` atoms of
+    the Plackett–Luce process). Dead slots (fewer than ``num`` live
+    candidates) carry id -1 and value -inf."""
+
+    ids: torch.Tensor  # (t, num) int64 perturbed top-num ids, -1 pads
+    values: torch.Tensor  # (t, num) f32 perturbed values, descending
+    scores: torch.Tensor  # (t, num) f32 the ids' unperturbed log-probs y
+    ok: torch.Tensor  # (t,) bool top-num provably exact (given gap <= c)
+    m: torch.Tensor  # (t,) int64 tail candidates materialized
+    bound: torch.Tensor  # (t,) f32 S_min + c + B
+    overflow: torch.Tensor  # (t,) bool static tail buffer overflowed
+
+
+def _max_atom_per_position(pos: torch.Tensor, pert: torch.Tensor
+                           ) -> torch.Tensor:
+    """(t, m) mask keeping, for each tail position, its largest perturbed
+    atom (the first of equal ones in atom order; live before dead): a
+    stable sort by descending value, then a stable sort by position, marks
+    the first atom of each position's run."""
+    by_val = torch.argsort(-pert, dim=1, stable=True)
+    by_pos = torch.argsort(torch.gather(pos, 1, by_val), dim=1, stable=True)
+    order = torch.gather(by_val, 1, by_pos)
+    sorted_pos = torch.gather(pos, 1, order)
+    first = torch.ones_like(sorted_pos, dtype=torch.bool)
+    first[:, 1:] = sorted_pos[:, 1:] != sorted_pos[:, :-1]
+    return torch.zeros_like(first).scatter_(1, order, first)
+
+
+def topk_fixed_b(keys, topk: TopK, n, score_fn, *, num: int, l: int,
+                 m_cap: int | None = None, c: float = 0.0, k_valid=None,
+                 draws: rng.Draws | None = None) -> TopKSampleResult:
+    """Algorithm-2 lazy Gumbels per token, keeping the ``num`` largest
+    perturbed values instead of the argmax: Gumbel top-k without
+    replacement (Kool et al. 2019's primitive) over the same S ∪
+    Poissonized-tail pool.
+
+    Draws, cutoff, atom rate and tail plan are :func:`sample_fixed_b`'s
+    (the same ``keys`` streams, or the same injected ``draws``), so with
+    ``num=1`` the winner's id, value and ``ok`` are that function's bit for
+    bit. Two differences from the argmax:
+
+    * tail positions are drawn with replacement and a point's truncated
+      Gumbel is the max over its atoms, so every smaller duplicate atom is
+      masked to -inf (the largest kept in place, atom order untouched);
+    * the certificate is taken at the ``num``-th kept value: the kept set
+      is the true perturbed top-num iff it clears ``S_min + c + B`` (and the
+      buffer did not overflow). When S covers the support (``k_valid ==
+      n``) the cutoff is -inf and the certificate holds vacuously."""
+    k = topk.ids.shape[1]
+    kv = _n_excluded(topk.ids, k_valid)
+    if m_cap is None:
+        m_cap = default_m_cap(l)
+    if draws is None:
+        draws = rng.tail_draws(keys, k=k, m_cap=m_cap,
+                               hi=torch.clamp(n - kv, min=1), lam=l)
+    vals_s = topk.values.float()
+    pert_s = vals_s + draws.g_s
+    b = cutoff(n, kv, l)
+    plan = plan_tail(None, topk.ids, n, b, l, m_cap, k_valid=kv, draws=draws)
+    y_tail = score_fn(plan.pos).float()  # (t, m_cap)
+    live = (torch.arange(m_cap, device=y_tail.device)[None, :]
+            < plan.m_used[:, None])
+    neg = torch.full_like(y_tail, -math.inf)
+    pert_t = torch.where(live, y_tail + plan.heights, neg)
+    pert_t = torch.where(_max_atom_per_position(plan.pos, pert_t), pert_t,
+                         neg)
+    pert = torch.cat([pert_s, pert_t], dim=1)
+    ids = torch.cat([topk.ids.long(), plan.pos], dim=1)
+    scores = torch.cat([vals_s, y_tail], dim=1)
+    vals, at = torch.sort(pert, dim=1, descending=True, stable=True)
+    vals, at = vals[:, :num], at[:, :num]
+    dead = torch.isneginf(vals)
+    out_ids = torch.where(dead, torch.full_like(at, -1),
+                          torch.gather(ids, 1, at))
+    out_scores = torch.where(dead, torch.full_like(vals, -math.inf),
+                             torch.gather(scores, 1, at))
+    ok, bound = certificate(topk.values, b, c, vals[:, num - 1],
+                            plan.overflow)
+    return TopKSampleResult(out_ids, vals, out_scores, ok, plan.m_used,
+                            bound, plan.overflow)

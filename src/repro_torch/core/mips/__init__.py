@@ -1,6 +1,6 @@
 """MIPS indexes (counterpart of ``repro/core/mips``): the stateful Index API
-with the exact oracle and the IVF and IVF-PQ backends. The config dataclass
-selects the backend::
+with the exact oracle, the IVF and IVF-PQ backends and SRP-LSH (the theory
+index). The config dataclass selects the backend::
 
     from repro_torch.core import mips
 
@@ -22,6 +22,8 @@ from repro_torch.core.mips.base import (
 )
 from repro_torch.core.mips.exact import ExactConfig, ExactIndex
 from repro_torch.core.mips.ivf import IVFConfig, IVFIndex, IVFState
+from repro_torch.core.mips.lsh import (LSHConfig, LSHIndex, LSHState,
+                                       default_bucket_cap)
 from repro_torch.core.mips.pq import IVFPQIndex, PQConfig, PQState
 
 __all__ = [
@@ -38,6 +40,10 @@ __all__ = [
     "IVFConfig",
     "IVFIndex",
     "IVFState",
+    "LSHConfig",
+    "LSHIndex",
+    "LSHState",
+    "default_bucket_cap",
     "IVFPQIndex",
     "PQConfig",
     "PQState",

@@ -101,12 +101,15 @@ def index_spill(index: Any) -> int:
 def index_spill_parts(index: Any) -> tuple[int, int]:
     """(rows an IVF / IVF-PQ build dropped from both the member tables and
     the overflow buffer — ``state.spill_count``, fixed by a larger
-    ``overflow_frac``; re-rank slots an IVF-PQ probe pool can never fill —
-    ``state.rerank_spill``, fixed by a smaller ``PQConfig.rerank`` or more
-    probed clusters). (0, 0) for None and for backends without the
-    counters. Reads device scalars."""
+    ``overflow_frac``; for LSH, the member slots the bucket cap dropped —
+    ``dropped_count``, fixed by a larger ``bucket_cap``; re-rank slots an
+    IVF-PQ probe pool can never fill — ``state.rerank_spill``, fixed by a
+    smaller ``PQConfig.rerank`` or more probed clusters). (0, 0) for None
+    and for backends without the counters. Reads device scalars."""
     st = getattr(index, "state", None)
-    dropped = getattr(st, "spill_count", None)
+    dropped = getattr(index, "dropped_count", None)
+    if dropped is None:
+        dropped = getattr(st, "spill_count", None)
     short = getattr(st, "rerank_spill", None)
     return (0 if dropped is None else int(dropped),
             0 if short is None else int(short))

@@ -32,8 +32,9 @@ that updates its rows in place (the trainer's optimizer) must build the
 index over a frozen copy; the trainer's drift snapshot is that copy.
 
 ``refresh`` warm-starts the coarse centroids AND the codebooks from the
-current state and keeps every shape. Not in the port yet: the
-anisotropic (score-aware) codebook objective (``anisotropic_eta``).
+current state and keeps every shape. ``PQConfig.anisotropic_eta > 0``
+trains the codebooks under the score-aware (ScaNN) objective, in the build
+and in every refresh.
 
 :meth:`IVFPQIndex.topk_adaptive` widens the probe per query until the gap
 certificate passes (:mod:`repro_torch.core.mips.adaptive`), unfused on
@@ -79,6 +80,9 @@ class PQConfig:
     n_probe: int = 8  # clusters probed per query
     n_probe_init: int = 0  # adaptive probe: starting width (0 -> n_probe)
     n_probe_max: int = 0  # adaptive probe: widening ceiling (0 -> n_probe)
+    anisotropic_eta: float = 0.0  # score-aware codebook training: weight of
+    #   the direction-parallel residual in the Lloyd objective
+    #   (quant.train_codebooks); 0 -> standard (isotropic) k-means
 
 
 class PQState(NamedTuple):
@@ -124,7 +128,8 @@ def _pq_geometry(n: int, d: int, cfg: PQConfig) -> tuple[int, int, int, int]:
 def _device_build(db: torch.Tensor, init_cent: torch.Tensor | None,
                   init_codebooks: torch.Tensor | None, *, n_c: int, cap: int,
                   o_cap: int, m_sub: int, ksub: int, iters: int,
-                  pq_iters: int, seed: int) -> tuple:
+                  pq_iters: int, seed: int,
+                  anisotropic_eta: float = 0.0) -> tuple:
     """The quantized structures of a full (re)build on ``db``'s device:
     coarse Lloyd, packing, residual codebooks, codes and radii. None
     initializers cold-start from rows sampled by ``torch.Generator``s seeded
@@ -137,7 +142,9 @@ def _device_build(db: torch.Tensor, init_cent: torch.Tensor | None,
     member_ids, overflow_ids, spill = _pack_ids(assign, n_c, cap, o_cap)
     residuals = dbf - cent[assign]  # (n, d)
     codebooks = quant.train_codebooks(residuals, m_sub, ksub, pq_iters,
-                                      seed=seed + 1, init=init_codebooks)
+                                      seed=seed + 1, init=init_codebooks,
+                                      anisotropic_eta=anisotropic_eta,
+                                      anchors=dbf)
     codes = quant.encode(codebooks, residuals)  # (n, m_sub) uint8
     member_codes = codes[torch.clamp(member_ids.long(), min=0)]
     member_codes[member_ids < 0] = 0
@@ -175,7 +182,7 @@ class IVFPQIndex:
             m_sub=cfg.m_sub, ksub=ksub,
             iters=cfg.kmeans_iters if iters is None else iters,
             pq_iters=cfg.pq_iters if pq_iters is None else pq_iters,
-            seed=cfg.seed)
+            seed=cfg.seed, anisotropic_eta=cfg.anisotropic_eta)
         return cls(cfg, cls._assemble(cfg, parts, db))
 
     @staticmethod
@@ -204,7 +211,8 @@ class IVFPQIndex:
             db, st.centroids, st.codebooks, n_c=st.n_clusters, cap=st.cap,
             o_cap=st.overflow_ids.shape[0], m_sub=st.m_sub, ksub=st.ksub,
             iters=cfg.refresh_iters if iters is None else iters,
-            pq_iters=cfg.pq_refresh_iters, seed=cfg.seed)
+            pq_iters=cfg.pq_refresh_iters, seed=cfg.seed,
+            anisotropic_eta=cfg.anisotropic_eta)
         return IVFPQIndex(cfg, self._assemble(cfg, parts, db))
 
     # -------------------------------------------------------------- queries

@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quant.kmeans import subspace_kmeans
+from repro_torch.core.quant.kmeans import (anisotropic_subspace_kmeans,
+                                           subspace_kmeans)
 
 __all__ = ["train_codebooks", "encode", "decode", "build_lut", "lut_scores"]
 
@@ -32,8 +33,9 @@ def _split(x: torch.Tensor, m_sub: int) -> torch.Tensor:
 
 
 def train_codebooks(x: torch.Tensor, m_sub: int, ksub: int, iters: int, *,
-                    seed: int = 0, init: torch.Tensor | None = None
-                    ) -> torch.Tensor:
+                    seed: int = 0, init: torch.Tensor | None = None,
+                    anisotropic_eta: float = 0.0,
+                    anchors: torch.Tensor | None = None) -> torch.Tensor:
     """``(m_sub, ksub, d_sub)`` codebooks trained on the rows ``x (n, d)``
     (residuals, for residual PQ) by ``iters`` Lloyd iterations per subspace.
 
@@ -42,7 +44,13 @@ def train_codebooks(x: torch.Tensor, m_sub: int, ksub: int, iters: int, *,
     cyclically when ``n < ksub`` (the reference draws the sample with
     ``jax.random.permutation``, which cannot be replayed here: tests pass
     its codebooks in as ``init``). Passing the previous codebooks
-    warm-starts a refresh with frozen shapes."""
+    warm-starts a refresh with frozen shapes.
+
+    ``anisotropic_eta > 0`` trains under the score-aware loss
+    (:func:`repro_torch.core.quant.kmeans.anisotropic_lloyd`): the part of
+    each row's quantization error parallel to its direction — taken from
+    ``anchors``, the database rows whose residuals ``x`` are — is weighted
+    by ``eta``. 0 (default) is standard k-means."""
     xs = _split(x.float(), m_sub)  # (m, n, d_sub)
     if init is None:
         n = x.shape[0]
@@ -51,6 +59,12 @@ def train_codebooks(x: torch.Tensor, m_sub: int, ksub: int, iters: int, *,
         rows = torch.randperm(n, generator=gen, device=x.device)[:ksub]
         rows = rows.repeat(-(-ksub // rows.numel()))[:ksub]
         init = xs[:, rows, :]
+    if anisotropic_eta > 0.0 and anchors is not None:
+        a = anchors.float()
+        u = a / torch.clamp(torch.linalg.norm(a, dim=1, keepdim=True),
+                            min=1e-12)
+        return anisotropic_subspace_kmeans(xs, _split(u, m_sub), init, iters,
+                                           anisotropic_eta)
     return subspace_kmeans(xs, init, iters)
 
 

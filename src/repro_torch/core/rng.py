@@ -29,6 +29,7 @@ __all__ = [
     "uniform_int",
     "poisson_count",
     "tail_draws",
+    "fold_in",
     "STREAM_GUMBEL_S",
     "STREAM_POISSON",
     "STREAM_COMPLEMENT",
@@ -148,3 +149,18 @@ def tail_draws(keys: torch.Tensor, *, k: int, m_cap: int, hi: torch.Tensor,
         u=uniform_int(keys, m_cap, hi, STREAM_COMPLEMENT),
         exp=exponential(keys, m_cap, STREAM_HEIGHTS).float(),
     )
+
+
+def fold_in(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """Child key rows: (..., 3) (seed, a, b) rows and (...,) int64 ``data``
+    -> (seed, a', b'), where (a', b') are two Philox words of the counter
+    (data, a, b) under the seed's key. A row's child depends on that row
+    and ``data`` alone, so keys derived along a path (beam search folds
+    each edge's token) are a function of the path, whatever rows share the
+    batch."""
+    keys = keys.long()
+    seed = keys[..., 0]
+    data = data.long()
+    w = philox4x32(data & _MASK, (data >> 32) & _MASK, keys[..., 1] & _MASK,
+                   keys[..., 2] & _MASK, seed & _MASK, (seed >> 32) & _MASK)
+    return torch.stack([seed, w[0], w[1]], dim=-1)

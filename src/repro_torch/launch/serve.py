@@ -6,8 +6,8 @@ amortized lazy-Gumbel sampler, on CUDA unless ``--device`` says otherwise.
       --mips ivf --fused-decode --requests 8 --new-tokens 32
 
 Weights are random, drawn from seed 0; prompts are random token ids. Every
-flag of the reference launcher is taken except ``--mips lsh``, which is
-refused; so are encoder-only archs (no decode), as in the reference.
+flag of the reference launcher is taken; encoder-only archs (no decode) are
+refused, as in the reference.
 """
 from __future__ import annotations
 
@@ -68,7 +68,7 @@ def main(argv=None) -> None:
                     choices=[None, "exact", "ivf", "ivfpq", "lsh"],
                     help="head top-k backend (ivf: stateful IVF index; "
                          "ivfpq: IVF with uint8 PQ codes and an exact "
-                         "re-rank; lsh is not ported yet)")
+                         "re-rank; lsh: SRP-LSH, the theory index)")
     ap.add_argument("--vocab", type=int, default=0,
                     help="override vocab size (e.g. to exercise the "
                          "amortized head on a smoke config)")
@@ -124,8 +124,6 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
     args = ap.parse_args(argv)
-    if args.mips == "lsh":
-        ap.error("--mips lsh: not in the PyTorch port yet")
 
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     if not cfg.has_decode:

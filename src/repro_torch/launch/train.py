@@ -56,7 +56,8 @@ def main(argv=None) -> None:
     ap.add_argument("--mips", default=None,
                     choices=[None, "exact", "ivf", "ivfpq", "lsh"],
                     help="head top-k backend (ivf / ivfpq: stateful, "
-                         "refreshed index; lsh is not ported yet)")
+                         "refreshed index; lsh: SRP-LSH, rehashed on "
+                         "refresh)")
     ap.add_argument("--vocab", type=int, default=0,
                     help="override vocab size (e.g. to exercise the "
                          "amortized head on a smoke config)")
@@ -90,8 +91,6 @@ def main(argv=None) -> None:
         if getattr(args, name) != default:
             ap.error(f"--{name.replace('_', '-')}: {what} is not in the "
                      "PyTorch port yet")
-    if args.mips == "lsh":
-        ap.error("--mips lsh: not in the PyTorch port yet")
 
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     if args.head:

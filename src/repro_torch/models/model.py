@@ -1,5 +1,5 @@
 """Public model API (counterpart of ``repro/models/model.py``): init, the
-training loss, head index, prefill (batched into cache slots, or with the
+training loss, head index, the trunk taps, prefill (batched into cache slots, or with the
 vision stub's image prefix), the decode step, the encoder's logits, and
 parameter counts, over every family of ``configs/``.
 
@@ -146,6 +146,26 @@ class Model:
         nll = out.loss.mean()
         total = nll + _AUX_WEIGHT * aux
         return total, {"nll": nll, "aux": aux, "log_z": out.log_z.mean()}
+
+    # ---------------------------------------------------------------- taps
+    def trunk_taps(self, params, batch, lengths: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+        """Mean-pooled trunk representations per tap for deep-kNN
+        (:mod:`repro_torch.workloads.dknn`): (n_taps, B, d) fp32. Taps are
+        the block-group step activations and the final normed output
+        (``transformer.apply_trunk(return_taps=True)``), pooled over the
+        positions below ``lengths`` ((B,), right-padded rows; None pools
+        every position). Rows are not normalized."""
+        x, pos, prefix = self._embed_inputs(params, batch)
+        _, _, taps = transformer.apply_trunk(params, self.cfg, x, pos,
+                                             prefix=prefix, return_taps=True)
+        if lengths is None:
+            return taps.mean(dim=2)
+        lengths = lengths.to(taps.device)
+        ok = (torch.arange(taps.shape[2], device=taps.device)[None, :]
+              < lengths[:, None])  # (B, L)
+        denom = torch.clamp(lengths.float(), min=1.0)[None, :, None]
+        return (taps * ok[None, :, :, None]).sum(dim=2) / denom
 
     # ---------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_seq: int, dtype=None,

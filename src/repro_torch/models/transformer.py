@@ -246,13 +246,19 @@ def _group_step(ps: dict, pattern: tuple, cfg: ArchConfig, h: torch.Tensor,
 
 
 def apply_trunk(params: dict, cfg: ArchConfig, x: torch.Tensor,
-                positions: torch.Tensor, *, prefix: int = 0
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                positions: torch.Tensor, *, prefix: int = 0,
+                return_taps: bool = False):
     """Training forward: (B, L, d) embedded input -> (final-normed h (B, L,
     d), aux loss () fp32: the MoE load-balance terms summed over layers, 0
-    for the other families)."""
+    for the other families).
+
+    With ``return_taps``, also the taps (n_taps, B, L, d) fp32: the
+    activation after each block-group step (a whole period for Griffin's
+    (rec, rec, attn) group), then the final normed output — what deep-kNN
+    (:mod:`repro_torch.workloads.dknn`) indexes, one index per tap."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = x
+    taps = []
     for stack, (pattern, _) in zip(params["blocks"], block_groups(cfg)):
         for ps in _unstack(stack):
             if REMAT:
@@ -262,7 +268,13 @@ def apply_trunk(params: dict, cfg: ArchConfig, x: torch.Tensor,
             else:
                 h, a = _group_step(ps, pattern, cfg, h, positions, prefix)
             aux = aux + a
-    return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
+            if return_taps:
+                taps.append(h.float())
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if return_taps:
+        taps.append(h.float())
+        return h, aux, torch.stack(taps)
+    return h, aux
 
 
 # ----------------------------------------------------------------- prefill

@@ -254,7 +254,7 @@ class Server:
                                      if self.index is not None else 0)
         if dropped:  # coverage contract (DESIGN.md §3) violated
             warnings.warn(f"head index {where} dropped {dropped} rows — "
-                          "raise overflow_frac")
+                          "raise overflow_frac (IVF) or bucket_cap (LSH)")
         if short:
             hc = self.model.head_cfg
             knob = (f"at effective probe width <= {hc.n_probe_max} "

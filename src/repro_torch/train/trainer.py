@@ -27,7 +27,8 @@ randomness is a function of (seed, step)) lives in the checkpoint, so a
 restart trains exactly as the uninterrupted run would. The head index is a
 function of the embedding rows it was last built over and of its
 quantizers, so the checkpoint carries them (``index``: the drift snapshot,
-the centroids and, for IVF-PQ, the codebooks) and a restore re-packs the
+the centroids and, for IVF-PQ, the codebooks; LSH needs the snapshot
+alone, its projections being the config's) and a restore re-packs the
 rows around them: the resumed run probes the very index the uninterrupted
 one did. (The reference rebuilds the index cold on restore instead, so
 there a resume counts as a refresh.) SIGTERM
@@ -168,7 +169,9 @@ class Trainer:
     def _init_head_index(self, params, saved: dict | None = None) -> None:
         """Build the head index over a copy of the live rows, or — on resume
         — re-pack the saved snapshot around the saved centroids (and
-        codebooks) without a Lloyd step."""
+        codebooks) without a Lloyd step. An LSH index is rebuilt from the
+        snapshot alone: its projections come from the config's seed, so the
+        same rows hash into the same tables."""
         if not self.model.head_uses_index:
             self.head_index = None  # exact path: no index, no snapshot
             return
@@ -177,7 +180,8 @@ class Trainer:
             self.head_index = self.model.make_head_index(params, db=snap)
         else:
             snap = saved["db"]
-            kw = {"init_cent": saved["centroids"], "iters": 0}
+            kw = ({"init_cent": saved["centroids"], "iters": 0}
+                  if "centroids" in saved else {})
             if "codebooks" in saved:
                 kw.update(init_codebooks=saved["codebooks"], pq_iters=0)
             self.head_index = self.model.make_head_index(params, db=snap,
@@ -213,8 +217,8 @@ class Trainer:
         dropped, short = mips.index_spill_parts(self.head_index)
         if dropped:
             _log(f"index refresh at step {done} dropped {dropped} rows "
-                 f"(overflow buffer full) — raise overflow_frac",
-                 logging.WARNING)
+                 f"(overflow buffer or LSH buckets full) — raise "
+                 f"overflow_frac (IVF) or bucket_cap (LSH)", logging.WARNING)
         if short:
             _log(f"re-rank pool short {short} slots — lower PQConfig.rerank "
                  f"or raise n_probe", logging.WARNING)
@@ -284,8 +288,9 @@ class Trainer:
                  "meta": {"step": done, "data": self.data.state()}}
         if self.head_index is not None:
             st = self.head_index.state
-            state["index"] = {"db": self._index_snapshot,
-                              "centroids": st.centroids}
+            state["index"] = {"db": self._index_snapshot}
+            if hasattr(st, "centroids"):  # IVF, IVF-PQ (LSH: the rows alone)
+                state["index"]["centroids"] = st.centroids
             if hasattr(st, "codebooks"):  # IVF-PQ
                 state["index"]["codebooks"] = st.codebooks
         self.ckpt.save_async(done, state)

@@ -16,7 +16,11 @@ cluster tails; the same for the split IVF-PQ screen; the split tail argmax
 at tail lengths around its chunk of slots, ties across chunks and between
 -0.0 and +0.0, and batches that stride); then the trunk families on the
 card against the CPU: the MoE (bitwise repeatable, the CPU's dispatch),
-the SSD and RG-LRU scans, and the compute-dtype cast set. Marked ``cuda``: they skip without
+the SSD and RG-LRU scans, and the compute-dtype cast set; and the index
+side on the card: the LSH build's tables against the CPU build's, the
+chunked LSH sampler against the unchunked one, the batched per-cluster
+Σ u uᵀ of the anisotropic codebooks against the per-row form, and the LSH
+probe against the CPU's. Marked ``cuda``: they skip without
 an NVIDIA GPU; run them on one with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -1303,3 +1307,79 @@ def test_compute_params_cast_set_on_the_card(gen, name):
                         "d_skip") or "norm" in str(path[-1]):
             assert dt == torch.float32, path
 
+
+
+# ------------------------------------------------------------ index side
+def _lsh_rows(gen, n=4096, d=64):
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    return x / torch.linalg.norm(x, dim=1, keepdim=True)
+
+
+def test_lsh_build_on_the_card_equals_the_cpu_build(gen):
+    """The card hashes the same rows into the same tables: projections
+    from the config's seed, fp32 with TF32 off, a stable sort."""
+    from repro_torch.core import mips
+
+    db = _lsh_rows(gen)
+    cfg = mips.LSHConfig(n_tables=8, n_bits=8, bucket_cap=24, seed=5)
+    dev = mips.build_index(cfg, db)
+    cpu = mips.build_index(cfg, db.cpu())
+    assert torch.equal(dev.db_aug.cpu(), cpu.db_aug)
+    assert torch.equal(dev.counts.cpu(), cpu.counts)
+    assert torch.equal(dev.table_ids.cpu(), cpu.table_ids)
+    assert dev.dropped_count == cpu.dropped_count > 0
+    q = _lsh_rows(gen, 16) * 5.0
+    got, want = dev.topk_batch(q, 64), cpu.topk_batch(q.cpu(), 64)
+    assert torch.equal(got.ids.cpu(), want.ids)
+    torch.testing.assert_close(got.values.cpu(), want.values, **TOL)
+
+
+def test_lsh_sampler_chunked_equals_unchunked(gen, monkeypatch):
+    from repro_torch.core import mips
+
+    db = _lsh_rows(gen, 8192, 32)
+    index = mips.build_index(mips.LSHConfig(n_tables=12, n_bits=5,
+                                            bucket_cap=8192), db)
+    h = db[:20] * 8.0
+    whole = estimators.lsh_sampler_logz(index, h, per_table=True)
+    per_table_bytes = h.shape[0] * 8192 * 16
+    for chunk in (1, 5, 12):  # tables a chunk
+        monkeypatch.setattr(estimators, "_LSH_CHUNK_BYTES",
+                            chunk * per_table_bytes)
+        got = estimators.lsh_sampler_logz(index, h, per_table=True)
+        assert torch.equal(got, whole)
+    cpu = estimators.lsh_sampler_logz(
+        mips.LSHIndex(index.config, type(index.state)(
+            *(x.cpu() for x in index.state))), h.cpu(), per_table=True)
+    torch.testing.assert_close(whole.cpu(), cpu, **TOL)
+
+
+def test_lsh_sampler_candidate_path_on_the_card_equals_cpu(gen):
+    from repro_torch.core import mips
+
+    db = _lsh_rows(gen, 8192, 32)
+    index = mips.build_index(mips.LSHConfig(n_tables=8, n_bits=6,
+                                            bucket_cap=512), db)
+    assert index.n_tables * index.bucket_cap < db.shape[0]
+    # queries that are not rows: a query along a row has a cosine within
+    # ulps of 1 with it, where arccos turns one ulp of the dot into ~1e-4
+    # of the weight (fp32 against fp64: 8.5e-5 on rows, 8.5e-7 off them)
+    h = _lsh_rows(gen, 20, 32) * 8.0
+    got = estimators.lsh_sampler_logz(index, h, per_table=True)
+    cpu = estimators.lsh_sampler_logz(
+        mips.LSHIndex(index.config, type(index.state)(
+            *(x.cpu() for x in index.state))), h.cpu(), per_table=True)
+    assert torch.equal(torch.isneginf(got.cpu()), torch.isneginf(cpu))
+    fin = torch.isfinite(cpu)
+    torch.testing.assert_close(got.cpu()[fin], cpu[fin], **TOL)
+
+
+def test_cluster_outer_on_the_card_equals_per_row_form(gen):
+    from repro_torch.core.quant import kmeans
+
+    u = torch.randn((3000, 48), generator=gen, device="cuda")
+    assign = torch.randint(0, 40, (3000,), generator=gen, device="cuda")
+    want = torch.zeros((45, 48, 48), device="cuda").index_add_(
+        0, assign, u[:, :, None] * u[:, None, :])
+    torch.testing.assert_close(kmeans.cluster_outer(u, assign, 45), want,
+                               rtol=1e-4, atol=1e-4)

@@ -158,13 +158,14 @@ def test_launcher_cpu_ivfpq_report():
 
 
 @pytest.mark.parametrize("flags,what", [
-    (("--mips", "lsh"), "--mips lsh: not in the PyTorch port yet"),
+    (("--mips", "bogus"), "invalid choice: 'bogus'"),
     (("--arch", "hubert-xlarge"), "is encoder-only: no decode serving"),
 ])
 def test_launcher_rejects_unported_flags(flags, what):
-    """What the serving launcher refuses: the LSH index, which the port
-    does not have yet, and encoder-only archs, which do not decode (as
-    the reference launcher refuses them)."""
+    """What the serving launcher refuses: an index backend it does not
+    know, and encoder-only archs, which do not decode (as the reference
+    launcher refuses them). ``--mips lsh`` serves since the index side was
+    ported (``tests/test_torch_lsh.py``)."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
          "--smoke", "--device", "cpu", *flags],

@@ -435,7 +435,8 @@ def test_launcher_cpu_ivfpq_runs_and_resumes(tmp_path, capsys, caplog):
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"],
                                   ["--sharded-ckpt"], ["--async-refresh"],
                                   ["--adaptive-probe"], ["--probe-router"],
-                                  ["--n-probe-max", "4"], ["--mips", "lsh"]])
+                                  ["--n-probe-max", "4"],
+                                  ["--n-probe-init", "2"]])
 def test_launcher_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         train_launcher.main(["--arch", ARCH, "--smoke", "--device", "cpu",
