@@ -104,11 +104,32 @@ device-event ms a query); IVF-PQ at the head's geometry built with
 anisotropic η 4 and 0 (build seconds, recall@576). Each kernel record
 gains ``launches_index_side``.
 
+Last, the ``[sharded]`` phase: ranks spawned on the one card and joined
+under gloo (NCCL refuses two ranks on one card), every collective on a
+CUDA tensor crossing the host (counted). The kernels first, at one model
+shard's shapes of tinyllama's head (16,000 rows: ``ivf_gather_score`` and
+``ivf_screen_select`` bit for bit, ``tail_gather_argmax``,
+``fused_estimator``), each against its plain version as ``shard_*`` keys;
+then on tp 2: the int8
+ring all-reduce (relative error below 0.04 of the exact sum),
+tinyllama-1.1b at full depth served over an IVF ``ShardedIndex`` fused
+T=8 ≡ unfused T=1 and twice bitwise (ITL, tokens/s, index MB a shard and
+in all, host-staged bytes a token), the exact-mode distributed head at
+full width equal to the single-device one (rtol 1e-5), qwen3-moe at 2 of
+48 layers with 64 of 128 experts a rank (``forward_dist`` ≡ ``forward``,
+served once, trained 2 steps); then dp 2 × tp 2: tinyllama-1.1b at full
+width, 8 of 22 layers, through ``Trainer`` (IVF head, async refresh and
+sharded checkpoints every 2 steps, 4 steps of 2 × 1,024 tokens; the loss
+falls, the swap lands at 4 after the kick at 2, the manifest reads
+sharded and complete, the four trunk replicas agree) and a resume from
+step 2 whose losses equal the uninterrupted run's bit for bit. Each
+kernel record gains ``launches_sharded`` (summed over the ranks).
+
     python3 chip_smoke.py            # from the repository root
 
 Output, in order: the GPU line of nvidia-smi, build and check lines, the
-serve, ``[serve-tier]``, train, ``[paper]``, ``[families]`` and
-``[index-side]`` reports,
+serve, ``[serve-tier]``, train, ``[paper]``, ``[families]``,
+``[index-side]`` and ``[sharded]`` reports,
 one ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed
 phase exits non-zero before the last line. Without CUDA, or without the
@@ -3382,6 +3403,564 @@ def index_side_phase(torch, seed: int, records: list[dict], smi: str
     return out
 
 
+# ----------------------------------------------------------------- [sharded]
+SHARD_TAG = "[sharded]"
+SHARD_TP = 2  # model shards: 16,000 of tinyllama's 32,000 rows a rank
+SHARD_TRAIN_LAYERS = 8  # DP×TP training depth (of 22), see sharded_phase
+SHARD_TRAIN_STEPS, SHARD_TRAIN_EVERY = 4, 2
+SHARD_EXACT_TOKENS = 256  # tokens of the exact-mode equality check
+SHARD_MOE_TOKENS = 256  # tokens of the forward_dist == forward check
+SHARD_RING_N = 1 << 22  # elements a rank of the int8 ring all-reduce
+SHARD_RING_REL = 0.04  # the ring's relative error bound (the reference's)
+SHARD_TIMEOUT_S = 600.0  # a spawned group's limit
+
+
+def shard_kernel_checks(torch, records: list[dict]) -> None:
+    """The kernels at ONE model shard's shapes of tinyllama's head (16,000
+    rows of d 2,048; the shard's IVF geometry; k, l = max(8, k / tp)), each
+    against its plain version as :func:`kernel_checks` holds it, stored as
+    ``shard_*`` keys: ``ivf_gather_score`` and ``ivf_screen_select`` on
+    small-integer rows (bit for bit; the screen equal to the gather plus a
+    top-k), ``tail_gather_argmax`` and ``fused_estimator`` at the head's
+    training chunk."""
+    from repro_torch.configs import get
+    from repro_torch.core.gumbel import default_m_cap
+    from repro_torch.core.mips.ivf import IVFConfig, _geometry
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import ivf_gather_score as kigs
+    from repro_torch.kernels import ref
+    from repro_torch.models import head as dh
+    from repro_torch.models.model import head_config
+
+    cfg = get("tinyllama-1.1b")
+    hc = head_config(cfg)
+    n, k, l = dh.shard_geometry(hc, cfg.vocab_padded, SHARD_TP)
+    n = min(n, cfg.vocab)
+    d = cfg.d_model
+    n_c, cap, o_cap = _geometry(n, IVFConfig(n_probe=hc.n_probe))
+    n_probe, b, m_cap = hc.n_probe, SLOTS, default_m_cap(l)
+    by_name = {r["name"]: r for r in records}
+    timer = Timer(torch, ITERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2525)
+    print(f"{SHARD_TAG} shard geometry " + json.dumps(
+        {"rows": n, "d": d, "n_clusters": n_c, "cap": cap, "o_cap": o_cap,
+         "n_probe": n_probe, "k": k, "l": l, "m_cap": m_cap}), flush=True)
+    mv = int_valued(torch, gen, (n_c, cap, d))
+    fill = torch.rand((n_c, cap), generator=gen, device="cuda")
+    mids = torch.randint(0, n, (n_c, cap), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    mids = torch.where(fill < n / (n_c * cap), mids, torch.full_like(mids, -1))
+    probe = torch.stack([torch.randperm(n_c, generator=gen,
+                                        device="cuda")[:n_probe]
+                         for _ in range(b)]).int()
+    qv = int_valued(torch, gen, (b, d))
+    gs, gi = kigs.ivf_gather_score(mv, mids, probe, qv)
+    want_s, want_i = ref.ivf_gather_score_ref(mv, mids, probe, qv)
+    torch.cuda.synchronize()
+    check(torch.equal(gs, want_s) and torch.equal(gi, want_i),
+          "ivf_gather_score at a shard's shapes disagrees with its plain "
+          "version")
+    uniq = torch.unique(probe)
+    tag_record(by_name["ivf_gather_score"], "shard", 0.0,
+               timer.both(lambda: kigs.ivf_gather_score(mv, mids, probe, qv),
+                          "ivf_gather_score shard"),
+               timer(lambda: ref.ivf_gather_score_ref(mv, mids, probe, qv),
+                     "ivf_gather_score shard plain"), None,
+               uniq.numel() * cap * (d + 1) * 4 + nbytes(probe, qv)
+               + b * n_probe * cap * 8,
+               2.0 * b * n_probe * cap * d, FP32_FLOPS, label=SHARD_TAG,
+               rows=n, queries=b)
+    o_ids = torch.randint(0, n, (o_cap,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    o_ids[torch.rand((o_cap,), generator=gen, device="cuda") < 0.5] = -1
+    o_sc = int_valued(torch, gen, (b, o_cap), -200, 200)
+    sargs = (mv, mids, o_sc, o_ids, probe, qv)
+    got_v, got_i = kdf.ivf_screen_select(*sargs, k=k)
+    want_v, want_i = ref.ivf_screen_select_ref(*sargs, k)
+    pool_s = torch.cat([gs.reshape(b, -1), o_sc], 1)
+    pool_i = torch.cat([gi.reshape(b, -1), o_ids[None].expand(b, -1)], 1)
+    pool_s = torch.where(pool_i >= 0, pool_s, float("-inf"))
+    v3, i3 = ref.topk_select_ref(pool_s, pool_i, k)
+    torch.cuda.synchronize()
+    check(torch.equal(got_v, want_v) and torch.equal(got_i, want_i),
+          "ivf_screen_select at a shard's shapes disagrees with its plain "
+          "version")
+    check(torch.equal(v3, got_v) and torch.equal(i3, got_i),
+          "ivf_screen_select != ivf_gather_score + top-k at a shard's shapes")
+    live_rows = int((mids[probe.long()] >= 0).sum().item())
+    live_uniq = int((mids[uniq.long()] >= 0).sum().item())
+    tag_record(by_name["ivf_screen_select"], "shard", 0.0,
+               timer.both(lambda: kdf.ivf_screen_select(*sargs, k=k),
+                          "ivf_screen_select shard"),
+               timer(lambda: ref.ivf_screen_select_ref(*sargs, k),
+                     "ivf_screen_select shard plain"), None,
+               live_uniq * d * 4 + uniq.numel() * cap * 4
+               + nbytes(o_sc, o_ids, probe, qv) + b * k * 8,
+               2.0 * d * live_rows, FP32_FLOPS, label=SHARD_TAG, k=k,
+               pool=n_probe * cap + o_cap)
+    del mv, mids, sargs, pool_s, pool_i
+
+    emb = int_valued(torch, gen, (n, d))
+    h = int_valued(torch, gen, (b, d))
+    pos = torch.randint(0, n, (b, m_cap), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    m_used = torch.randint(0, m_cap + 1, (b,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    m_used[0], m_used[-1] = 0, m_cap
+    pert_s = int_valued(torch, gen, (b, k), -300, 300)
+    pert_s[:, ::7] = float("-inf")
+    s_ids = torch.randint(0, n, (b, k), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    heights = int_valued(torch, gen, (b, m_cap), 0, 40) * 0.25
+    targs = (emb, pos, m_used, pert_s, s_ids, heights, h)
+    got_i, got_v = kdf.tail_gather_argmax(*targs)
+    want_i, want_v = ref.tail_gather_argmax_ref(*targs)
+    torch.cuda.synchronize()
+    err = (got_v - want_v).abs().max().item()
+    check(torch.equal(got_i, want_i)
+          and torch.allclose(got_v, want_v, rtol=1e-5, atol=1e-5),
+          f"tail_gather_argmax at a shard's shapes disagrees: {err}")
+    live = torch.arange(m_cap, device="cuda")[None] < m_used[:, None]
+    tag_record(by_name["tail_gather_argmax"], "shard", err,
+               timer.both(lambda: kdf.tail_gather_argmax(*targs),
+                          "tail_gather_argmax shard"),
+               timer(lambda: ref.tail_gather_argmax_ref(*targs),
+                     "tail_gather_argmax shard plain"), None,
+               int(torch.unique(pos[live]).numel()) * d * 4
+               + nbytes(pos, m_used, pert_s, s_ids, heights, h) + b * 8,
+               2.0 * d * int(m_used.sum().item()), FP32_FLOPS,
+               label=SHARD_TAG, k=k, m_cap=m_cap)
+    del emb, targs
+    estimator_check(torch, gen, timer, by_name["fused_estimator"], "shard",
+                    n, d, HEAD_CHUNK, k, label=SHARD_TAG)
+    print(f"[timer] {SHARD_TAG} calls whose host issue outlasted the hold: "
+          f"{json.dumps(timer.uncovered)}", flush=True)
+    del timer
+    torch.cuda.empty_cache()
+
+
+def _shard_out(out_dir: str, rank: int, obj) -> None:
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(obj, f)
+
+
+def _rank_serve(torch, mesh, seed: int, counts: dict) -> dict:
+    """TP serving of full-depth tinyllama-1.1b on this rank's shard: fused
+    T=8, unfused T=1 and fused again over one ShardedIndex."""
+    from repro_torch import collectives as coll
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import report
+    from repro_torch.models.model import Model
+    from repro_torch.serve.server import ServeConfig, Server
+
+    cfg = get("tinyllama-1.1b").scaled(head_mips="ivf")
+    prompts = family_prompts(cfg, seed)
+    params = Model(cfg, "bf16", device="cuda", mesh=mesh).init(seed)
+    runs, index, out = [], None, {}
+    for label, fused, window in (("fused T=8", True, WINDOW),
+                                 ("unfused T=1", False, 1),
+                                 ("fused T=8 again", True, WINDOW)):
+        srv = Server(cfg.scaled(head_fused_decode=fused), params, ServeConfig(
+            batch_slots=SLOTS, max_seq=MAX_SEQ, max_new_tokens=NEW_TOKENS,
+            decode_window=window, seed=seed), precision_policy="bf16",
+            device="cuda", index=index, mesh=mesh)
+        index = srv.index
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        coll.reset_host_bytes()
+        res = srv.run(prompts)
+        torch.cuda.synchronize()
+        run = ops.launch_counts()
+        for k, n in run.items():
+            counts[k] = counts.get(k, 0) + n
+        rep = report(res, srv)
+        toks = sum(len(r.tokens) for r in res)
+        rep["host_staged_bytes_per_token"] = sum(coll.HOST_BYTES.values()) / toks
+        rep["host_staged_bytes"] = dict(coll.HOST_BYTES)
+        rep["launches"] = run
+        runs.append([r.tokens for r in res])
+        out[label] = rep
+        if mesh.rank == 0:
+            print(f"{SHARD_TAG} tp{SHARD_TP} serve {label} "
+                  + json.dumps(rep), flush=True)
+    out["index_mb_shard"] = index.local.memory_bytes() / 1e6
+    out["index_mb_total"] = index.memory_bytes() / 1e6
+    out["fused_eq_unfused"] = sum(a == b for a, b in zip(runs[0], runs[1]))
+    out["repeat_bitwise"] = sum(a == b for a, b in zip(runs[0], runs[2]))
+    out["requests"] = len(prompts)
+    out["tokens"] = runs[0]
+    return out
+
+
+def _rank_exact(torch, mesh, seed: int) -> dict:
+    """One tp-2 exact-mode head loss and its (d_emb, d_h) at full width
+    against the single-device head on the same rows (every rank gathers
+    the table for the single-device side)."""
+    from repro_torch import collectives as coll
+    from repro_torch.configs import get
+    from repro_torch.core import amortized_head as ah
+    from repro_torch.models import head as dh
+
+    cfg = get("tinyllama-1.1b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 77)
+    vp, d, t = cfg.vocab_padded, cfg.d_model, SHARD_EXACT_TOKENS
+    full = torch.randn((vp, d), generator=gen, device="cuda") * 0.02
+    h0 = torch.randn((t, d), generator=gen, device="cuda")
+    tgt = torch.randint(0, cfg.vocab, (t,), generator=gen, device="cuda")
+    hc = ah.HeadConfig(n=cfg.vocab, mode="exact")
+    v = vp // mesh.tp
+    emb_loc = full[mesh.model.index * v:(mesh.model.index + 1) * v].clone()
+    e = emb_loc.requires_grad_(True)
+    h = h0.clone().requires_grad_(True)
+    loss = dh.dist_head_loss(mesh, e, h, tgt, hc)
+    loss.sum().backward()
+    fe = full.clone().requires_grad_(True)
+    h1 = h0.clone().requires_grad_(True)
+    ref_loss = ah.head_loss(fe, h1, tgt, hc).loss
+    ref_loss.sum().backward()
+    d_emb_ref = fe.grad[mesh.model.index * v:(mesh.model.index + 1) * v]
+    gathered = coll.all_gather(e.grad, mesh.model).reshape(vp, d)
+    def close5(a, b):  # rtol 1e-5; atol 1e-5 of the largest magnitude
+        return torch.allclose(a, b, rtol=1e-5,
+                              atol=1e-5 * b.abs().max().item())
+
+    ok = (torch.allclose(loss, ref_loss, rtol=1e-5, atol=0)
+          and close5(e.grad, d_emb_ref) and close5(h.grad, h1.grad)
+          and close5(gathered, fe.grad))
+    return {"ok": bool(ok),
+            "loss_max_rel": float(((loss - ref_loss).abs()
+                                   / ref_loss.abs()).max()),
+            "d_emb_max_abs": float((e.grad - d_emb_ref).abs().max()),
+            "d_h_max_abs": float((h.grad - h1.grad).abs().max())}
+
+
+def _rank_ring(torch, mesh, seed: int) -> dict:
+    from repro_torch import collectives as coll
+    from repro_torch.optim.compress import ring_allreduce_int8
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 100 + mesh.rank)
+    x = torch.randn((SHARD_RING_N,), generator=gen, device="cuda")
+    exact = coll.psum(x, mesh.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    approx = ring_allreduce_int8(x, mesh.model, seed)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rel = float(torch.linalg.norm(approx - exact) / torch.linalg.norm(exact))
+    return {"rel_err": rel, "elements": SHARD_RING_N, "wall_s": dt,
+            "on": str(approx.device)}
+
+
+def _rank_moe(torch, mesh, seed: int, counts: dict) -> dict:
+    """qwen3-moe at 2 of 48 layers on tp 2 (64 of 128 experts a rank):
+    ``forward_dist`` against ``forward`` on one layer, then one serving run
+    and 2 training steps on the mesh."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import DataConfig, SyntheticStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.serve import report
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.serve.server import ServeConfig, Server
+
+    from repro_torch.configs import get
+
+    cfg = get("qwen3-moe-30b-a3b").scaled(
+        head_mips="ivf", n_layers=FAMILY_CUTS["qwen3-moe-30b-a3b"])
+    full = Model(cfg, "bf16", device="cuda").init(seed)
+    layer = {k: v[0] for k, v in full["blocks"][0]["0"]["mlp"].items()}
+    params = mesh_lib.shard_params(full, mesh, cfg)
+    del full
+    e = cfg.n_experts // mesh.tp
+    loc = {k: v[0] for k, v in params["blocks"][0]["0"]["mlp"].items()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 5)
+    x = torch.randn((SHARD_MOE_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda")
+    want, want_aux = moe.forward(layer, cfg, x)
+    got, got_aux = moe.forward_dist(loc, cfg, x, mesh)
+    out = {"experts_per_rank": e, "mode": mesh_lib.moe_mode(cfg, mesh.tp),
+           "max_abs": float((got - want).abs().max()),
+           "aux": [float(got_aux), float(want_aux)],
+           "ok": bool(torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+                      and abs(float(got_aux) - float(want_aux))
+                      <= 1e-4 * abs(float(want_aux)) + 1e-6)}
+    del layer, loc
+    prompts = family_prompts(cfg, seed)
+    srv = Server(cfg.scaled(head_fused_decode=True), params, ServeConfig(
+        batch_slots=SLOTS, max_seq=MAX_SEQ, max_new_tokens=NEW_TOKENS,
+        decode_window=WINDOW, seed=seed), precision_policy="bf16",
+        device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = srv.run(prompts)
+    torch.cuda.synchronize()
+    for k, n in ops.launch_counts().items():
+        counts[k] = counts.get(k, 0) + n
+    out["serve"] = report(res, srv)
+    out["serve_complete"] = all(len(r.tokens) == NEW_TOKENS for r in res)
+    index = srv.index
+    del srv
+    model = Model(cfg, "bf16", device="cuda", mesh=mesh)
+    opt = adamw.init(params)
+    step_fn = steps_lib.make_train_step(model, steps_lib.TrainConfig(
+        opt=OptConfig(**FAMILY_OPT), precision="bf16"))
+    data = SyntheticStream(cfg, DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                           seed=seed))
+    index = model.make_head_index(params,
+                                  db=model.head_index_db(params).clone())
+    losses = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(2):
+        batch = {k: torch.from_numpy(np.asarray(v)).cuda()
+                 for k, v in next(data).items()}
+        params, opt, m = step_fn(params, opt, batch, (seed, i), index)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    out["train_s_per_step"] = (time.perf_counter() - t0) / 2
+    for k, n in ops.launch_counts().items():
+        counts[k] = counts.get(k, 0) + n
+    out["train_losses"] = losses
+    out["train_ok"] = all(math.isfinite(v) for v in losses)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def sharded_tp_rank(rank: int, world: int, init: str, out_dir: str,
+                    seed: int) -> None:
+    """One rank of the tp-2 group on the card (gloo): the int8 ring, TP
+    serving, the exact-mode equality, the MoE."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.init_rank(rank, world, init, backend="gloo", device="cuda:0",
+                       timeout_s=SHARD_TIMEOUT_S)
+    mesh = mesh_lib.make_train_mesh(1, world, timeout_s=SHARD_TIMEOUT_S)
+    out, counts = {}, {}
+    for name, fn in (("ring", lambda: _rank_ring(torch, mesh, seed)),
+                     ("serve", lambda: _rank_serve(torch, mesh, seed,
+                                                   counts)),
+                     ("exact", lambda: _rank_exact(torch, mesh, seed)),
+                     ("moe", lambda: _rank_moe(torch, mesh, seed, counts))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name + "_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        if rank == 0:
+            print(f"{SHARD_TAG} tp{world} {name} done in "
+                  f"{out[name + '_s']:.1f} s", flush=True)
+    out["launches"] = counts
+    _shard_out(out_dir, rank, out)
+
+
+def sharded_dp_tp_rank(rank: int, world: int, init: str, out_dir: str,
+                       seed: int, workdir: str) -> None:
+    """One rank of the dp 2 × tp 2 group on the card (gloo): Trainer with
+    the IVF head on a ShardedIndex, async refresh and sharded checkpoints;
+    4 steps uninterrupted, then a resume from the step-2 checkpoint."""
+    import gc
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import TrainConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.trainer import RunConfig, Trainer
+
+    mesh_lib.init_rank(rank, world, init, backend="gloo", device="cuda:0",
+                       timeout_s=SHARD_TIMEOUT_S)
+    mesh = mesh_lib.make_train_mesh(2, world // 2, timeout_s=SHARD_TIMEOUT_S)
+    cfg = get("tinyllama-1.1b").scaled(n_layers=SHARD_TRAIN_LAYERS,
+                                       head_mips="ivf")
+    run = RunConfig(num_steps=SHARD_TRAIN_STEPS, ckpt_every=SHARD_TRAIN_EVERY,
+                    log_every=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    fuse_steps=SHARD_TRAIN_EVERY, seed=seed,
+                    index_refresh_every=SHARD_TRAIN_EVERY,
+                    async_refresh=True, sharded_ckpt=True,
+                    train=TrainConfig(opt=OptConfig(
+                        lr=1e-4, warmup_steps=2,
+                        total_steps=SHARD_TRAIN_STEPS), precision="bf16"))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, run, workdir, device="cuda:0", mesh=mesh)
+    first = tr.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    # this rank's own trunk (replicated over both axes: all four equal)
+    digest = hashlib.sha256(tr.state["params"]["blocks"][0]["0"]["mix"][
+        "wq"].float().cpu().numpy().tobytes()).hexdigest()[:16]
+    with open(Path(workdir) / f"ckpt_{SHARD_TRAIN_EVERY:08d}"
+              / "manifest.json") as f:
+        man = json.load(f)
+    out = {"losses": [m["loss"] for m in tr.metrics_log],
+           "dt": [m["dt"] for m in tr.metrics_log],
+           "events": [(e["kick"], e["swap"]) for e in tr.refresh_events],
+           "status": first["status"], "wall_s": wall,
+           "manifest": [bool(man.get("sharded")), bool(man.get("complete"))],
+           "trunk_digest": digest, "launches": counts,
+           "index_mb_shard": tr.head_index.local.memory_bytes() / 1e6,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del tr  # four ranks' training state: free it before the resume's
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:  # the resume starts from step 2: drop the later one
+        shutil.rmtree(Path(workdir) / f"ckpt_{SHARD_TRAIN_STEPS:08d}")
+    dist.barrier()
+    tr2 = Trainer(cfg, run, workdir, device="cuda:0", mesh=mesh)
+    tr2.train()
+    out["resumed"] = [m["loss"] for m in tr2.metrics_log]
+    out["resumed_events"] = [(e["kick"], e["swap"])
+                             for e in tr2.refresh_events]
+    _shard_out(out_dir, rank, out)
+
+
+def sharded_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
+    """The ``[sharded]`` phase: the kernels at one shard's shapes
+    (:func:`shard_kernel_checks`), then groups of ranks spawned on the one
+    card under gloo (NCCL refuses two ranks on one card; collectives on
+    CUDA tensors cross the host, counted): tp 2 — the int8 ring all-reduce on
+    CUDA tensors, full-depth tinyllama-1.1b served
+    fused T=8 ≡ unfused T=1 and repeatable, the exact-mode distributed
+    head equal to the single-device one at full width, and qwen3-moe (2
+    of 48 layers, 64 of 128 experts a rank) with ``forward_dist`` ≡
+    ``forward``, one serving run and 2 training steps; then dp 2 × tp 2 —
+    tinyllama-1.1b at full width, depth cut to ``SHARD_TRAIN_LAYERS``
+    layers (the phase's time budget: four trunk replicas of training
+    state would fit about 16 layers in 80 GB at ≈ 0.8 GB a layer a rank),
+    ``Trainer`` with the IVF head, async refresh and sharded checkpoints
+    every 2 steps, 4 steps, then a resume from step 2 that must give the
+    uninterrupted losses bit for bit. Rank 0 prints; each record gains
+    ``launches_sharded``: the launches summed over the ranks of both
+    groups, counted from 0 just before each path and read just after."""
+    import shutil
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    shard_kernel_checks(torch, records)
+    print(f"{SHARD_TAG} kernel checks done in {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    print(f"{SHARD_TAG} ranks share cuda:0 under gloo (nccl refuses two "
+          f"ranks on one card)", flush=True)
+    base = ROOT / "build" / "chip_smoke_sharded"
+    shutil.rmtree(base, ignore_errors=True)
+    out: dict = {"card": smi}
+    counts: dict = {}
+    for label, fn, world, extra in (
+            ("tp", sharded_tp_rank, SHARD_TP, ()),
+            ("dp_tp", sharded_dp_tp_rank, 2 * SHARD_TP,
+             (str(base / "train"),))):
+        d = base / label
+        d.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        mesh_lib.run_ranks(fn, world, (world, mesh_lib.file_init_method(
+            str(d)), str(d), seed, *extra), timeout_s=SHARD_TIMEOUT_S)
+        ranks = [json.loads((d / f"rank{r}.json").read_text())
+                 for r in range(world)]
+        for r in ranks:
+            for k, n in r["launches"].items():
+                counts[k] = counts.get(k, 0) + n
+        out[label] = ranks[0]
+        out[label + "_ranks"] = ranks
+        out[label + "_s"] = time.perf_counter() - t0
+        print(f"{SHARD_TAG} {label} group done in {out[label + '_s']:.1f} s",
+              flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+    _sharded_gates(out, smi)
+    for rec in records:
+        rec["launches_sharded"] = counts.get(rec["name"], 0)
+    print(f"{SHARD_TAG} launches {json.dumps(counts)}", flush=True)
+    return out
+
+
+def _sharded_gates(out: dict, smi: str) -> None:
+    tp, dptp = out["tp"], out["dp_tp"]
+    sv = tp["serve"]
+    n_req = sv["requests"]
+    print(f"{SHARD_TAG} int8 ring all-reduce ({smi}) "
+          + json.dumps(tp["ring"]), flush=True)
+    check(tp["ring"]["rel_err"] < SHARD_RING_REL,
+          f"int8 ring all-reduce relative error {tp['ring']['rel_err']}")
+    print(f"{SHARD_TAG} tp{SHARD_TP} fused T={WINDOW} == unfused T=1 tokens: "
+          f"{sv['fused_eq_unfused']}/{n_req}; two fused runs bitwise: "
+          f"{sv['repeat_bitwise']}/{n_req}", flush=True)
+    check(sv["fused_eq_unfused"] == n_req,
+          "TP serving: fused T=8 and unfused T=1 served different tokens")
+    check(sv["repeat_bitwise"] == n_req,
+          "TP serving: two fused runs served different tokens")
+    check(all(r["serve"]["tokens"] == sv["tokens"]
+              for r in out["tp_ranks"]), "TP serving: ranks disagree")
+    fused = sv["fused T=8"]
+    summary = {"itl_p50_ms": fused["itl_p50_ms"],
+               "tokens_per_s": fused["tokens_per_s"],
+               "unfused_itl_p50_ms": sv["unfused T=1"]["itl_p50_ms"],
+               "unfused_tokens_per_s": sv["unfused T=1"]["tokens_per_s"],
+               "ok_rate": fused["ok_rate"],
+               "index_mb_shard": sv["index_mb_shard"],
+               "index_mb_total": sv["index_mb_total"],
+               "host_staged_bytes_per_token":
+                   fused["host_staged_bytes_per_token"],
+               "unfused_host_staged_bytes_per_token":
+                   sv["unfused T=1"]["host_staged_bytes_per_token"]}
+    print(f"{SHARD_TAG} tp{SHARD_TP} serve summary ({smi}) "
+          + json.dumps(summary), flush=True)
+    check(fused["ok_rate"] > 0.9, f"TP serving ok_rate {fused['ok_rate']}")
+    print(f"{SHARD_TAG} exact-mode tp{SHARD_TP} head == single device: "
+          + json.dumps(tp["exact"]), flush=True)
+    check(all(r["exact"]["ok"] for r in out["tp_ranks"]),
+          "exact-mode distributed head differs from the single-device head")
+    moe_ = tp["moe"]
+    print(f"{SHARD_TAG} qwen3-moe ep ({smi}) " + json.dumps(
+        {k: v for k, v in moe_.items() if k != "serve"}), flush=True)
+    print(f"{SHARD_TAG} qwen3-moe serve " + json.dumps(moe_["serve"]),
+          flush=True)
+    check(all(r["moe"]["ok"] for r in out["tp_ranks"]),
+          "MoE forward_dist differs from forward")
+    check(moe_["serve_complete"] and moe_["train_ok"],
+          "MoE on the mesh: lost tokens or a non-finite loss")
+    print(f"{SHARD_TAG} dp2 x tp{SHARD_TP} cut tinyllama-1.1b: n_layers 22 -> "
+          f"{SHARD_TRAIN_LAYERS} (width unchanged: d 2048, vocab 32000)",
+          flush=True)
+    losses, resumed = dptp["losses"], dptp["resumed"]
+    train = {"losses": losses, "resumed": resumed,
+             "step_s": dptp["dt"], "events": dptp["events"],
+             "resumed_events": dptp["resumed_events"],
+             "manifest_sharded_complete": dptp["manifest"],
+             "index_mb_shard": dptp["index_mb_shard"],
+             "peak_gb_rank0": dptp["peak_gb"], "wall_s": dptp["wall_s"]}
+    print(f"{SHARD_TAG} dp2 x tp{SHARD_TP} train ({smi}) "
+          + json.dumps(train), flush=True)
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"DP×TP training: loss not finite or not falling: {losses}")
+    check(resumed == losses[SHARD_TRAIN_EVERY:],
+          f"DP×TP resume from step {SHARD_TRAIN_EVERY} differs from the "
+          f"uninterrupted run: {resumed} vs {losses[SHARD_TRAIN_EVERY:]}")
+    check(dptp["events"] == [[SHARD_TRAIN_EVERY, 2 * SHARD_TRAIN_EVERY]],
+          f"async refresh off schedule: {dptp['events']}")
+    check(dptp["manifest"] == [True, True],
+          f"sharded checkpoint manifest {dptp['manifest']}")
+    check(len({r["trunk_digest"] for r in out["dp_tp_ranks"]}) == 1,
+          "DP×TP: the trunk replicas diverged")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3467,6 +4046,11 @@ def main() -> int:
     index_side_phase(torch, args.seed, records, smi)
     print(f"[index-side] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded_phase(torch, args.seed, records, smi)
+    print(f"{SHARD_TAG} phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     # launches: each path's count, read just after its own run — serving
     # (each kernel's count on the first serving run that launches it, the
     # fused run before the unfused one, IVF before IVF-PQ; the paged kernel
@@ -3475,7 +4059,7 @@ def main() -> int:
     # the count on the newest path that runs the kernel (training where it
     # ran there, else serving); the [paper] and [families] paths' counts
     # stand beside it (launches_paper, launches_adaptive, launches_families,
-    # launches_index_side)
+    # launches_index_side, launches_sharded)
     # path_us: device us per call of the kernel on the same path, from the
     # profiled repeats of it (serving: 4 prompts; training: one step)
     for rec in records:

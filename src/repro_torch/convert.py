@@ -12,14 +12,17 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.mips.ivf import IVFState
-from repro_torch.core.mips.lsh import LSHState
-from repro_torch.core.mips.pq import PQState
+from repro_torch.core.mips.exact import ExactConfig, ExactIndex
+from repro_torch.core.mips.ivf import IVFConfig, IVFIndex, IVFState
+from repro_torch.core.mips.lsh import LSHConfig, LSHIndex, LSHState
+from repro_torch.core.mips.pq import IVFPQIndex, PQConfig, PQState
+from repro_torch.core.mips.sharded import ShardedIndex
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 
 __all__ = ["tree_from_numpy", "params_from_jax", "opt_state_from_jax",
-           "ivf_state_from_jax", "pq_state_from_jax", "lsh_state_from_jax"]
+           "ivf_state_from_jax", "pq_state_from_jax", "lsh_state_from_jax",
+           "shard_params_from_jax", "sharded_index_from_jax"]
 
 
 def tree_from_numpy(tree: Any, device=None) -> Any:
@@ -101,3 +104,45 @@ def lsh_state_from_jax(np_leaves, device=None) -> LSHState:
     ``LSHIndex(config, state)`` serves it."""
     return LSHState(*(torch.from_numpy(np.array(x, copy=True)).to(device)
                       for x in np_leaves))
+
+
+def shard_params_from_jax(np_tree: dict, cfg: ArchConfig, mesh,
+                          device=None) -> dict:
+    """The reference's full params (numpy) -> THIS rank's params on
+    ``mesh``: :func:`params_from_jax`, then every leaf the mesh shards cut
+    to this rank's block (:func:`repro_torch.launch.mesh.shard_params`)."""
+    from repro_torch.launch.mesh import shard_params
+
+    return shard_params(params_from_jax(np_tree, cfg, device), mesh, cfg)
+
+
+def sharded_index_from_jax(np_state, config, mesh, n_local: int, *,
+                           axis: str = "model", device=None,
+                           db_loc: torch.Tensor | None = None
+                           ) -> ShardedIndex:
+    """A reference ``ShardedIndex``'s stacked state (its ``state``: the
+    backend's pytree children, every leaf with a leading shard axis, as
+    numpy) -> this rank's shard as a port :class:`ShardedIndex` under the
+    port's backend ``config``. Each backend's leaves go through its
+    ``*_state_from_jax``; an IVF-PQ shard takes ``db_loc`` (this rank's
+    rows) as its re-rank table, or a copy of the reference's slice."""
+    s = mesh.axis(axis).index
+
+    def pick(leaves):
+        return tuple(np.asarray(x)[s] for x in leaves)
+
+    if isinstance(config, IVFConfig):
+        local = IVFIndex(config, ivf_state_from_jax(pick(np_state[0]), device))
+    elif isinstance(config, PQConfig):
+        st = pick(np_state[0])
+        db = (db_loc if db_loc is not None
+              else torch.from_numpy(np.array(st[-1], copy=True)).to(device))
+        local = IVFPQIndex(config, pq_state_from_jax(st, db))
+    elif isinstance(config, LSHConfig):
+        local = LSHIndex(config, lsh_state_from_jax(pick(np_state), device))
+    elif isinstance(config, ExactConfig):
+        local = ExactIndex(config, torch.from_numpy(
+            np.array(pick(np_state)[0], copy=True)).to(device))
+    else:
+        raise TypeError(f"no sharded conversion for {type(config).__name__}")
+    return ShardedIndex(config, mesh, axis, n_local, local)

@@ -103,8 +103,8 @@ def uses_index(cfg: HeadConfig) -> bool:
     return cfg.mode != "exact" and cfg.mips != "exact"
 
 
-def make_index(cfg: HeadConfig, emb: torch.Tensor, device=None, **build_kw
-               ) -> mips.Index | None:
+def make_index(cfg: HeadConfig, emb: torch.Tensor, device=None, *,
+               mesh=None, **build_kw) -> mips.Index | None:
     """Build the head's MIPS index over the embedding rows on ``device``
     (CUDA unless the caller names another), or None when the exact top-k
     path applies. ``emb`` must already live on that device; ``build_kw``
@@ -115,7 +115,12 @@ def make_index(cfg: HeadConfig, emb: torch.Tensor, device=None, **build_kw
 
     The IVF-PQ index keeps ``emb`` itself as its re-rank rows: the resident
     table is passed unsliced when the vocabulary is unpadded, and a caller
-    that updates ``emb`` in place must pass a frozen copy."""
+    that updates ``emb`` in place must pass a frozen copy.
+
+    With ``mesh``, ``emb`` is this rank's slice of the model-sharded table
+    (pad rows included: each shard masks its own past ``n`` at probe time)
+    and the index a :class:`repro_torch.core.mips.ShardedIndex` over the
+    ``model`` axis."""
     cfg = cfg.resolved()
     dev = resolve_device(device)
     if emb.device.type != dev.type or (
@@ -123,23 +128,28 @@ def make_index(cfg: HeadConfig, emb: torch.Tensor, device=None, **build_kw
         raise ValueError(f"emb lives on {emb.device}, the index on {dev}")
     if not uses_index(cfg):
         return None
+    k_loc = max(8, cfg.k // (mesh.shape["model"] if mesh is not None else 1))
     if cfg.mips == "ivf":
         mips_cfg = mips.IVFConfig(n_probe=cfg.n_probe,
                                   n_probe_init=cfg.n_probe_init,
                                   n_probe_max=cfg.n_probe_max,
                                   use_kernel=cfg.use_kernel)
     elif cfg.mips == "ivfpq":
-        # the exact re-rank covers the head's k with screening headroom
+        # the exact re-rank covers the PROBED k (per shard when sharded)
+        # with screening headroom
         mips_cfg = mips.PQConfig(n_probe=cfg.n_probe,
                                  n_probe_init=cfg.n_probe_init,
                                  n_probe_max=cfg.n_probe_max,
-                                 rerank=2 * max(8, cfg.k))
+                                 rerank=2 * k_loc)
     else:  # lsh: buckets large enough that the tables' union can cover k
         base_cfg = mips.LSHConfig()
-        cap_load = mips.default_bucket_cap(max(1, cfg.n), base_cfg.n_bits)
-        cap_k = max(8, math.ceil(2.0 * max(8, cfg.k) / base_cfg.n_tables
+        n_loc = emb.shape[0] if mesh is not None else cfg.n
+        cap_load = mips.default_bucket_cap(max(1, n_loc), base_cfg.n_bits)
+        cap_k = max(8, math.ceil(2.0 * k_loc / base_cfg.n_tables
                                  / 8.0) * 8)
         mips_cfg = mips.LSHConfig(bucket_cap=max(cap_load, cap_k))
+    if mesh is not None:
+        return mips.build_index(mips_cfg, emb, mesh=mesh, **build_kw)
     db = emb if cfg.n == emb.shape[0] else emb[: cfg.n]
     return mips.build_index(mips_cfg, db, **build_kw)
 

@@ -14,8 +14,9 @@
 Conventions: ``emb`` is the feature table ``(v, d)`` and ids are row
 indices. Every estimator quantity is float32 whatever the trunk's
 precision policy: the Algorithm-2 certificate must fail because the probe
-missed, never because of rounding. The cross-shard (psum / pmax) combines
-come with the sharding slice.
+missed, never because of rounding. The cross-shard combines
+(:func:`combine_loss_psum`, :func:`combine_sample_pmax`) run over a mesh
+axis (:mod:`repro_torch.collectives`) with O(1) scalars per token.
 
 Randomness: the tail draws of a token come from the counter-based
 generator keyed by its ``keys`` row (:mod:`repro_torch.core.rng`), or are
@@ -29,6 +30,7 @@ from typing import Any, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import collectives as coll
 from repro_torch.core import rng
 from repro_torch.core.complement import sample_complement
 from repro_torch.core.gumbel import (
@@ -59,6 +61,8 @@ __all__ = [
     "target_partial",
     "loss_partials",
     "combine_loss",
+    "combine_loss_psum",
+    "combine_sample_pmax",
     "local_gumbel_max",
     "local_gumbel_topk",
     "dense_gumbel_max",
@@ -341,7 +345,10 @@ def stratified_logz(emb: torch.Tensor, h: torch.Tensor, ids: torch.Tensor,
     log_w = log_w.float()  # stratum weights: fp32 always
     if use_kernel or h.is_cuda:
         return _FusedLogZ.apply(emb, h, ids, log_w)
-    rows = emb[ids]  # (t, m, d) differentiable gather
+    # an embedding lookup, not ``emb[ids]``: advanced indexing's backward
+    # on the CPU adds repeated rows with atomics across threads, in an order
+    # that changes from run to run; the embedding backward does not
+    rows = torch.nn.functional.embedding(ids, emb)  # (t, m, d)
     y = torch.einsum("tmd,td->tm", rows, h).float()
     return torch.logsumexp(y + log_w, dim=1)
 
@@ -435,7 +442,8 @@ def target_partial(emb: torch.Tensor, h: torch.Tensor, targets: torch.Tensor,
     """Target logit for owned targets, 0 elsewhere (t,)."""
     nv = emb.shape[0] if n_valid is None else n_valid
     inside = (targets >= 0) & (targets < nv)
-    rows = emb[torch.clamp(targets, 0, emb.shape[0] - 1)]
+    rows = torch.nn.functional.embedding(  # repeatable backward, as above
+        torch.clamp(targets, 0, emb.shape[0] - 1), emb)
     y = torch.einsum("td,td->t", rows, h).float()
     return torch.where(inside, y, torch.zeros_like(y))
 
@@ -480,6 +488,43 @@ def combine_loss(p: LossPartials, mode: str
     else:
         log_z = p.log_z
     return log_z - p.y_t, log_z
+
+
+def combine_loss_psum(p: LossPartials, mode: str, axis: coll.Axis
+                      ) -> torch.Tensor:
+    """Cross-shard combine -> per-token NLL (T,), the same on every rank
+    of ``axis``. The global ``log Ẑ`` is the logsumexp over shards of the
+    local stratified partials (the stratified sum of per-shard Algorithm-3
+    estimators, still unbiased in Z), and the target logit enters through a
+    masked sum (exactly one shard owns it). The max is a detached
+    stabiliser, as the reference's ``stop_gradient``; the sums are
+    :func:`repro_torch.collectives.reduce_from`, whose backward passes the
+    (replicated) upstream gradient to each shard's partial."""
+    y_t_g = coll.reduce_from(p.y_t, axis)
+    if mode == "topk_only":
+        m = torch.maximum(coll.pmax(p.log_z.detach(), axis), y_t_g.detach())
+        z = (coll.reduce_from(torch.exp(p.log_z - m), axis)
+             + torch.exp(y_t_g - m))
+        return m + torch.log(z) - y_t_g
+    m = coll.pmax(p.log_z.detach(), axis)
+    lse_g = m + torch.log(coll.reduce_from(torch.exp(p.log_z - m), axis))
+    return lse_g - y_t_g
+
+
+def combine_sample_pmax(gid: torch.Tensor, val: torch.Tensor,
+                        bound: torch.Tensor, ok: torch.Tensor,
+                        axis: coll.Axis) -> tuple[torch.Tensor, torch.Tensor]:
+    """The global argmax of the per-shard lazy-Gumbel maxima is an exact
+    global sample -> (global id (T,) int64, ok (T,) bool). It is certified
+    iff the winner clears every shard's bound and no shard's tail buffer
+    overflowed: ``ok`` is the min over shards of ``ok & (vmax >= bound)``.
+    Ties go to the smaller global id."""
+    vmax = coll.pmax(val, axis)
+    cand = torch.where(val >= vmax, gid.long(),
+                       torch.full_like(gid, 2 ** 30, dtype=torch.int64))
+    gid_win = coll.pmin(cand, axis)
+    ok_g = coll.pmin((ok & (vmax >= bound)).to(torch.int32), axis).bool()
+    return gid_win, ok_g
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """MIPS indexes (counterpart of ``repro/core/mips``): the stateful Index API
 with the exact oracle, the IVF and IVF-PQ backends and SRP-LSH (the theory
-index). The config dataclass selects the backend::
+index), and the model-sharded :class:`ShardedIndex`. The config dataclass
+selects the backend::
 
     from repro_torch.core import mips
 
@@ -25,6 +26,7 @@ from repro_torch.core.mips.ivf import IVFConfig, IVFIndex, IVFState
 from repro_torch.core.mips.lsh import (LSHConfig, LSHIndex, LSHState,
                                        default_bucket_cap)
 from repro_torch.core.mips.pq import IVFPQIndex, PQConfig, PQState
+from repro_torch.core.mips.sharded import ShardedIndex
 
 __all__ = [
     "Index",
@@ -47,5 +49,6 @@ __all__ = [
     "IVFPQIndex",
     "PQConfig",
     "PQState",
+    "ShardedIndex",
     "TopK",
 ]

@@ -86,8 +86,18 @@ def backend_cls(config: Any) -> type:
         ) from None
 
 
-def build_index(config: Any, db: torch.Tensor, **kw) -> Index:
-    """Build the index backend matching ``type(config)`` over ``db``."""
+def build_index(config: Any, db: torch.Tensor, *, mesh=None,
+                axis: str = "model", **kw) -> Index:
+    """Build the index backend matching ``type(config)`` over ``db``.
+
+    With ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`), a
+    :class:`repro_torch.core.mips.ShardedIndex` over the mesh ``axis``:
+    ``db`` is then THIS rank's rows (the port's ranks hold only their
+    slice of a sharded table), indexed shard-locally."""
+    if mesh is not None:
+        from repro_torch.core.mips.sharded import ShardedIndex
+
+        return ShardedIndex.build_local(config, db, mesh, axis, **kw)
     return backend_cls(config).build(db, config, **kw)
 
 
@@ -105,7 +115,11 @@ def index_spill_parts(index: Any) -> tuple[int, int]:
     ``dropped_count``, fixed by a larger ``bucket_cap``; re-rank slots an
     IVF-PQ probe pool can never fill — ``state.rerank_spill``, fixed by a
     smaller ``PQConfig.rerank`` or more probed clusters). (0, 0) for None
-    and for backends without the counters. Reads device scalars."""
+    and for backends without the counters. Reads device scalars. A
+    :class:`repro_torch.core.mips.ShardedIndex` sums its shards' counts (a
+    collective over its axis)."""
+    if hasattr(index, "spill_parts"):
+        return index.spill_parts()
     st = getattr(index, "state", None)
     dropped = getattr(index, "dropped_count", None)
     if dropped is None:

@@ -8,6 +8,13 @@ step.
 Where the reference scans a decode window or a train window inside one
 jitted dispatch, the port loops over it in Python; state stays on the
 device and the host reads it only where it needs a value.
+
+On a mesh (the model's ``mesh``), each rank steps on its data slice: the
+head's draws are keyed by the GLOBAL token index, the gradients are summed
+over the ``data`` axis and divided by ``dp`` (the mean over the global
+batch that GSPMD computes), the metrics are averaged the same way, and the
+clipping norm is the whole model's (:func:`mesh_norm`); the decode and
+prefill steps run the distributed head through the model.
 """
 from __future__ import annotations
 
@@ -15,10 +22,12 @@ import dataclasses
 
 import torch
 
+from repro_torch import collectives as coll
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 
-__all__ = ["TrainConfig", "token_keys", "make_train_step",
+__all__ = ["TrainConfig", "token_keys", "make_train_step", "data_mean",
+           "mesh_norm",
            "make_train_loop_step", "slot_keys", "make_serve_step",
            "make_decode_loop_step", "make_prefill_into_cache_step",
            "make_reference_serve_step", "make_prefill_step",
@@ -32,6 +41,8 @@ class TrainConfig:
     precision: str = "bf16"  # model precision policy (repro_torch/precision.py):
     #   "bf16" (default) or "f32" (the numerics reference). Master params,
     #   gradient accumulators and estimator partials are fp32 either way.
+    compress_grads: bool = False  # declared as in the reference, which
+    #   reads it nowhere; repro_torch.optim.compress holds the int8 ring
 
 
 def _split_batch(batch: dict, accum: int) -> dict:
@@ -66,7 +77,12 @@ def make_train_step(model: Model, tcfg: TrainConfig):
 
     Gradient accumulation (``tcfg.accum > 1``) runs ``accum`` microbatches
     and sums their gradients in fp32 (``Policy.grad_accum_dtype``) whatever
-    the compute policy, then applies the optimizer ONCE on the mean."""
+    the compute policy, then applies the optimizer ONCE on the mean.
+
+    On a mesh, ``batch`` is this data rank's slice and ``draws`` its rows;
+    the gradients are averaged over the data axis before the update
+    (:func:`data_mean`)."""
+    mesh = model.mesh
 
     def grads_of(params, mb, keys, draws, index):
         diff = adamw.tree_map(lambda p: p.detach().requires_grad_(True),
@@ -82,8 +98,10 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         seed, step = key
         n_tok = batch["labels"].numel()
         dev = batch["labels"].device
+        # this rank's first token in the global batch (row-major)
+        tok0 = 0 if mesh is None else mesh.data.index * n_tok
         if tcfg.accum == 1:
-            keys = token_keys(seed, step, 0, n_tok, dev)
+            keys = token_keys(seed, step, tok0, n_tok, dev)
             loss, metrics, grads = grads_of(params, batch, keys, draws, index)
         else:
             mbs = _split_batch(batch, tcfg.accum)
@@ -95,7 +113,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
             ms = []
             for i in range(tcfg.accum):
                 mb = {k: v[i] for k, v in mbs.items()}
-                keys = token_keys(seed, step, i * mb_tok, mb_tok, dev)
+                keys = token_keys(seed, step, tok0 + i * mb_tok, mb_tok, dev)
                 d_i = (None if draws is None
                        else draws[i * mb_tok:(i + 1) * mb_tok])
                 l_i, m_i, g_i = grads_of(params, mb, keys, d_i, index)
@@ -111,11 +129,70 @@ def make_train_step(model: Model, tcfg: TrainConfig):
             # per-microbatch aux metrics (nll / aux / log_z): their mean
             metrics = {k: torch.stack([m[k] for m in ms]).float().mean(0)
                        for k in ms[0]}
+        gnorm = None
+        if mesh is not None:
+            if mesh.dp > 1:
+                grads = data_mean(grads, mesh)
+                vals = data_mean([loss] + [metrics[k] for k in metrics],
+                                 mesh)
+                loss = vals[0]
+                metrics = dict(zip(metrics, vals[1:]))
+            gnorm = mesh_norm(grads, mesh, model.cfg)
         params, opt_state, opt_metrics = adamw.update(grads, opt_state,
-                                                      params, tcfg.opt)
+                                                      params, tcfg.opt,
+                                                      gnorm=gnorm)
         return params, opt_state, dict(metrics, **opt_metrics, loss=loss)
 
     return train_step
+
+
+def data_mean(tree, mesh):
+    """The mean over the mesh's data axis of every tensor of ``tree`` (a
+    params-like dict or a list), in ONE all-reduce of their flattened
+    fp32 concatenation; same structure back."""
+    flat = adamw.tree_leaves(tree) if isinstance(tree, dict) else list(tree)
+    buf = torch.cat([t.detach().float().reshape(-1) for t in flat])
+    buf = coll.psum(buf, mesh.data) / mesh.dp
+    out, o = [], 0
+    for t in flat:
+        out.append(buf[o:o + t.numel()].view(t.shape).to(t.dtype))
+        o += t.numel()
+    if isinstance(tree, dict):
+        it = iter(out)
+        return adamw.tree_map(lambda _: next(it), tree)
+    return out
+
+
+def _sorted_leaves(tree, path=()):
+    """(path, leaf) in :func:`repro_torch.optim.adamw.tree_leaves`' order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _sorted_leaves(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _sorted_leaves(v, path + (str(i),))
+    elif tree is not None:
+        yield path, tree
+
+
+def mesh_norm(grads: dict, mesh, cfg) -> torch.Tensor:
+    """The global gradient norm over the whole (sharded) model: the squares
+    of the replicated leaves once, plus those of the model-sharded leaves
+    summed over the model axis — the same on every rank, so every replica
+    clips alike."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    dev = next(iter(adamw.tree_leaves(grads))).device
+    rep = torch.zeros((), dtype=torch.float32, device=dev)
+    shard = torch.zeros((), dtype=torch.float32, device=dev)
+    for path, g in _sorted_leaves(grads):
+        sq = torch.sum(torch.square(g.float()))
+        spec = mesh_lib.param_spec(list(path), tuple(g.shape), mesh, cfg)
+        if mesh_lib.shard_dim(spec) is None:
+            rep = rep + sq
+        else:
+            shard = shard + sq
+    return torch.sqrt(rep + coll.psum(shard, mesh.model))
 
 
 def make_train_loop_step(model: Model, tcfg: TrainConfig):

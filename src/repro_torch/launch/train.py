@@ -11,29 +11,54 @@ Resume is automatic from the latest complete checkpoint in ``--workdir``
 drop a PREEMPT file there (or send SIGTERM) for a clean
 preempt-checkpoint-exit. Weights are random, drawn from seed 0; data is the
 synthetic Zipf stream. Prints the reference launcher's final JSON.
+
+``--dp D --tp T`` trains on a ``(D, T)`` mesh: the launcher spawns ``D·T``
+rank processes (``torch.multiprocessing``), each joins the process group
+through a ``file://`` rendezvous in the workdir under ``--dist-backend``
+(``gloo``, the default, or ``nccl``, which needs a card per rank and is
+refused otherwise) and runs on ``cuda:<rank % cards>``, or on the CPU with
+``--device cpu``. Rank 0's result is printed. On a multi-rank mesh the
+checkpoints are sharded; ``--sharded-ckpt`` asks for that layout on one
+rank too.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+
+import torch
 
 from repro_torch.configs import ARCHS, get, get_smoke
 from repro_torch.kernels.build import build_dir
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.steps import TrainConfig
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train.trainer import RunConfig, Trainer
 
-# reference-launcher flags whose machinery is not in the port yet
-_NOT_PORTED = {
-    "dp": (1, "data parallelism (the mesh)"),
-    "tp": (1, "tensor parallelism (the mesh)"),
-    "sharded_ckpt": (False, "sharded checkpoints"),
-    "async_refresh": (False, "the async double-buffered index refresh"),
-    "adaptive_probe": (False, "the adaptive probe"),
-    "n_probe_init": (0, "the adaptive probe"),
-    "n_probe_max": (0, "the adaptive probe"),
-    "probe_router": (False, "the probe router"),
-}
+_RESULT = "result.json"  # rank 0's final JSON, read back by the launcher
+
+
+def _train(cfg, run: RunConfig, workdir: str, device, mesh=None) -> dict:
+    trainer = Trainer(cfg, run, workdir, device=device, mesh=mesh)
+    result = trainer.train()
+    result["index_refreshes"] = trainer.index_refreshes
+    result["index_swaps"] = trainer.index_swaps
+    return result
+
+
+def _rank_main(rank: int, world: int, init_method: str, backend: str,
+               device, dp: int, tp: int, cfg, run: RunConfig,
+               workdir: str) -> None:
+    """One rank of a ``(dp, tp)`` run (spawned by :func:`main`)."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dev = mesh_lib.init_rank(rank, world, init_method, backend=backend,
+                             device=device)
+    mesh = mesh_lib.make_train_mesh(dp, tp)
+    result = _train(cfg, run, workdir, dev, mesh)
+    if rank == 0:
+        with open(os.path.join(workdir, _RESULT), "w") as f:
+            json.dump(result, f)
 
 
 def main(argv=None) -> None:
@@ -77,20 +102,44 @@ def main(argv=None) -> None:
                     help="checkpoints, resumed from automatically (default: "
                          "build/train in the checkout)")
     ap.add_argument("--ckpt-every", type=int, default=50)
-    # accepted so that reference command lines fail with a clear message
-    ap.add_argument("--dp", type=int, default=1)
-    ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--sharded-ckpt", action="store_true")
-    ap.add_argument("--async-refresh", action="store_true")
-    ap.add_argument("--adaptive-probe", action="store_true")
-    ap.add_argument("--n-probe-init", type=int, default=0)
-    ap.add_argument("--n-probe-max", type=int, default=0)
-    ap.add_argument("--probe-router", action="store_true")
+    ap.add_argument("--async-refresh", action="store_true",
+                    help="double-buffered index refresh: rebuild on a side "
+                         "thread while stepping against the stale index; "
+                         "swap at the next window boundary")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel mesh axis size (ranks: dp*tp)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel (model) mesh axis size: the "
+                         "output embedding, its index and the MoE experts "
+                         "shard over it")
+    ap.add_argument("--dist-backend", default="gloo",
+                    choices=["gloo", "nccl"],
+                    help="torch.distributed backend of a dp*tp > 1 run "
+                         "(nccl: one card per rank)")
+    ap.add_argument("--sharded-ckpt", action="store_true",
+                    help="sharded checkpoint layout (automatic on a "
+                         "multi-rank mesh)")
+    ap.add_argument("--adaptive-probe", action="store_true",
+                    help="certificate-gated staged probe widening in the "
+                         "head's MIPS queries (ivf/ivfpq)")
+    ap.add_argument("--n-probe-init", type=int, default=0,
+                    help="adaptive probe start width (0: head n_probe)")
+    ap.add_argument("--n-probe-max", type=int, default=0,
+                    help="adaptive probe width ceiling (0: head n_probe)")
+    ap.add_argument("--probe-router", action="store_true",
+                    help="fit the adaptive stage router on probe traces at "
+                         "index-refresh boundaries; saved to "
+                         "workdir/router.npz")
     args = ap.parse_args(argv)
-    for name, (default, what) in _NOT_PORTED.items():
-        if getattr(args, name) != default:
-            ap.error(f"--{name.replace('_', '-')}: {what} is not in the "
-                     "PyTorch port yet")
+    world = args.dp * args.tp
+    if args.dp < 1 or args.tp < 1:
+        ap.error("--dp and --tp must be >= 1")
+    if args.dist_backend == "nccl" and world > 1:
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if args.device not in (None, "cuda") or world > cards:
+            ap.error(f"--dist-backend nccl needs one card per rank: {world} "
+                     f"ranks, {cards} cards (ranks that share a card run "
+                     "under gloo)")
 
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     if args.head:
@@ -101,6 +150,10 @@ def main(argv=None) -> None:
         cfg = cfg.scaled(vocab=args.vocab)
     if args.head_use_kernel:
         cfg = cfg.scaled(head_use_kernel=True)
+    if args.adaptive_probe:
+        cfg = cfg.scaled(head_adaptive_probe=True,
+                         head_n_probe_init=args.n_probe_init,
+                         head_n_probe_max=args.n_probe_max)
     run = RunConfig(
         num_steps=args.steps,
         batch=args.batch,
@@ -109,16 +162,29 @@ def main(argv=None) -> None:
         fuse_steps=args.fuse_steps,
         index_refresh_every=args.index_refresh_every,
         index_drift_threshold=args.index_drift_threshold,
+        async_refresh=args.async_refresh,
+        sharded_ckpt=True if args.sharded_ckpt else None,
+        fit_probe_router=args.probe_router,
         train=TrainConfig(
             opt=OptConfig(lr=args.lr, total_steps=args.steps),
             accum=args.accum_steps,
             precision=args.precision,
         ),
     )
-    trainer = Trainer(cfg, run, args.workdir, device=args.device)
-    result = trainer.train()
-    result["index_refreshes"] = trainer.index_refreshes
-    result["index_swaps"] = 0  # no async refresh in the port: no swaps
+    if world == 1:
+        result = _train(cfg, run, args.workdir, args.device)
+    else:
+        os.makedirs(args.workdir, exist_ok=True)
+        res_path = os.path.join(args.workdir, _RESULT)
+        if os.path.exists(res_path):
+            os.remove(res_path)
+        mesh_lib.run_ranks(
+            _rank_main, world,
+            (world, mesh_lib.file_init_method(args.workdir),
+             args.dist_backend, args.device, args.dp, args.tp, cfg, run,
+             args.workdir))
+        with open(res_path) as f:
+            result = json.load(f)
     print(json.dumps(result, indent=1))
 
 

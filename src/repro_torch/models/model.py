@@ -8,6 +8,13 @@ The LM head is the paper's amortized log-linear head
 as in the reference: the audio stub takes precomputed frame embeddings
 (``batch["frames"]``), the vision stub precomputed patch embeddings
 (``batch["patches"]``) that it puts before the text tokens.
+
+On a mesh (:class:`repro_torch.launch.mesh.Mesh`, ``Model(cfg, mesh=)``)
+each rank holds its slice of the output embedding's rows and of the MoE
+experts (:func:`repro_torch.launch.mesh.param_spec`), the trunk replicated
+over the model axis and this data rank's batch; the head is the
+distributed one (:mod:`repro_torch.models.head`) over a
+:class:`repro_torch.core.mips.ShardedIndex`.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch
 
 from repro_torch import precision, resolve_device
 from repro_torch.core import amortized_head as ah
+from repro_torch.models import head as dist_head
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 
@@ -51,10 +59,17 @@ class Model:
     name; default ``bf16``) sets the trunk compute / KV-cache dtype; master
     params stay fp32 and the head computes in fp32. ``device`` defaults to
     CUDA and raises without it (pass ``device="cpu"`` for the CPU).
+    ``mesh``: params are this rank's slices and the head is distributed.
     """
 
-    def __init__(self, cfg: ArchConfig, precision_policy=None, device=None):
+    def __init__(self, cfg: ArchConfig, precision_policy=None, device=None,
+                 mesh=None):
+        if mesh is not None and cfg.tie_embeddings:
+            raise NotImplementedError(
+                "tied embeddings on a mesh: the port shards the output "
+                "embedding only (the input lookup stays replicated)")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.policy = precision.get_policy(precision_policy)
         self.compute_dtype = self.policy.compute_dtype
@@ -63,12 +78,19 @@ class Model:
     # ---------------------------------------------------------------- init
     def init(self, seed: "int | torch.Generator" = 0) -> dict:
         """fp32 master params on the model's device, drawn from a
-        ``torch.Generator`` (given, or seeded with ``seed``)."""
+        ``torch.Generator`` (given, or seeded with ``seed``). On a mesh:
+        the same draws, cut to this rank's slices (every rank draws the
+        full tree, so a mesh run starts from the single-device params)."""
         gen = seed
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(seed))
-        return transformer.init_params(gen, self.cfg, device=self.device)
+        params = transformer.init_params(gen, self.cfg, device=self.device)
+        if self.mesh is not None:
+            from repro_torch.launch import mesh as mesh_lib
+
+            params = mesh_lib.shard_params(params, self.mesh, self.cfg)
+        return params
 
     def compute_params(self, params: dict) -> dict:
         """``params`` with the trunk's matmul weights held in the compute
@@ -91,7 +113,10 @@ class Model:
         if cfg.frontend == "audio_stub":
             x = batch["frames"].to(self.compute_dtype)
         else:
-            x = params["embed"][batch["tokens"].long()].to(self.compute_dtype)
+            # an embedding lookup: its backward sums repeated tokens in a
+            # fixed order (advanced indexing's uses atomics on the CPU)
+            x = torch.nn.functional.embedding(
+                batch["tokens"].long(), params["embed"]).to(self.compute_dtype)
             if cfg.frontend == "vision_stub":
                 x = torch.cat([batch["patches"].to(self.compute_dtype), x],
                               dim=1)
@@ -107,22 +132,32 @@ class Model:
         mode or backend)."""
         return ah.uses_index(self.head_cfg)
 
+    def _head_mesh(self):
+        """The mesh of the distributed head, or None (single device)."""
+        return self.mesh
+
     def make_head_index(self, params, db=None, **build_kw):
         """The head's MIPS index over the output embedding (or ``db``), or
         None when the exact path applies. Serving builds it once; training
         refreshes it as the embedding drifts (train/trainer.py).
         ``build_kw`` go to the index backend's ``build`` (``init_cent``,
         ``iters``; IVF-PQ also ``init_codebooks``, ``pq_iters``). An IVF-PQ
-        index keeps the rows it was built over as its re-rank table."""
+        index keeps the rows it was built over as its re-rank table. On a
+        mesh: a :class:`repro_torch.core.mips.ShardedIndex` over this
+        rank's rows."""
         emb = self._out_embed(params) if db is None else db
         return ah.make_index(self.head_cfg, emb, device=self.device,
-                             **build_kw)
+                             mesh=self._head_mesh(), **build_kw)
 
     def head_index_db(self, params) -> torch.Tensor:
         """The embedding rows backing the head index (refresh and drift
-        tracking): the logical-vocab slice of the output embedding."""
+        tracking): the logical-vocab slice of the output embedding, or on a
+        mesh this rank's whole slice of the padded table (each shard masks
+        its own pad rows at probe time)."""
         emb = self._out_embed(params)
-        return emb if self.head_cfg.n == emb.shape[0] else emb[: self.head_cfg.n]
+        if self._head_mesh() is not None or self.head_cfg.n == emb.shape[0]:
+            return emb
+        return emb[: self.head_cfg.n]
 
     # ---------------------------------------------------------------- loss
     def loss_fn(self, params, batch, index=None, *,
@@ -133,19 +168,30 @@ class Model:
 
         ``keys`` ((B·L, 3) int64, one row per label position in row-major
         order) keys the amortized head's tail draws; ``draws`` ((B·L, l))
-        injects them instead."""
+        injects them instead (on a mesh: this shard's (B·L, l_loc)). The
+        distributed head returns no ``log_z`` diagnostics (0, as in the
+        reference)."""
         cfg = self.cfg
         x, pos, prefix = self._embed_inputs(params, batch)
-        h, aux = transformer.apply_trunk(params, cfg, x, pos, prefix=prefix)
+        h, aux = transformer.apply_trunk(params, cfg, x, pos, prefix=prefix,
+                                         mesh=self.mesh)
         if cfg.frontend == "vision_stub":
             h = h[:, cfg.n_prefix_tokens:]  # the loss reads text positions
         b, l, d = h.shape
-        out = ah.head_loss(self._out_embed(params), h.reshape(b * l, d),
-                           batch["labels"].reshape(-1).long(), self.head_cfg,
-                           index, keys=keys, draws=draws)
-        nll = out.loss.mean()
+        h2 = h.reshape(b * l, d)
+        t2 = batch["labels"].reshape(-1).long()
+        if self._head_mesh() is not None:
+            loss = dist_head.dist_head_loss(
+                self.mesh, self._out_embed(params), h2, t2, self.head_cfg,
+                index, keys=keys, draws=draws)
+            log_z = torch.zeros((), device=h.device)
+        else:
+            out = ah.head_loss(self._out_embed(params), h2, t2,
+                               self.head_cfg, index, keys=keys, draws=draws)
+            loss, log_z = out.loss, out.log_z.mean()
+        nll = loss.mean()
         total = nll + _AUX_WEIGHT * aux
-        return total, {"nll": nll, "aux": aux, "log_z": out.log_z.mean()}
+        return total, {"nll": nll, "aux": aux, "log_z": log_z}
 
     # ---------------------------------------------------------------- taps
     def trunk_taps(self, params, batch, lengths: torch.Tensor | None = None
@@ -158,7 +204,8 @@ class Model:
         every position). Rows are not normalized."""
         x, pos, prefix = self._embed_inputs(params, batch)
         _, _, taps = transformer.apply_trunk(params, self.cfg, x, pos,
-                                             prefix=prefix, return_taps=True)
+                                             prefix=prefix, return_taps=True,
+                                             mesh=self.mesh)
         if lengths is None:
             return taps.mean(dim=2)
         lengths = lengths.to(taps.device)
@@ -177,10 +224,21 @@ class Model:
                                       device=self.device, paged=paged)
 
     def _sample(self, params, hq, index, keys, draws, strict, strict_live,
-                router) -> ah.SampleResult:
-        return ah.head_sample(self._out_embed(params), hq, self.head_cfg,
-                              index, keys=keys, draws=draws, strict=strict,
-                              strict_live=strict_live, router=router)
+                router) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """-> (ids, ok, width) from the head (the distributed one on a
+        mesh, where strict re-sampling is refused, as in the reference)."""
+        if self._head_mesh() is not None:
+            if strict:
+                raise NotImplementedError(
+                    "strict exact-fallback is not wired through the "
+                    "distributed head; serve with strict=False on a TP mesh")
+            return dist_head.dist_head_sample(
+                self.mesh, self._out_embed(params), hq, self.head_cfg,
+                index, keys=keys, draws=draws, router=router)
+        res = ah.head_sample(self._out_embed(params), hq, self.head_cfg,
+                             index, keys=keys, draws=draws, strict=strict,
+                             strict_live=strict_live, router=router)
+        return res.index, res.ok, res.width
 
     def decode_step(self, params, cache, ids: torch.Tensor, pos: torch.Tensor,
                     index=None, *, keys: torch.Tensor | None = None,
@@ -209,10 +267,10 @@ class Model:
         x = params["embed"][ids][:, None].to(self.compute_dtype)  # (B, 1, d)
         h, cache = transformer.apply_trunk_decode(
             params, self.cfg, x, cache, pos, pages=pages,
-            write_mask=write_mask)
-        res = self._sample(params, h[:, 0], index, keys, draws, strict,
-                           strict_live, router)
-        return res.index, res.ok, cache, res.width
+            write_mask=write_mask, mesh=self.mesh)
+        nxt, ok, width = self._sample(params, h[:, 0], index, keys, draws,
+                                      strict, strict_live, router)
+        return nxt, ok, cache, width
 
     def prefill(self, params, batch: dict, keys: torch.Tensor | None,
                 max_seq: int, index=None, *, draws=None
@@ -225,10 +283,11 @@ class Model:
         b, l, _ = x.shape
         h, cache = transformer.apply_trunk_prefill(params, self.cfg, x, pos,
                                                    max_seq=max_seq,
-                                                   prefix=prefix)
-        res = self._sample(params, h[:, -1], index, keys, draws, False, None,
-                           None)
-        return (res.index, res.ok,
+                                                   prefix=prefix,
+                                                   mesh=self.mesh)
+        nxt, ok, _ = self._sample(params, h[:, -1], index, keys, draws, False,
+                                  None, None)
+        return (nxt, ok,
                 torch.full((b,), l, dtype=torch.int64, device=x.device), cache)
 
     def prefill_into_cache(self, params, cache, tokens: torch.Tensor,
@@ -257,19 +316,23 @@ class Model:
         b, l, _ = x.shape
         pos = torch.arange(l, device=x.device)[None].expand(b, l)
         h, part = transformer.apply_trunk_prefill(
-            params, self.cfg, x, pos, max_seq=max_seq, lengths=lengths)
+            params, self.cfg, x, pos, max_seq=max_seq, lengths=lengths,
+            mesh=self.mesh)
         last = (lengths.to(x.device).long() - 1)
         hq = h[torch.arange(b, device=x.device), last]  # (Bn, d)
-        res = self._sample(params, hq, index, keys, draws, strict,
-                           strict_live, None)
+        nxt, ok, _ = self._sample(params, hq, index, keys, draws, strict,
+                                  strict_live, None)
         cache = transformer.insert_cache_slots(cache, part, slots,
                                                pages=pages)
-        return res.index, res.ok, cache
+        return nxt, ok, cache
 
     # ---------------------------------------------------------------- encoder
     def encode(self, params, batch) -> torch.Tensor:
         """Encoder-only archs (hubert): per-frame fp32 logits (B, L, vocab)
         over the output embedding."""
+        if self.mesh is not None:
+            raise NotImplementedError("encode on a mesh: the logits need "
+                                      "the whole output embedding")
         x, pos, _ = self._embed_inputs(params, batch)
         h, _ = transformer.apply_trunk(params, self.cfg, x, pos)
         logits = h.float() @ self._out_embed(params).float().T

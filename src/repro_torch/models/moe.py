@@ -24,6 +24,14 @@ reference's:
 Pad tokens of a padded prefill route like any token and take capacity from
 real ones, as in the reference.
 
+**Distributed** (:func:`forward_dist`, the reference's ``forward_dist``):
+routing and dispatch stay data-local; the experts are split over the
+mesh's ``model`` axis — the expert dim in "ep", else the FFN hidden
+("tp"), as :func:`repro_torch.launch.mesh.moe_mode` places them (the one
+switch, ``launch.mesh.MOE_SHARDING``, decides storage and compute alike) —
+and the one cross-rank collective is a sum of the combined (T_loc, d)
+output.
+
 :data:`TRACE` (None by default) is a measurement hook: set it to a list and
 each call appends ``{"dropped", "assigned", "load"}`` device tensors (the
 assignments that fell past capacity, all assignments, tokens per expert).
@@ -34,10 +42,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import collectives as coll
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dense_init
 
-__all__ = ["init", "forward", "route", "capacity", "TRACE"]
+__all__ = ["init", "forward", "forward_dist", "route", "capacity", "TRACE"]
 
 TRACE: list | None = None
 
@@ -92,12 +102,20 @@ def route(p: dict, cfg: ArchConfig, x: torch.Tensor) -> dict:
             "cap": cap}
 
 
-def forward(p: dict, cfg: ArchConfig, x: torch.Tensor
+def forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
+            expert_offset: int = 0, n_local: int = 0
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (T, d) -> (out (T, d) in x's dtype, aux loss () fp32: the
-    Switch-style E · Σ_e f_e P_e)."""
+    Switch-style E · Σ_e f_e P_e).
+
+    With ``n_local`` set (expert parallelism), only the experts
+    ``[expert_offset, expert_offset + n_local)`` run — ``p``'s expert
+    weights then hold those ``n_local`` — and the output is a PARTIAL sum:
+    assignments to other experts contribute zero (the caller sums over the
+    expert-parallel axis). Routing and aux are the full layer's."""
     t, d = x.shape
     e, kx = cfg.n_experts, cfg.experts_per_token
+    e_here = n_local or e
     dt = x.dtype
     r = route(p, cfg, x)
     load = torch.bincount(r["idx"].reshape(-1), minlength=e)
@@ -107,7 +125,13 @@ def forward(p: dict, cfg: ArchConfig, x: torch.Tensor
                       "load": load})
 
     sorted_e, slot, keep, tok = r["sorted_e"], r["slot"], r["keep"], r["tok"]
-    buf = torch.zeros((e, r["cap"] + 1, d), dtype=dt, device=x.device)
+    if n_local:
+        loc_e = sorted_e - expert_offset
+        mine = (loc_e >= 0) & (loc_e < e_here)
+        keep = keep & mine
+        slot = torch.where(keep, slot, torch.full_like(slot, r["cap"]))
+        sorted_e = torch.where(mine, loc_e, torch.zeros_like(loc_e))
+    buf = torch.zeros((e_here, r["cap"] + 1, d), dtype=dt, device=x.device)
     buf = buf.index_put((sorted_e, slot), torch.where(
         keep[:, None], x[tok], torch.zeros((), dtype=dt, device=x.device)))
     h = F.silu(torch.bmm(buf, p["w1"].to(dt))) * torch.bmm(buf,
@@ -125,4 +149,34 @@ def forward(p: dict, cfg: ArchConfig, x: torch.Tensor
     out = torch.zeros((t, d), dtype=dt, device=x.device)
     for j in range(kx):
         out = out + terms[:, j]
+    return out, aux
+
+
+def forward_dist(p: dict, cfg: ArchConfig, x: torch.Tensor, mesh
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE layer with its experts split over ``mesh``'s model axis:
+    ``p`` holds this rank's experts ("ep": ``E / tp`` of them, full width)
+    or every expert's slice of the FFN hidden ("tp"), as
+    :func:`repro_torch.launch.mesh.moe_mode` places them. x: this data rank's
+    (T, d) -> (out (T, d), aux ()), the same on every model rank.
+
+    Routing is data-local and replicated over the model axis; the local
+    experts run through :func:`forward`, then one sum of the combined
+    (T, d) output over the axis (Megatron's row-parallel reduce, after the
+    linear combine) and the mean of aux. ``x`` and the router weight enter
+    through :func:`repro_torch.collectives.copy_to`, so their gradients sum
+    every rank's terms."""
+    ax = mesh.model
+    mp = ax.size
+    use_ep = mesh_lib.moe_mode(cfg, mp) == "ep"
+    xin = coll.copy_to(x, ax)
+    p_loc = dict(p, router=coll.copy_to(p["router"], ax))
+    if use_ep:
+        e_loc = cfg.n_experts // mp
+        out_p, aux = forward(p_loc, cfg, xin, expert_offset=ax.index * e_loc,
+                             n_local=e_loc)
+    else:
+        out_p, aux = forward(p_loc, cfg, xin)
+    out = coll.reduce_from(out_p, ax)
+    aux = coll.reduce_from(aux, ax) / mp
     return out, aux

@@ -202,14 +202,18 @@ def _unstack(tree) -> list:
     return list(torch.unbind(tree))
 
 
-def _ffn(p: dict, cfg: ArchConfig, h: torch.Tensor
+def _ffn(p: dict, cfg: ArchConfig, h: torch.Tensor, mesh=None
          ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The post-mixer sub-block: h + MLP(norm2(h)) (SwiGLU, or the MoE with
-    its aux loss; None for SwiGLU)."""
+    its aux loss; None for SwiGLU). On a mesh the MoE runs with its experts
+    split over the model axis (:func:`moe.forward_dist`)."""
     x = rms_norm(h, p["norm2"], cfg.norm_eps)
     if cfg.is_moe:
         b, l, d = x.shape
-        out, aux = moe.forward(p["mlp"], cfg, x.reshape(-1, d))
+        if mesh is not None:
+            out, aux = moe.forward_dist(p["mlp"], cfg, x.reshape(-1, d), mesh)
+        else:
+            out, aux = moe.forward(p["mlp"], cfg, x.reshape(-1, d))
         return h + out.reshape(b, l, d), aux
     return h + swiglu(x, p["mlp"]["w1"], p["mlp"]["w2"], p["mlp"]["w3"]), None
 
@@ -218,7 +222,7 @@ def _ffn(p: dict, cfg: ArchConfig, h: torch.Tensor
 
 
 def _block(p: dict, cfg: ArchConfig, kind: str, h: torch.Tensor,
-           positions: torch.Tensor, prefix: int
+           positions: torch.Tensor, prefix: int, mesh=None
            ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One layer of the training forward -> (h, aux or None)."""
     x = rms_norm(h, p["norm1"], cfg.norm_eps)
@@ -229,17 +233,17 @@ def _block(p: dict, cfg: ArchConfig, kind: str, h: torch.Tensor,
                                 window=_layer_window(cfg), prefix=prefix)
     else:  # rec
         mix = rglru.forward(p["mix"], cfg, x)
-    return _ffn(p, cfg, h + mix)
+    return _ffn(p, cfg, h + mix, mesh)
 
 
 def _group_step(ps: dict, pattern: tuple, cfg: ArchConfig, h: torch.Tensor,
-                positions: torch.Tensor, prefix: int
+                positions: torch.Tensor, prefix: int, mesh=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One step of a block group (one layer of each pattern kind) -> (h,
     the step's summed aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j, kind in enumerate(pattern):
-        h, a = _block(ps[str(j)], cfg, kind, h, positions, prefix)
+        h, a = _block(ps[str(j)], cfg, kind, h, positions, prefix, mesh)
         if a is not None:
             aux = aux + a
     return h, aux
@@ -247,7 +251,7 @@ def _group_step(ps: dict, pattern: tuple, cfg: ArchConfig, h: torch.Tensor,
 
 def apply_trunk(params: dict, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, prefix: int = 0,
-                return_taps: bool = False):
+                return_taps: bool = False, mesh=None):
     """Training forward: (B, L, d) embedded input -> (final-normed h (B, L,
     d), aux loss () fp32: the MoE load-balance terms summed over layers, 0
     for the other families).
@@ -255,7 +259,12 @@ def apply_trunk(params: dict, cfg: ArchConfig, x: torch.Tensor,
     With ``return_taps``, also the taps (n_taps, B, L, d) fp32: the
     activation after each block-group step (a whole period for Griffin's
     (rec, rec, attn) group), then the final normed output — what deep-kNN
-    (:mod:`repro_torch.workloads.dknn`) indexes, one index per tap."""
+    (:mod:`repro_torch.workloads.dknn`) indexes, one index per tap.
+
+    ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`): MoE layers split their
+    experts over its model axis; the rest of the trunk is replicated and
+    the batch is this data rank's (so nothing here constrains it, where the
+    reference pins activations to the batch axes)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = x
     taps = []
@@ -263,10 +272,12 @@ def apply_trunk(params: dict, cfg: ArchConfig, x: torch.Tensor,
         for ps in _unstack(stack):
             if REMAT:
                 h, a = checkpoint(_group_step, ps, pattern, cfg, h,
-                                  positions, prefix, use_reentrant=False,
+                                  positions, prefix, mesh,
+                                  use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                h, a = _group_step(ps, pattern, cfg, h, positions, prefix)
+                h, a = _group_step(ps, pattern, cfg, h, positions, prefix,
+                                   mesh)
             aux = aux + a
             if return_taps:
                 taps.append(h.float())
@@ -282,7 +293,8 @@ def apply_trunk(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
 def _block_prefill(p: dict, cfg: ArchConfig, kind: str, h: torch.Tensor,
                    positions: torch.Tensor, max_seq: int, prefix: int,
-                   lengths: torch.Tensor | None) -> tuple[torch.Tensor, dict]:
+                   lengths: torch.Tensor | None, mesh=None
+                   ) -> tuple[torch.Tensor, dict]:
     x = rms_norm(h, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
         mix, cache = ssm.forward(p["mix"], cfg, x, return_cache=True,
@@ -295,14 +307,14 @@ def _block_prefill(p: dict, cfg: ArchConfig, kind: str, h: torch.Tensor,
     else:
         mix, cache = rglru.forward(p["mix"], cfg, x, return_cache=True,
                                    lengths=lengths)
-    h, _ = _ffn(p, cfg, h + mix)
+    h, _ = _ffn(p, cfg, h + mix, mesh)
     return h, cache
 
 
 def apply_trunk_prefill(params: dict, cfg: ArchConfig, x: torch.Tensor,
                         positions: torch.Tensor, *, max_seq: int,
                         prefix: int = 0,
-                        lengths: torch.Tensor | None = None
+                        lengths: torch.Tensor | None = None, mesh=None
                         ) -> tuple[torch.Tensor, list]:
     """(B, L, d) embedded prompt -> (final-normed h (B, L, d), caches in the
     block-group structure, leaves (layers, B, ...)). ``prefix``: the vision
@@ -315,7 +327,7 @@ def apply_trunk_prefill(params: dict, cfg: ArchConfig, x: torch.Tensor,
             ps = _layer(stack, i)
             for j, kind in enumerate(pattern):
                 h, c = _block_prefill(ps[str(j)], cfg, kind, h, positions,
-                                      max_seq, prefix, lengths)
+                                      max_seq, prefix, lengths, mesh)
                 per[str(j)].append(c)
         caches.append({j: {name: torch.stack([c[name] for c in cs])
                            for name in cs[0]} for j, cs in per.items()})
@@ -424,7 +436,7 @@ def cache_bytes_per_slot(cfg: ArchConfig, max_seq: int, dtype) -> int:
 def apply_trunk_decode(params: dict, cfg: ArchConfig, x: torch.Tensor,
                        caches: list, pos: torch.Tensor, *,
                        pages: torch.Tensor | None = None,
-                       write_mask: torch.Tensor | None = None
+                       write_mask: torch.Tensor | None = None, mesh=None
                        ) -> tuple[torch.Tensor, list]:
     """(B, 1, d) embedded tokens at positions ``pos`` (B,) -> (final-normed
     h (B, 1, d), caches updated in place). ``pages`` / ``write_mask``: the
@@ -452,5 +464,5 @@ def apply_trunk_decode(params: dict, cfg: ArchConfig, x: torch.Tensor,
                 if kind == "ssm":
                     h = h + mix
                 else:
-                    h, _ = _ffn(p, cfg, h + mix)
+                    h, _ = _ffn(p, cfg, h + mix, mesh)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), caches

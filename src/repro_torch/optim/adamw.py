@@ -109,12 +109,14 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(grads: Any, state: dict, params: Any, cfg: OptConfig
-           ) -> tuple[Any, dict, dict]:
+def update(grads: Any, state: dict, params: Any, cfg: OptConfig,
+           gnorm: torch.Tensor | None = None) -> tuple[Any, dict, dict]:
     """One AdamW step -> (params, state, {"grad_norm", "lr"}); ``params``
-    and the moments are updated in place (see the module doc)."""
+    and the moments are updated in place (see the module doc). ``gnorm``
+    overrides the clipping norm (on a mesh: the norm over every shard)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     b1c = 1 - torch.pow(cfg.b1, step.float())

@@ -44,6 +44,17 @@ decode window per dispatch from the ITL EWMA.
 
 ``Server.run`` also accepts open-loop ``arrivals`` (per-request enqueue
 offsets, seconds): requests become admissible once their arrival passes.
+
+**TP serving** (``Server(mesh=)``): every rank of the mesh runs this
+engine on the same requests in lockstep — each holds its slice of the
+output embedding and its shard of a
+:class:`repro_torch.core.mips.ShardedIndex`, the trunk replicated — and
+the distributed head (:mod:`repro_torch.models.head`) gives every rank the
+same tokens, so every host decision (admission, windows, retirement) is
+made on replicated values. Decisions read off the wall clock would differ
+between ranks, so the slo scheduler and open-loop arrivals are refused on
+a multi-rank mesh, as is strict re-sampling (the reference refuses it on a
+TP mesh too). Rank 0 reports.
 """
 from __future__ import annotations
 
@@ -131,7 +142,7 @@ class Server:
     may differ in their last bits)."""
 
     def __init__(self, cfg: ArchConfig, params: dict, scfg: ServeConfig, *,
-                 precision_policy=None, device=None, index=None):
+                 precision_policy=None, device=None, index=None, mesh=None):
         if scfg.engine not in ("pipelined", "reference"):
             raise ValueError(f"unknown engine {scfg.engine!r}")
         if scfg.overlength not in ("truncate", "reject"):
@@ -144,9 +155,23 @@ class Server:
                 f"any prompt inside max_seq={scfg.max_seq}")
         if scfg.sched not in ("fifo", "slo"):
             raise ValueError(f"unknown scheduler {scfg.sched!r} (fifo | slo)")
+        if mesh is not None:
+            if scfg.strict:
+                raise NotImplementedError(
+                    "strict exact-fallback is not wired through the "
+                    "distributed head; serve with strict=False on a TP mesh")
+            if mesh.dp * mesh.tp > 1 and scfg.sched != "fifo":
+                raise ValueError("a multi-rank mesh serves fifo: the slo "
+                                 "scheduler's windows follow each rank's "
+                                 "own clock")
+            if mesh.dp * mesh.tp > 1 and scfg.probe_router == "fit":
+                raise NotImplementedError(
+                    "fitting the probe router over a sharded index; load "
+                    "one (probe_router=<path>) instead")
+        self.mesh = mesh
         self.cfg = cfg
         self.scfg = scfg
-        self.model = Model(cfg, precision_policy, device=device)
+        self.model = Model(cfg, precision_policy, device=device, mesh=mesh)
         self.device = self.model.device
         self.params = params
         # trunk weights in the compute dtype once, not per step
@@ -424,7 +449,12 @@ class Server:
         ``arrivals``: optional per-request enqueue offsets (seconds from the
         run's start): a request becomes admissible once its arrival passes,
         and its queue time and TTFT count from it. ``priorities``: optional
-        per-request priority (lower = more urgent; the slo scheduler)."""
+        per-request priority (lower = more urgent; the slo scheduler).
+        On a multi-rank mesh ``arrivals`` are refused (the ranks' clocks
+        would admit at different steps)."""
+        if (arrivals is not None and self.mesh is not None
+                and self.mesh.dp * self.mesh.tp > 1):
+            raise ValueError("open-loop arrivals on a multi-rank mesh")
         seed = self.scfg.seed + (self._runs << 32)  # a fresh stream per run
         self._runs += 1
         if self.scfg.engine == "reference":

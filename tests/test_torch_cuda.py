@@ -20,7 +20,11 @@ the SSD and RG-LRU scans, and the compute-dtype cast set; and the index
 side on the card: the LSH build's tables against the CPU build's, the
 chunked LSH sampler against the unchunked one, the batched per-cluster
 Σ u uᵀ of the anisotropic codebooks against the per-row form, and the LSH
-probe against the CPU's. Marked ``cuda``: they skip without
+probe against the CPU's; and the sharding slice on the card: two ranks
+sharing it under gloo (collectives staged through the host), a
+``ShardedIndex``'s global top-k and the distributed head's exact loss and
+fused IVF samples on CUDA tensors against the same ranks on the CPU.
+Marked ``cuda``: they skip without
 an NVIDIA GPU; run them on one with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -1383,3 +1387,32 @@ def test_cluster_outer_on_the_card_equals_per_row_form(gen):
         0, assign, u[:, :, None] * u[:, None, :])
     torch.testing.assert_close(kmeans.cluster_outer(u, assign, 45), want,
                                rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------ sharding
+def test_sharded_index_and_dist_head_on_the_card_equal_cpu(gen, tmp_path):
+    import numpy as np
+
+    import _torch_dist as td
+
+    r = np.random.default_rng(0)
+    emb = (r.standard_normal((4096, 64)) / 8.0).astype(np.float32)
+    n_loc = 2048
+    n_c = 45  # the IVF geometry's max(4, sqrt(2048)) clusters a shard
+    init = np.stack([emb[s * n_loc:(s + 1) * n_loc][r.permutation(n_loc)[
+        :n_c]] for s in range(2)])
+    spec = {"emb": emb, "init_cent": init,
+            "q": (r.standard_normal((16, 64)) * 2.0).astype(np.float32),
+            "tgt": r.integers(0, 4096, 16)}
+    outs = td.spawn(td.cuda_sharded_cases, tmp_path, 1, 2, spec,
+                    timeout_s=300, device=None)
+    for o in outs:
+        c, g = o["cpu"], o["cuda"]
+        assert (c["ids"] == g["ids"]).all()
+        torch.testing.assert_close(torch.from_numpy(g["values"]),
+                                   torch.from_numpy(c["values"]), **TOL)
+        torch.testing.assert_close(torch.from_numpy(g["loss"]),
+                                   torch.from_numpy(c["loss"]), **TOL)
+        assert (c["sample"] == g["sample"]).all()
+        assert (c["ok"] == g["ok"]).all()
+    assert (outs[0]["cuda"]["sample"] == outs[1]["cuda"]["sample"]).all()

@@ -20,6 +20,7 @@ gradient is within rounding of zero can move its weight by a small
 fraction of lr (1e-3) differently in the two frameworks. The in-port
 contracts are exact (``torch.equal``).
 """
+import functools
 import json
 import os
 import shutil
@@ -42,6 +43,7 @@ from repro_torch.checkpoint import manager
 from repro_torch.configs import get_smoke
 from repro_torch.convert import opt_state_from_jax, params_from_jax
 from repro_torch.data.synthetic import DataConfig, SyntheticStream, make_batch
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps, train as train_launcher
 from repro_torch.models import attention
 from repro_torch.models.model import Model
@@ -437,11 +439,55 @@ def test_launcher_cpu_ivfpq_runs_and_resumes(tmp_path, capsys, caplog):
                                   ["--adaptive-probe"], ["--probe-router"],
                                   ["--n-probe-max", "4"],
                                   ["--n-probe-init", "2"]])
-def test_launcher_refuses_unported_flags(flag, capsys):
+def test_launcher_refuses_unported_flags(flag, tmp_path, capsys,
+                                         monkeypatch):
+    """Every one of these reference-launcher flags is taken: ``--dp`` /
+    ``--tp`` run one step on 2 spawned CPU ranks under gloo; every other
+    flag sets its config field (the adaptive widths with
+    ``--adaptive-probe``, as in the reference)."""
+    base = ["--arch", ARCH, "--smoke", "--device", "cpu", "--workdir",
+            str(tmp_path), "--steps", "1", "--batch", "2", "--seq", "16",
+            "--vocab", "4096", "--mips", "ivf"]
+    if flag[0] in ("--dp", "--tp"):
+        # the launcher waits for its ranks with no deadline; this test
+        # bounds its own run
+        run_ranks = mesh_lib.run_ranks
+        monkeypatch.setattr(mesh_lib, "run_ranks", functools.partial(
+            run_ranks, timeout_s=50.0))
+        train_launcher.main(base + flag)
+        out = json.loads(capsys.readouterr().out)
+        assert out["status"] == "done" and out["step"] == 1
+        assert np.isfinite(out["loss"])
+        return
+    seen = {}
+
+    def fake_train(cfg, run, workdir, device, mesh=None):
+        seen.update(cfg=cfg, run=run)
+        return {"status": "done"}
+
+    monkeypatch.setattr(train_launcher, "_train", fake_train)
+    extra = (["--adaptive-probe"] if flag[0].startswith("--n-probe")
+             else [])
+    train_launcher.main(base + extra + flag)
+    cfg, run = seen["cfg"], seen["run"]
+    want = {"--sharded-ckpt": run.sharded_ckpt is True,
+            "--async-refresh": run.async_refresh,
+            "--adaptive-probe": cfg.head_adaptive_probe,
+            "--probe-router": run.fit_probe_router,
+            "--n-probe-max": cfg.head_n_probe_max == 4,
+            "--n-probe-init": cfg.head_n_probe_init == 2}
+    assert want[flag[0]]
+
+
+def test_launcher_refuses_nccl_without_a_card_per_rank(tmp_path, capsys,
+                                                       monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit):
-        train_launcher.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                             *flag])
-    assert "not in the PyTorch port yet" in capsys.readouterr().err
+        train_launcher.main(["--arch", ARCH, "--smoke", "--dp", "2", "--tp",
+                             "2", "--dist-backend", "nccl", "--workdir",
+                             str(tmp_path)])
+    assert "nccl needs one card per rank" in capsys.readouterr().err
 
 
 def test_launcher_needs_cuda_without_device(tmp_path, monkeypatch):
