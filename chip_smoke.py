@@ -71,7 +71,7 @@ head of 256) and qwen3-moe's (32 on 4, 128) over a 2,048-position ring,
 ``ivf_gather_score`` and ``ivf_screen_select`` at mamba2-780m's head (d
 1,536, k 704; the screen bit for bit the gather plus a top-k),
 ``fused_estimator`` and its backward at mamba2-780m's training chunk.
-Then mamba2-780m at full depth (48 layers) served (8 requests x 32
+Then mamba2-780m at 24 of its 48 layers served (8 requests x 32
 tokens, fused T=8 ≡ unfused T=1) and trained (6 steps, refresh and
 checkpoint every 3, the resume from step 3 within rtol 1e-3);
 recurrentgemma-9b at 8 layers served with the unfused head (its 28,224-slot
@@ -87,8 +87,9 @@ Last, the ``[index-side]`` phase, at tinyllama-1.1b's full width (random
 weights from ``--seed``, the ``[serve]`` prompts): the SRP-LSH head (8
 tables × 10 bits, bucket cap 144 by the head's sizing) served fused T=8
 and unfused T=1 over one index (same tokens; ``dropped_count``, tokens/s,
-ITL p50, ``ok_rate``, index MB) and trained through ``Trainer`` (2 ×
-1,024 tokens, 3 steps, refresh and checkpoint every 2; the resume from
+ITL p50, ``ok_rate``, index MB) and trained through ``Trainer`` at 8 of
+the 22 layers (2 × 1,024 tokens, 3 steps, refresh and checkpoint every
+2; the resume from
 step 2, which rebuilds the index from the saved rows, must give the
 uninterrupted run's loss bit for bit); structured search through the
 head's IVF index with the amortized log Z (4 beams × 8 steps, expand_k
@@ -106,24 +107,35 @@ gains ``launches_index_side``.
 
 Last, the ``[sharded]`` phase: ranks spawned on the one card and joined
 under gloo (NCCL refuses two ranks on one card), every collective on a
-CUDA tensor crossing the host (counted). The kernels first, at one model
-shard's shapes of tinyllama's head (16,000 rows: ``ivf_gather_score`` and
+CUDA tensor crossing the host (counted). Every leaf is a rank's block
+as ``launch.mesh.param_spec`` places it (the trunk Megatron-split over
+``model``, FSDP-split over ``data``; the embeddings' rows over
+``model``). The kernels first, at one model shard's shapes: of
+tinyllama's head (16,000 rows: ``ivf_gather_score`` and
 ``ivf_screen_select`` bit for bit, ``tail_gather_argmax``,
-``fused_estimator``), each against its plain version as ``shard_*`` keys;
-then on tp 2: the int8
-ring all-reduce (relative error below 0.04 of the exact sum),
-tinyllama-1.1b at full depth served over an IVF ``ShardedIndex`` fused
-T=8 ≡ unfused T=1 and twice bitwise (ITL, tokens/s, index MB a shard and
-in all, host-staged bytes a token), the exact-mode distributed head at
-full width equal to the single-device one (rtol 1e-5), qwen3-moe at 2 of
-48 layers with 64 of 128 experts a rank (``forward_dist`` ≡ ``forward``,
+``fused_estimator``) and of its trunk (``flash_decode``, dense and paged
+at block_len 64, on 16 query heads over 2 KV heads), each against its
+plain version as ``shard_*`` keys; then on tp 2: the int8 ring
+all-reduce (relative error below 0.04 of the exact sum), tinyllama-1.1b
+at full depth, the trunk sharded, served over an IVF ``ShardedIndex``
+(8 requests × 16 new tokens, the traffic cut printed):
+fused T=8 ≡ unfused T=1, twice bitwise (the second run under staggered
+arrivals), paged (block_len 64) ≡ dense, slo ≡ fifo under the arrivals
+(rank 0's clock decides), with ITL,
+tokens/s, index MB a shard and in all, host-staged bytes a token, and
+the KV and trunk MB a rank; the exact-mode distributed head at full
+width equal to the single-device one (rtol 1e-5); qwen3-moe at 2 of 48
+layers with 64 of 128 experts a rank (``forward_dist`` ≡ ``forward``,
 served once, trained 2 steps); then dp 2 × tp 2: tinyllama-1.1b at full
-width, 8 of 22 layers, through ``Trainer`` (IVF head, async refresh and
+width and depth through ``Trainer`` (IVF head, async refresh and
 sharded checkpoints every 2 steps, 4 steps of 2 × 1,024 tokens; the loss
 falls, the swap lands at 4 after the kick at 2, the manifest reads
-sharded and complete, the four trunk replicas agree) and a resume from
-step 2 whose losses equal the uninterrupted run's bit for bit. Each
-kernel record gains ``launches_sharded`` (summed over the ranks).
+sharded and complete, every replicated leaf (the norms) equal on the
+four ranks, the step-4 checkpoint restored whole on one process equal to
+the four ranks' blocks put together; the peak memory a rank) and a
+resume from step 2 whose losses equal the uninterrupted run's bit for
+bit. Each kernel record gains ``launches_sharded`` (summed over the
+ranks).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -158,6 +170,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import re
@@ -2333,10 +2346,11 @@ def paper_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
 
 
 # ---------------------------------------------------------------- families
-# the other trunk families at full width; every config but mamba2-780m is
-# cut in depth only (its n_layers), to fit the phase's time and the card
+# the other trunk families at full width, each cut in depth only (its
+# n_layers), to fit the phase's time and the card (mamba2-780m ran its 48
+# layers until the [sharded] phase's trunk went to full depth)
 FAMILY_CUTS = {
-    "mamba2-780m": None,  # full depth: 48 layers
+    "mamba2-780m": 24,
     "recurrentgemma-9b": 8,  # two (rec, rec, attn) periods + (rec, rec)
     "qwen3-moe-30b-a3b": 2,
     "paligemma-3b": 2,
@@ -2689,9 +2703,9 @@ def families_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
     width through the entry points a user calls (``Model``, ``Server``,
     ``Trainer``, the train and encode steps):
 
-    * mamba2-780m, full depth: fused T=8 ≡ unfused T=1 tokens on one index;
-      6 training steps through ``Trainer`` (refresh and checkpoint every
-      3) and the resume from step 3 within rtol 1e-3;
+    * mamba2-780m, 24 of 48 layers: fused T=8 ≡ unfused T=1 tokens on one
+      index; 6 training steps through ``Trainer`` (refresh and
+      checkpoint every 3) and the resume from step 3 within rtol 1e-3;
     * recurrentgemma-9b, 8 layers: the unfused head (its 8-probe pool of
       28,224 slots is past the fused screens' 16,384, so the config asks
       for the unfused probe); paged at block_len 64 ≡ dense;
@@ -2736,7 +2750,7 @@ def families_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
                                     "itl_p50_ms", "ok_rate", "index_mb",
                                     "cache_mb")}
 
-    # ---- mamba2-780m: full width and depth, served and trained
+    # ---- mamba2-780m: full width, cut in depth, served and trained
     name = "mamba2-780m"
     t_start, cfg = begin(name)
     params = Model(cfg, "bf16", device="cuda").init(seed)
@@ -2761,7 +2775,7 @@ def families_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
     del srv, params
     gc.collect()
     torch.cuda.empty_cache()
-    run_counts, tstats = train(torch, seed, get(name), "ivf",
+    run_counts, tstats = train(torch, seed, cfg, "ivf",
                                label=f"[families] {name}")
     for k, n in run_counts.items():
         counts[k] = counts.get(k, 0) + n
@@ -2854,6 +2868,7 @@ def families_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
 # the paper's 160,000-row ImageNet table, the anisotropic IVF-PQ build
 INDEX_TAG = "[index-side]"
 INDEX_TRAIN_STEPS, INDEX_TRAIN_EVERY = 3, 2  # a resume from step 2
+INDEX_TRAIN_LAYERS = 8  # the LSH head's training run, of tinyllama's 22
 BEAMS = dict(n_beams=4, horizon=8, expand_k=64, logz="amortized")
 BEAM_PROMPT = 4  # prompt tokens of the structured search
 DKNN = dict(classes=4, train=256, cal=64, test=64, seq=16, k=8)
@@ -2972,8 +2987,9 @@ def index_lsh_serve(torch, cfg, params, prompts, counts: dict, smi: str
 
 
 def index_lsh_train(torch, seed: int, cfg, counts: dict, smi: str) -> dict:
-    """The LSH head trained through ``Trainer``: 3 steps of 2 x 1,024
-    tokens, refresh and checkpoint every 2, then a resume from the step-2
+    """The LSH head trained through ``Trainer`` at ``INDEX_TRAIN_LAYERS``
+    layers (the cut printed): 3 steps of 2 x 1,024 tokens, refresh and
+    checkpoint every 2, then a resume from the step-2
     checkpoint (the LSH index is rebuilt from the saved rows alone): its
     loss must equal the uninterrupted run's bit for bit."""
     from repro_torch.kernels import ops
@@ -2981,7 +2997,10 @@ def index_lsh_train(torch, seed: int, cfg, counts: dict, smi: str) -> dict:
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train.trainer import RunConfig, Trainer
 
-    tcfg = cfg.scaled(head_mips="lsh")
+    tcfg = cfg.scaled(head_mips="lsh", n_layers=INDEX_TRAIN_LAYERS)
+    print(f"{INDEX_TAG} cut lsh head train: n_layers {cfg.n_layers} -> "
+          f"{INDEX_TRAIN_LAYERS} (width unchanged: d {cfg.d_model}, vocab "
+          f"{cfg.vocab}; the head is what it checks)", flush=True)
     run = RunConfig(num_steps=INDEX_TRAIN_STEPS, ckpt_every=INDEX_TRAIN_EVERY,
                     log_every=1, keep_ckpts=2, seed=seed, batch=TRAIN_BATCH,
                     seq=TRAIN_SEQ, index_refresh_every=INDEX_TRAIN_EVERY,
@@ -3406,7 +3425,10 @@ def index_side_phase(torch, seed: int, records: list[dict], smi: str
 # ----------------------------------------------------------------- [sharded]
 SHARD_TAG = "[sharded]"
 SHARD_TP = 2  # model shards: 16,000 of tinyllama's 32,000 rows a rank
-SHARD_TRAIN_LAYERS = 8  # DP×TP training depth (of 22), see sharded_phase
+SHARD_TRAIN_LAYERS = 22  # DP×TP training depth: tinyllama's full 22
+SHARD_NEW_TOKENS = 16  # new tokens a request of the tp-2 serving runs (the
+#   serving phase's 32 cut: every gate compares runs of this group, and a
+#   decoded step costs 45 host-staged all-reduces)
 SHARD_TRAIN_STEPS, SHARD_TRAIN_EVERY = 4, 2
 SHARD_EXACT_TOKENS = 256  # tokens of the exact-mode equality check
 SHARD_MOE_TOKENS = 256  # tokens of the forward_dist == forward check
@@ -3422,7 +3444,10 @@ def shard_kernel_checks(torch, records: list[dict]) -> None:
     ``shard_*`` keys: ``ivf_gather_score`` and ``ivf_screen_select`` on
     small-integer rows (bit for bit; the screen equal to the gather plus a
     top-k), ``tail_gather_argmax`` and ``fused_estimator`` at the head's
-    training chunk."""
+    training chunk; and ``flash_decode``, dense and paged (block_len 64),
+    at one model shard's heads of the trunk (16 query heads on 2 KV heads
+    of 64 over the serving ring), as :func:`flash_decode_case` and
+    :func:`flash_decode_paged_case` hold them."""
     from repro_torch.configs import get
     from repro_torch.core.gumbel import default_m_cap
     from repro_torch.core.mips.ivf import IVFConfig, _geometry
@@ -3431,18 +3456,36 @@ def shard_kernel_checks(torch, records: list[dict]) -> None:
     from repro_torch.kernels import ref
     from repro_torch.models import head as dh
     from repro_torch.models.model import head_config
+    from repro_torch.serve.server import ServeConfig
 
     cfg = get("tinyllama-1.1b")
     hc = head_config(cfg)
+    by_name = {r["name"]: r for r in records}
+    timer = Timer(torch, ITERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2525)
+    g = dataclasses.replace(
+        geometry(cfg, ServeConfig(batch_slots=SLOTS, max_seq=MAX_SEQ,
+                                  max_new_tokens=NEW_TOKENS)),
+        hq=cfg.n_heads // SHARD_TP, hkv=cfg.n_kv_heads // SHARD_TP)
+    lengths = torch.randint(1, MAX_SEQ + 1, (g.slots,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    lengths[0], lengths[-1] = 1, MAX_SEQ
+    heads = [g.hq, g.hkv, g.hd]
+    c = flash_decode_case(torch, gen, g, timer, MAX_SEQ, lengths)
+    tag_record(by_name["flash_decode"], "shard", c["err"], c["timed"],
+               c["plain_ms"], c["lib_ms"], c["nb"], c["flops"], BF16_FLOPS,
+               label=SHARD_TAG, positions=MAX_SEQ, heads=heads)
+    c = flash_decode_paged_case(torch, gen, g, timer, MAX_SEQ, lengths, 64)
+    tag_record(by_name["flash_decode_paged"], "shard", c["err"], c["timed"],
+               c["plain_ms"], c["lib_ms"], c["nb"], c["flops"], BF16_FLOPS,
+               label=SHARD_TAG, positions=MAX_SEQ, block_len=64, heads=heads,
+               dense_ms=c["dense_ms"])
     n, k, l = dh.shard_geometry(hc, cfg.vocab_padded, SHARD_TP)
     n = min(n, cfg.vocab)
     d = cfg.d_model
     n_c, cap, o_cap = _geometry(n, IVFConfig(n_probe=hc.n_probe))
     n_probe, b, m_cap = hc.n_probe, SLOTS, default_m_cap(l)
-    by_name = {r["name"]: r for r in records}
-    timer = Timer(torch, ITERS)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(2525)
     print(f"{SHARD_TAG} shard geometry " + json.dumps(
         {"rows": n, "d": d, "n_clusters": n_c, "cap": cap, "o_cap": o_cap,
          "n_probe": n_probe, "k": k, "l": l, "m_cap": m_cap}), flush=True)
@@ -3546,31 +3589,73 @@ def _shard_out(out_dir: str, rank: int, obj) -> None:
 
 
 def _rank_serve(torch, mesh, seed: int, counts: dict) -> dict:
-    """TP serving of full-depth tinyllama-1.1b on this rank's shard: fused
-    T=8, unfused T=1 and fused again over one ShardedIndex."""
+    """TP serving of full-depth tinyllama-1.1b on this rank's shard, the
+    trunk sharded (this rank's query and KV heads, SwiGLU hidden and
+    embedding rows): after an untimed warm-up, fused T=8, unfused T=1
+    over one ShardedIndex; the
+    paged pool (block_len 64); fused T=8 again under staggered arrivals
+    (fifo: tokens are a function of request and position alone, so it
+    must repeat the first run bit for bit) and slo under the same
+    arrivals (rank 0's clock decides)."""
     from repro_torch import collectives as coll
     from repro_torch.configs import get
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import report
     from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
     from repro_torch.serve.server import ServeConfig, Server
 
     cfg = get("tinyllama-1.1b").scaled(head_mips="ivf")
     prompts = family_prompts(cfg, seed)
+    arrivals = [TIER_ARRIVAL_S * i for i in range(len(prompts))]
+    if mesh.rank == 0:
+        print(f"{SHARD_TAG} cut tp{SHARD_TP} serving traffic: {len(prompts)} "
+              f"requests x {SHARD_NEW_TOKENS} new tokens (the [serve] "
+              f"phase's {NEW_TOKENS})", flush=True)
     params = Model(cfg, "bf16", device="cuda", mesh=mesh).init(seed)
-    runs, index, out = [], None, {}
-    for label, fused, window in (("fused T=8", True, WINDOW),
-                                 ("unfused T=1", False, 1),
-                                 ("fused T=8 again", True, WINDOW)):
+    # one short untimed run first (one admission, one window), so that the
+    # first-use costs (allocator, gloo connections, kernel loads) stay out
+    # of the timed runs
+    warm = Server(cfg.scaled(head_fused_decode=True), params, ServeConfig(
+        batch_slots=SLOTS, max_seq=MAX_SEQ, max_new_tokens=WINDOW,
+        decode_window=WINDOW, seed=seed),
+        precision_policy="bf16", device="cuda", mesh=mesh)
+    t0 = time.perf_counter()
+    warm.run(prompts[:SLOTS])
+    torch.cuda.synchronize()
+    if mesh.rank == 0:
+        print(f"{SHARD_TAG} tp{SHARD_TP} serve warm-up (untimed, {SLOTS} "
+              f"requests x {WINDOW} new tokens): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    runs, index, out, picked = {}, warm.index, {}, []
+    del warm
+    for label, fused, window, extra, run_kw in (
+            ("fused T=8", True, WINDOW, {}, {}),
+            ("unfused T=1", False, 1, {}, {}),
+            ("paged block_len=64", True, WINDOW, {"block_len": 64}, {}),
+            ("fifo arrivals", True, WINDOW, {}, {"arrivals": arrivals}),
+            ("slo arrivals", True, WINDOW,
+             {"sched": "slo", "ttft_slo_s": TIER_TTFT_SLO_S},
+             {"arrivals": arrivals,
+              "priorities": [i % 2 for i in range(len(prompts))]})):
         srv = Server(cfg.scaled(head_fused_decode=fused), params, ServeConfig(
-            batch_slots=SLOTS, max_seq=MAX_SEQ, max_new_tokens=NEW_TOKENS,
-            decode_window=window, seed=seed), precision_policy="bf16",
-            device="cuda", index=index, mesh=mesh)
+            batch_slots=SLOTS, max_seq=MAX_SEQ,
+            max_new_tokens=SHARD_NEW_TOKENS, decode_window=window, seed=seed,
+            **extra),
+            precision_policy="bf16", device="cuda", index=index, mesh=mesh)
         index = srv.index
+        if extra.get("sched") == "slo":
+            pick = srv.sched.pick_window
+
+            def spy(*a, pick=pick):
+                picked.append(pick(*a))
+                return picked[-1]
+
+            srv.sched.pick_window = spy
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         coll.reset_host_bytes()
-        res = srv.run(prompts)
+        res = srv.run(prompts, **run_kw)
         torch.cuda.synchronize()
         run = ops.launch_counts()
         for k, n in run.items():
@@ -3580,17 +3665,31 @@ def _rank_serve(torch, mesh, seed: int, counts: dict) -> dict:
         rep["host_staged_bytes_per_token"] = sum(coll.HOST_BYTES.values()) / toks
         rep["host_staged_bytes"] = dict(coll.HOST_BYTES)
         rep["launches"] = run
-        runs.append([r.tokens for r in res])
+        runs[label] = [r.tokens for r in res]
         out[label] = rep
+        if label == "fused T=8":
+            out["trunk_mb_rank"] = sum(
+                t.numel() * t.element_size()
+                for t in adamw.tree_leaves(srv.run_params["blocks"])) / 1e6
+            out["kv_mb_rank"] = rep["cache_mb"]
         if mesh.rank == 0:
             print(f"{SHARD_TAG} tp{SHARD_TP} serve {label} "
                   + json.dumps(rep), flush=True)
+        del srv
+    first = runs["fused T=8"]
     out["index_mb_shard"] = index.local.memory_bytes() / 1e6
     out["index_mb_total"] = index.memory_bytes() / 1e6
-    out["fused_eq_unfused"] = sum(a == b for a, b in zip(runs[0], runs[1]))
-    out["repeat_bitwise"] = sum(a == b for a, b in zip(runs[0], runs[2]))
+    out["fused_eq_unfused"] = sum(
+        a == b for a, b in zip(first, runs["unfused T=1"]))
+    out["repeat_bitwise"] = sum(
+        a == b for a, b in zip(first, runs["fifo arrivals"]))
+    out["paged_eq_dense"] = sum(
+        a == b for a, b in zip(first, runs["paged block_len=64"]))
+    out["slo_eq_fifo"] = sum(
+        a == b for a, b in zip(runs["fifo arrivals"], runs["slo arrivals"]))
+    out["slo_windows"] = {str(w): picked.count(w) for w in sorted(set(picked))}
     out["requests"] = len(prompts)
-    out["tokens"] = runs[0]
+    out["tokens"] = first
     return out
 
 
@@ -3765,29 +3864,42 @@ def sharded_tp_rank(rank: int, world: int, init: str, out_dir: str,
     _shard_out(out_dir, rank, out)
 
 
+def _train_cfg():
+    from repro_torch.configs import get
+
+    return get("tinyllama-1.1b").scaled(n_layers=SHARD_TRAIN_LAYERS,
+                                        head_mips="ivf")
+
+
+def _leaf_digest(t) -> str:
+    return hashlib.sha256(t.detach().float().cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
 def sharded_dp_tp_rank(rank: int, world: int, init: str, out_dir: str,
-                       seed: int, workdir: str) -> None:
+                       seed: int, workdir: str, whole: str) -> None:
     """One rank of the dp 2 × tp 2 group on the card (gloo): Trainer with
-    the IVF head on a ShardedIndex, async refresh and sharded checkpoints;
-    4 steps uninterrupted, then a resume from the step-2 checkpoint."""
+    the IVF head on a ShardedIndex, async refresh and sharded checkpoints,
+    every leaf this rank's block (the trunk Megatron-split over ``model``
+    and FSDP-split over ``data``); 4 steps uninterrupted (the digest of
+    each of this rank's param blocks kept, the step-4 checkpoint moved to
+    ``whole`` for the parent's whole restore), then a resume from the
+    step-2 checkpoint."""
     import gc
-    import hashlib
 
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs import get
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.launch.steps import TrainConfig
+    from repro_torch.launch.steps import TrainConfig, _sorted_leaves
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train.trainer import RunConfig, Trainer
 
     mesh_lib.init_rank(rank, world, init, backend="gloo", device="cuda:0",
                        timeout_s=SHARD_TIMEOUT_S)
     mesh = mesh_lib.make_train_mesh(2, world // 2, timeout_s=SHARD_TIMEOUT_S)
-    cfg = get("tinyllama-1.1b").scaled(n_layers=SHARD_TRAIN_LAYERS,
-                                       head_mips="ivf")
+    cfg = _train_cfg()
     run = RunConfig(num_steps=SHARD_TRAIN_STEPS, ckpt_every=SHARD_TRAIN_EVERY,
                     log_every=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                     fuse_steps=SHARD_TRAIN_EVERY, seed=seed,
@@ -3804,9 +3916,9 @@ def sharded_dp_tp_rank(rank: int, world: int, init: str, out_dir: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    # this rank's own trunk (replicated over both axes: all four equal)
-    digest = hashlib.sha256(tr.state["params"]["blocks"][0]["0"]["mix"][
-        "wq"].float().cpu().numpy().tobytes()).hexdigest()[:16]
+    # this rank's block of every param leaf at step 4 (the checkpoint's)
+    digests = {"/".join(p): _leaf_digest(t)
+               for p, t in _sorted_leaves(tr.state["params"])}
     with open(Path(workdir) / f"ckpt_{SHARD_TRAIN_EVERY:08d}"
               / "manifest.json") as f:
         man = json.load(f)
@@ -3815,14 +3927,16 @@ def sharded_dp_tp_rank(rank: int, world: int, init: str, out_dir: str,
            "events": [(e["kick"], e["swap"]) for e in tr.refresh_events],
            "status": first["status"], "wall_s": wall,
            "manifest": [bool(man.get("sharded")), bool(man.get("complete"))],
-           "trunk_digest": digest, "launches": counts,
+           "digests": digests, "launches": counts,
            "index_mb_shard": tr.head_index.local.memory_bytes() / 1e6,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     del tr  # four ranks' training state: free it before the resume's
     gc.collect()
     torch.cuda.empty_cache()
-    if rank == 0:  # the resume starts from step 2: drop the later one
-        shutil.rmtree(Path(workdir) / f"ckpt_{SHARD_TRAIN_STEPS:08d}")
+    if rank == 0:  # the resume starts from step 2: the later one moves aside
+        Path(whole).mkdir(parents=True, exist_ok=True)
+        shutil.move(str(Path(workdir) / f"ckpt_{SHARD_TRAIN_STEPS:08d}"),
+                    str(Path(whole) / f"ckpt_{SHARD_TRAIN_STEPS:08d}"))
     dist.barrier()
     tr2 = Trainer(cfg, run, workdir, device="cuda:0", mesh=mesh)
     tr2.train()
@@ -3838,16 +3952,17 @@ def sharded_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
     card under gloo (NCCL refuses two ranks on one card; collectives on
     CUDA tensors cross the host, counted): tp 2 — the int8 ring all-reduce on
     CUDA tensors, full-depth tinyllama-1.1b served
-    fused T=8 ≡ unfused T=1 and repeatable, the exact-mode distributed
+    fused T=8 ≡ unfused T=1, repeatable, paged ≡ dense and slo ≡ fifo
+    under arrivals, the trunk sharded; the exact-mode distributed
     head equal to the single-device one at full width, and qwen3-moe (2
     of 48 layers, 64 of 128 experts a rank) with ``forward_dist`` ≡
     ``forward``, one serving run and 2 training steps; then dp 2 × tp 2 —
-    tinyllama-1.1b at full width, depth cut to ``SHARD_TRAIN_LAYERS``
-    layers (the phase's time budget: four trunk replicas of training
-    state would fit about 16 layers in 80 GB at ≈ 0.8 GB a layer a rank),
-    ``Trainer`` with the IVF head, async refresh and sharded checkpoints
-    every 2 steps, 4 steps, then a resume from step 2 that must give the
-    uninterrupted losses bit for bit. Rank 0 prints; each record gains
+    tinyllama-1.1b at full width and depth (each rank a quarter of the
+    trunk), ``Trainer`` with the IVF head, async refresh and sharded
+    checkpoints every 2 steps, 4 steps, then a resume from step 2 that
+    must give the uninterrupted losses bit for bit; the step-4 checkpoint
+    restored whole here against the ranks' blocks. Rank 0 prints; each
+    record gains
     ``launches_sharded``: the launches summed over the ranks of both
     groups, counted from 0 just before each path and read just after."""
     import shutil
@@ -3867,7 +3982,7 @@ def sharded_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
     for label, fn, world, extra in (
             ("tp", sharded_tp_rank, SHARD_TP, ()),
             ("dp_tp", sharded_dp_tp_rank, 2 * SHARD_TP,
-             (str(base / "train"),))):
+             (str(base / "train"), str(base / "whole")))):
         d = base / label
         d.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
@@ -3883,12 +3998,43 @@ def sharded_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
         out[label + "_s"] = time.perf_counter() - t0
         print(f"{SHARD_TAG} {label} group done in {out[label + '_s']:.1f} s",
               flush=True)
+    out["whole"] = _whole_restore_check(base / "whole", out["dp_tp_ranks"])
     shutil.rmtree(base, ignore_errors=True)
     _sharded_gates(out, smi)
     for rec in records:
         rec["launches_sharded"] = counts.get(rec["name"], 0)
     print(f"{SHARD_TAG} launches {json.dumps(counts)}", flush=True)
     return out
+
+
+def _whole_restore_check(whole: Path, ranks: list[dict]) -> dict:
+    """The DP×TP run's step-4 checkpoint restored whole on one process (no
+    mesh): every param leaf cut into the four ranks' blocks by its spec
+    must have the digest that rank kept of its own block."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import _sorted_leaves
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    cfg = _train_cfg()
+    mesh = mesh_lib.Mesh(2, SHARD_TP, 0, None, None, None)
+    state, _, _ = manager.restore(str(whole), step=SHARD_TRAIN_STEPS,
+                                  device="cpu", keys=("params",))
+    leaves = bad = 0
+    for path, t in _sorted_leaves(state["params"]):
+        dims = mesh_lib.spec_dims(transformer.spec_of(path, mesh, cfg))
+        for r, o in enumerate(ranks):
+            coords = {"data": r // SHARD_TP, "model": r % SHARD_TP}
+            blk = t
+            for a, d in dims.items():
+                n = t.shape[d] // mesh.shape[a]
+                blk = blk.narrow(d, coords[a] * n, n)
+            bad += _leaf_digest(blk) != o["digests"]["/".join(path)]
+        leaves += 1
+    del state
+    return {"leaves": leaves, "mismatched_blocks": bad,
+            "s": time.perf_counter() - t0}
 
 
 def _sharded_gates(out: dict, smi: str) -> None:
@@ -3900,12 +4046,21 @@ def _sharded_gates(out: dict, smi: str) -> None:
     check(tp["ring"]["rel_err"] < SHARD_RING_REL,
           f"int8 ring all-reduce relative error {tp['ring']['rel_err']}")
     print(f"{SHARD_TAG} tp{SHARD_TP} fused T={WINDOW} == unfused T=1 tokens: "
-          f"{sv['fused_eq_unfused']}/{n_req}; two fused runs bitwise: "
-          f"{sv['repeat_bitwise']}/{n_req}", flush=True)
+          f"{sv['fused_eq_unfused']}/{n_req}; two fused runs (the second "
+          f"under arrivals) bitwise: {sv['repeat_bitwise']}/{n_req}; paged "
+          f"block_len=64 == dense "
+          f"tokens: {sv['paged_eq_dense']}/{n_req}; slo == fifo under "
+          f"arrivals every {TIER_ARRIVAL_S} s: {sv['slo_eq_fifo']}/{n_req} "
+          f"(slo windows picked {json.dumps(sv['slo_windows'])})",
+          flush=True)
     check(sv["fused_eq_unfused"] == n_req,
           "TP serving: fused T=8 and unfused T=1 served different tokens")
     check(sv["repeat_bitwise"] == n_req,
           "TP serving: two fused runs served different tokens")
+    check(sv["paged_eq_dense"] == n_req,
+          "TP serving: the paged pool served different tokens")
+    check(sv["slo_eq_fifo"] == n_req,
+          "TP serving: slo / fifo under arrivals served different tokens")
     check(all(r["serve"]["tokens"] == sv["tokens"]
               for r in out["tp_ranks"]), "TP serving: ranks disagree")
     fused = sv["fused T=8"]
@@ -3919,7 +4074,11 @@ def _sharded_gates(out: dict, smi: str) -> None:
                "host_staged_bytes_per_token":
                    fused["host_staged_bytes_per_token"],
                "unfused_host_staged_bytes_per_token":
-                   sv["unfused T=1"]["host_staged_bytes_per_token"]}
+                   sv["unfused T=1"]["host_staged_bytes_per_token"],
+               "paged_itl_p50_ms": sv["paged block_len=64"]["itl_p50_ms"],
+               "slo_itl_p50_ms": sv["slo arrivals"]["itl_p50_ms"],
+               "kv_mb_rank": sv["kv_mb_rank"],
+               "trunk_mb_rank": sv["trunk_mb_rank"]}
     print(f"{SHARD_TAG} tp{SHARD_TP} serve summary ({smi}) "
           + json.dumps(summary), flush=True)
     check(fused["ok_rate"] > 0.9, f"TP serving ok_rate {fused['ok_rate']}")
@@ -3936,16 +4095,17 @@ def _sharded_gates(out: dict, smi: str) -> None:
           "MoE forward_dist differs from forward")
     check(moe_["serve_complete"] and moe_["train_ok"],
           "MoE on the mesh: lost tokens or a non-finite loss")
-    print(f"{SHARD_TAG} dp2 x tp{SHARD_TP} cut tinyllama-1.1b: n_layers 22 -> "
-          f"{SHARD_TRAIN_LAYERS} (width unchanged: d 2048, vocab 32000)",
-          flush=True)
+    print(f"{SHARD_TAG} dp2 x tp{SHARD_TP} tinyllama-1.1b at full depth "
+          f"({SHARD_TRAIN_LAYERS} layers, d 2048, vocab 32000): every leaf "
+          f"this rank's block", flush=True)
     losses, resumed = dptp["losses"], dptp["resumed"]
     train = {"losses": losses, "resumed": resumed,
              "step_s": dptp["dt"], "events": dptp["events"],
              "resumed_events": dptp["resumed_events"],
              "manifest_sharded_complete": dptp["manifest"],
              "index_mb_shard": dptp["index_mb_shard"],
-             "peak_gb_rank0": dptp["peak_gb"], "wall_s": dptp["wall_s"]}
+             "peak_gb_ranks": [r["peak_gb"] for r in out["dp_tp_ranks"]],
+             "wall_s": dptp["wall_s"], "whole_restore": out["whole"]}
     print(f"{SHARD_TAG} dp2 x tp{SHARD_TP} train ({smi}) "
           + json.dumps(train), flush=True)
     check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
@@ -3957,8 +4117,24 @@ def _sharded_gates(out: dict, smi: str) -> None:
           f"async refresh off schedule: {dptp['events']}")
     check(dptp["manifest"] == [True, True],
           f"sharded checkpoint manifest {dptp['manifest']}")
-    check(len({r["trunk_digest"] for r in out["dp_tp_ranks"]}) == 1,
-          "DP×TP: the trunk replicas diverged")
+    ranks = out["dp_tp_ranks"]
+    rep = [p for p, d in ranks[0]["digests"].items()
+           if all(r["digests"][p] == d for r in ranks)]
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+    mesh = mesh_lib.Mesh(2, SHARD_TP, 0, None, None, None)
+    paths = list(ranks[0]["digests"])  # every param leaf
+    want_rep = [p for p in paths if not mesh_lib.spec_dims(
+        transformer.spec_of(p.split("/"), mesh, _train_cfg()))]
+    print(f"{SHARD_TAG} dp2 x tp{SHARD_TP} replicated leaves equal on the "
+          f"four ranks: {len(set(want_rep) & set(rep))}/{len(want_rep)}; "
+          f"step-{SHARD_TRAIN_STEPS} checkpoint restored whole == the four "
+          f"ranks' blocks: {json.dumps(out['whole'])}", flush=True)
+    check(set(want_rep) <= set(rep),
+          "DP×TP: a replicated leaf (a norm) differs between the ranks")
+    check(out["whole"]["mismatched_blocks"] == 0 and out["whole"]["leaves"]
+          == len(paths), "DP×TP: the whole restore differs from the ranks' "
+          "blocks")
 
 
 def main() -> int:

@@ -16,10 +16,12 @@ JSON values (step, data cursor).
 
 **Sharded layout** (:func:`save_sharded`, ``CheckpointManager(sharded=True)``,
 the default on a mesh of more than one rank): every rank calls the save with
-its own state, and each writes only the pieces it owns — the replicated
-leaves from rank 0, the model-sharded leaves (the output embedding's rows,
-the MoE experts, their Adam moments) and the per-shard head-index state
-from the ranks of data row 0 — into ``shards_p<rank>.pt`` plus a
+its own state, and each writes only the pieces it owns — a leaf's block
+from the first rank of every axis the leaf is not split over: the
+replicated leaves from rank 0, the model-split ones (the embeddings'
+rows, the trunk's TP blocks, their Adam moments) and the per-shard
+head-index state from the ranks of data row 0, the leaves split over
+``data`` too (FSDP) from every rank — into ``shards_p<rank>.pt`` plus a
 ``shard_manifest_p<rank>.json``, in a ``.tmp.<tag>`` directory whose tag
 this save alone uses: rank 0 removes what earlier, crashed attempts left and
 draws the tag, which a broadcast hands every rank before any writes (see
@@ -27,12 +29,14 @@ draws the tag, which a broadcast hands every rank before any writes (see
 Rank 0 waits for every writer's manifest, merges them into
 ``manifest.json`` (``"sharded": true``) and publishes the directory
 atomically. Each leaf records its layout: ``rep`` (replicated),
-``dim`` (this rank's block along one dim of the global array) or ``stack``
-(one entry per model shard, e.g. a shard's IVF centroids). Restore is
-mesh-elastic: a rank assembles its block of each ``dim`` leaf for its own
-mesh (pieces that match exactly are read directly, memory-mapped), so a
-restore on another ``dp`` — or ``tp`` — gives the same tensors; ``stack``
-leaves need the same number of model shards and are dropped otherwise.
+``dim`` (this rank's block of the global array along one dim per mesh
+axis: ``{"model": d, "data": d'}``; a bare ``d`` means ``{"model": d}``)
+or ``stack`` (one entry per model shard, e.g. a shard's IVF centroids).
+Restore is mesh-elastic: a rank assembles its block of each ``dim`` leaf
+for its own mesh (pieces that match exactly are read directly,
+memory-mapped), so a restore on another ``dp`` — or ``tp`` — gives the
+same tensors; ``stack`` leaves need the same number of model shards and
+are dropped otherwise.
 """
 from __future__ import annotations
 
@@ -160,13 +164,15 @@ def _check_like(got: Any, want: Any, path: str = "") -> None:
 
 
 def restore(workdir: str, target: dict | None = None, step: int | None = None,
-            device=None, *, mesh=None) -> tuple[dict, dict, int]:
+            device=None, *, mesh=None, keys: tuple[str, ...] | None = None
+            ) -> tuple[dict, dict, int]:
     """Load a checkpoint (the latest complete one unless ``step`` is given)
     onto ``device`` -> (state, meta, step). With ``target`` (a state of the
     expected structure; its ``meta`` entry is ignored) the loaded tensors
     are checked against its structure, shapes and dtypes. A sharded
     checkpoint restores this rank's slices for ``mesh`` (None: one rank,
-    whole tensors)."""
+    whole tensors). ``keys``: only these top-level entries of the state
+    (a sharded checkpoint reads no other piece)."""
     if step is None:
         step = latest_step(workdir)
         if step is None:
@@ -176,10 +182,13 @@ def restore(workdir: str, target: dict | None = None, step: int | None = None,
         raise FileNotFoundError(f"checkpoint {step} in {workdir} is "
                                 "incomplete or corrupt")
     if mf.get("sharded"):
-        state = _restore_sharded(_ckpt_dir(workdir, step), mf, mesh, device)
+        state = _restore_sharded(_ckpt_dir(workdir, step), mf, mesh, device,
+                                 keys)
         return state, mf.get("meta", {}), step
     state = torch.load(os.path.join(_ckpt_dir(workdir, step), _TENSORS),
                        map_location=device, weights_only=True)
+    if keys is not None:
+        state = {k: v for k, v in state.items() if k in keys}
     if target is not None:
         _check_like(state, {k: v for k, v in target.items() if k != "meta"})
     return state, mf.get("meta", {}), step
@@ -231,14 +240,28 @@ def _fill(skel: Any, leaves: dict) -> Any:
     return leaves.get(skel, _DROP)
 
 
+def _dims(dim) -> dict[str, int]:
+    """A ``dim`` layout's {axis: dim} (a bare int: the model axis)."""
+    return {"model": dim} if isinstance(dim, int) else dict(dim)
+
+
+def _coords(mesh) -> tuple[dict[str, int], dict[str, int]]:
+    """({axis: size}, {axis: this rank's index}) of ``mesh`` (one rank
+    when None)."""
+    if mesh is None:
+        return {"model": 1, "data": 1}, {"model": 0, "data": 0}
+    return ({"model": mesh.tp, "data": mesh.dp},
+            {"model": mesh.model.index, "data": mesh.data.index})
+
+
 def _snapshot_shards(state: dict, mesh, layout: Callable) -> dict:
     """Host half of the sharded save: this rank's pieces (copies) and
-    their records. ``layout(path, tensor) -> ("rep", None) | ("dim", d) |
-    ("stack", None)``."""
+    their records. ``layout(path, tensor) -> ("rep", None) | ("dim",
+    {axis: dim}) | ("stack", None)``."""
     rank = mesh.rank if mesh is not None else 0
-    tp = mesh.tp if mesh is not None else 1
-    m = mesh.model.index if mesh is not None else 0
-    data_row0 = mesh is None or mesh.data.index == 0
+    world = mesh.dp * mesh.tp if mesh is not None else 1
+    size, idx = _coords(mesh)
+    tp, m = size["model"], idx["model"]
     tensors = {k: v for k, v in state.items() if k != "meta"}
     pieces, records = {}, {}
     for path, t in _flat(tensors):
@@ -250,13 +273,16 @@ def _snapshot_shards(state: dict, mesh, layout: Callable) -> dict:
                 continue
             index = [[0, n] for n in shape]
         elif kind == "dim":
-            if not data_row0:
-                continue
-            shape[dim] *= tp
+            dims = _dims(dim)
+            if any(idx[a] for a in size if a not in dims):
+                continue  # another rank holds the same block
             index = [[0, n] for n in shape]
-            index[dim] = [m * t.shape[dim], (m + 1) * t.shape[dim]]
+            for a, d in dims.items():
+                shape[d] *= size[a]
+                index[d] = [idx[a] * t.shape[d], (idx[a] + 1) * t.shape[d]]
+            dim = dims
         else:  # stack
-            if not data_row0:
+            if idx["data"]:
                 continue
             shape = [tp] + shape
             index = [[m, m + 1]] + [[0, n] for n in t.shape]
@@ -264,7 +290,7 @@ def _snapshot_shards(state: dict, mesh, layout: Callable) -> dict:
         pieces[key] = t.detach().to("cpu", copy=True)
         records[key] = {"shape": shape, "dtype": str(t.dtype)[6:],
                         "layout": [kind, dim], "index": index}
-    return {"rank": rank, "writers": list(range(tp)) if rank == 0 else None,
+    return {"rank": rank, "writers": list(range(world)) if rank == 0 else None,
             "pieces": pieces, "records": records,
             "skeleton": _skeleton(tensors) if rank == 0 else None,
             "meta": state.get("meta", {})}
@@ -361,9 +387,10 @@ def save_sharded(workdir: str, step: int, state: dict, mesh,
                          keep, tag)
 
 
-def _restore_sharded(d: str, mf: dict, mesh, device) -> dict:
-    tp = mesh.tp if mesh is not None else 1
-    m = mesh.model.index if mesh is not None else 0
+def _restore_sharded(d: str, mf: dict, mesh, device,
+                     keys: tuple[str, ...] | None = None) -> dict:
+    size, idx = _coords(mesh)
+    tp, m = size["model"], idx["model"]
     files: dict[int, dict] = {}
 
     def piece(p: dict, key: str) -> torch.Tensor:
@@ -375,7 +402,12 @@ def _restore_sharded(d: str, mf: dict, mesh, device) -> dict:
         return files[r][key]
 
     out = {}
+    skeleton = mf["skeleton"]
+    if keys is not None:
+        skeleton = {k: v for k, v in skeleton.items() if k in keys}
     for key, rec in mf["leaves"].items():
+        if keys is not None and key.split(_SEP)[0] not in keys:
+            continue
         kind, dim = rec["layout"]
         shape = rec["shape"]
         if kind == "stack":
@@ -383,9 +415,10 @@ def _restore_sharded(d: str, mf: dict, mesh, device) -> dict:
                 continue  # per-shard state of another model width
             want = [[m, m + 1]] + [[0, n] for n in shape[1:]]
         elif kind == "dim":
-            n = shape[dim] // tp
             want = [[0, s] for s in shape]
-            want[dim] = [m * n, (m + 1) * n]
+            for a, dd in _dims(dim).items():
+                n = shape[dd] // size[a]
+                want[dd] = [idx[a] * n, (idx[a] + 1) * n]
         else:
             want = [[0, s] for s in shape]
         hit = next((p for p in rec["pieces"] if p["index"] == want), None)
@@ -400,7 +433,7 @@ def _restore_sharded(d: str, mf: dict, mesh, device) -> dict:
         if kind == "stack":
             t = t[0]
         out[key] = t.to(device, copy=True).contiguous()
-    return _fill(mf["skeleton"], out)
+    return _fill(skeleton, out)
 
 
 class CheckpointManager:

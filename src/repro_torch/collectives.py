@@ -1,7 +1,8 @@
 """Collectives over one mesh axis (the port's counterpart of the XLA
-collectives the reference's ``shard_map`` bodies call: ``psum``, ``pmax``,
-``pmin``, ``all_gather``, ``ppermute``), and Megatron's f / g pair that
-carries gradients across them.
+collectives the reference's ``shard_map`` bodies call — ``psum``, ``pmax``,
+``pmin``, ``all_gather``, ``ppermute`` — and of the ones GSPMD inserts
+around a sharded trunk: all-gathers, reduce-scatters and broadcasts), and
+the autograd functions that carry gradients across them.
 
 An :class:`Axis` is one axis of a :class:`repro_torch.launch.mesh.Mesh`:
 its process group, its size and this rank's index along it. A size-1 axis
@@ -9,13 +10,15 @@ has no group and every collective over it is the identity, so a mesh of
 one rank runs the same code as a single device.
 
 **The one-card design.** NCCL refuses two ranks on one card, so ranks that
-share a card run under ``gloo``. ``gloo`` takes CUDA tensors for some ops
-and stages them through the host itself; for the others this module copies
-to the host explicitly, runs the op there and copies back — part of the
-design, not a fallback: the route is fixed by (backend, op), never chosen
-on an error. Every byte a ``gloo`` collective moves for a CUDA tensor
-crosses the host either way, and :data:`HOST_BYTES` counts them per op
-(payload in plus result out).
+share a card run under ``gloo``. ``gloo`` takes CUDA tensors for
+all_reduce, all_gather, reduce_scatter and broadcast and stages them
+through the host itself (probed on the H100 and on the CPU, PERF.md);
+send / recv hands its tcp transport the device pointer and fails, so
+:func:`ppermute` copies to the host explicitly, runs there and copies
+back — part of the design, not a fallback: the route is fixed by (backend,
+op), never chosen on an error. Every byte a ``gloo`` collective moves for
+a CUDA tensor crosses the host either way, and :data:`HOST_BYTES` counts
+them per op (payload in plus result out).
 
 **Gradients.** :func:`copy_to` is ``f``: identity forward, all-reduce of
 the gradient backward — where a replicated tensor enters a shard-local
@@ -24,6 +27,20 @@ computation, so each rank's gradient gets the other shards' terms.
 shard partials combine into a replicated value; the upstream gradient is
 already the same on every rank, so each partial's gradient is that
 gradient (a differentiable all-reduce would give ``size`` times it).
+:func:`all_reduce` is the sum both ways: a partial whose consumers are
+shard-local (the gated norm's sum of squares over a split width).
+
+Leaves stored split over an axis are put together by
+:func:`all_gather_dim`, an all-gather along one dim whose backward
+reduce-scatters the gradient (each rank's use is a partial: shard-local
+consumers, or the data ranks' own batches — FSDP).
+
+:func:`reduce_scatter` runs ``dist.reduce_scatter`` over chunks of one dim
+(gloo has it on CPU and on CUDA tensors, so the route is the collective
+itself, never an all-reduce and a slice). :func:`broadcast`
+and :func:`broadcast_object` hand every rank the axis' first rank's value:
+how a host decision that rank 0 makes (a clock read, a fitted router)
+reaches the others.
 """
 from __future__ import annotations
 
@@ -33,15 +50,10 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-__all__ = ["Axis", "HOST_BYTES", "GLOO_CUDA_NATIVE", "reset_host_bytes",
+__all__ = ["Axis", "HOST_BYTES", "reset_host_bytes",
            "psum", "pmax", "pmin", "all_gather", "ppermute", "copy_to",
-           "reduce_from"]
-
-# ops gloo runs on CUDA tensors itself, staging them through host memory
-# inside the process group (on the H100: all_reduce, broadcast, all_gather
-# and all_to_all; send / recv hands gloo's tcp transport the device pointer
-# and fails, PERF.md); every other op is staged explicitly here
-GLOO_CUDA_NATIVE = frozenset({"all_reduce", "all_gather"})
+           "reduce_from", "all_reduce", "reduce_scatter", "all_gather_dim",
+           "broadcast", "broadcast_object"]
 
 # {op: bytes} a gloo collective moved across the host for CUDA tensors
 HOST_BYTES: dict[str, int] = {}
@@ -74,23 +86,23 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _staged(axis: Axis, op: str, t: torch.Tensor) -> bool:
-    """Whether ``op`` on ``t`` runs on a host copy (gloo without a CUDA
-    route for it); counts the bytes either way for gloo + CUDA."""
+def _via_host(axis: Axis, op: str, t: torch.Tensor,
+              out_bytes: int | None = None) -> bool:
+    """Whether ``op`` on ``t`` crosses the host (gloo on a CUDA tensor);
+    if so, counts ``t``'s bytes in and ``out_bytes`` (default: as many)
+    out."""
     if axis.backend != "gloo" or t.device.type != "cuda":
         return False
-    HOST_BYTES[op] = HOST_BYTES.get(op, 0) + 2 * _nbytes(t)
-    return op not in GLOO_CUDA_NATIVE
+    n = _nbytes(t) + (_nbytes(t) if out_bytes is None else out_bytes)
+    HOST_BYTES[op] = HOST_BYTES.get(op, 0) + n
+    return True
 
 
 def _all_reduce(x: torch.Tensor, axis: Axis, op) -> torch.Tensor:
     if axis.size == 1:
         return x
     out = x.detach().clone().contiguous()
-    if _staged(axis, "all_reduce", out):
-        host = out.cpu()
-        dist.all_reduce(host, op=op, group=axis.group)
-        return host.to(x.device)
+    _via_host(axis, "all_reduce", out)
     dist.all_reduce(out, op=op, group=axis.group)
     return out
 
@@ -113,11 +125,7 @@ def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     if axis.size == 1:
         return x.detach()[None]
     src = x.detach().contiguous()
-    if _staged(axis, "all_gather", src):
-        host = src.cpu()
-        outs = [torch.empty_like(host) for _ in range(axis.size)]
-        dist.all_gather(outs, host, group=axis.group)
-        return torch.stack(outs).to(x.device)
+    _via_host(axis, "all_gather", src)
     outs = [torch.empty_like(src) for _ in range(axis.size)]
     dist.all_gather(outs, src, group=axis.group)
     return torch.stack(outs)
@@ -132,7 +140,7 @@ def ppermute(x: torch.Tensor, axis: Axis, shift: int = 1) -> torch.Tensor:
     src = x.detach().contiguous()
     dst = axis.ranks[(axis.index + shift) % axis.size]
     frm = axis.ranks[(axis.index - shift) % axis.size]
-    staged = _staged(axis, "ppermute", src)
+    staged = _via_host(axis, "ppermute", src)
     send = src.cpu() if staged else src
     recv = torch.empty_like(send)
     reqs = dist.batch_isend_irecv([
@@ -178,3 +186,85 @@ def reduce_from(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     if axis.size == 1:
         return x
     return _ReduceFrom.apply(x, axis)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.axis), None
+
+
+def all_reduce(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum over the axis forward AND backward: for a partial whose
+    consumers are shard-local, so each rank's gradient is a partial too."""
+    if axis.size == 1:
+        return x
+    return _AllReduce.apply(x, axis)
+
+
+def reduce_scatter(x: torch.Tensor, axis: Axis, dim: int = 0
+                   ) -> torch.Tensor:
+    """The sum over the axis of ``x``, this rank's block of ``dim`` (which
+    ``axis.size`` must divide). Not differentiable."""
+    if axis.size == 1:
+        return x
+    n = x.shape[dim] // axis.size
+    src = x.detach().movedim(dim, 0).contiguous()
+    _via_host(axis, "reduce_scatter", src, _nbytes(src) // axis.size)
+    out = torch.empty((n,) + src.shape[1:], dtype=src.dtype,
+                      device=src.device)
+    dist.reduce_scatter(out, list(src.split(n)), group=axis.group)
+    return out.movedim(0, dim)
+
+
+def _gather_cat(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in axis order."""
+    return torch.cat(all_gather(x, axis).unbind(0), dim=dim)
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, dtype):
+        ctx.axis, ctx.dim, ctx.in_dtype = axis, dim, x.dtype
+        return _gather_cat(x if dtype is None else x.to(dtype), axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter(g.to(ctx.in_dtype), ctx.axis, ctx.dim), None,
+                None, None)
+
+
+def all_gather_dim(x: torch.Tensor, axis: Axis, dim: int,
+                   dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Every rank's block joined along ``dim`` (cast to ``dtype`` first, so
+    the gather moves the compute dtype); backward: the gradient summed
+    over the axis, this rank's block of it, in ``x``'s dtype (a
+    reduce-scatter: each rank's use is a partial)."""
+    if axis.size == 1:
+        return x if dtype is None else x.to(dtype)
+    return _GatherDim.apply(x, axis, dim, dtype)
+
+
+def broadcast(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The axis' first rank's ``x`` on every rank (same shape and dtype on
+    all). Not differentiable."""
+    if axis.size == 1:
+        return x
+    out = x.detach().clone().contiguous()
+    _via_host(axis, "broadcast", out)
+    dist.broadcast(out, src=axis.ranks[0], group=axis.group)
+    return out
+
+
+def broadcast_object(obj: Any, axis: Axis) -> Any:
+    """The axis' first rank's ``obj`` (picklable) on every rank."""
+    if axis.size == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=axis.ranks[0], group=axis.group)
+    return box[0]

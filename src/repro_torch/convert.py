@@ -109,8 +109,10 @@ def lsh_state_from_jax(np_leaves, device=None) -> LSHState:
 def shard_params_from_jax(np_tree: dict, cfg: ArchConfig, mesh,
                           device=None) -> dict:
     """The reference's full params (numpy) -> THIS rank's params on
-    ``mesh``: :func:`params_from_jax`, then every leaf the mesh shards cut
-    to this rank's block (:func:`repro_torch.launch.mesh.shard_params`)."""
+    ``mesh``: :func:`params_from_jax`, then every leaf cut to this rank's
+    block along each dim its spec places on ``model`` or ``data`` — 2-D
+    blocks for the trunk's matrices
+    (:func:`repro_torch.launch.mesh.shard_params`)."""
     from repro_torch.launch.mesh import shard_params
 
     return shard_params(params_from_jax(np_tree, cfg, device), mesh, cfg)

@@ -7,21 +7,31 @@ Rank layout is the reference's ``devs[:dp*tp].reshape(dp, tp)``: rank =
 ``model`` group is the ``tp`` ranks of its data row, the ``data`` group the
 ``dp`` ranks of its model column.
 
-What is sharded. The reference lays every large weight out 2-D through
-GSPMD, which moves work without changing the function. The port shards
-what the reference shards explicitly inside ``shard_map``:
+What is sharded: every leaf is stored as the reference's
+:func:`param_spec` places it (``"model"`` / ``("data",)`` entries, 2-D
+where the reference is 2-D; a dim either does not divide stays
+replicated):
 
-* the output embedding's rows over ``model`` — the distributed head
-  (:mod:`repro_torch.models.head`) and its
+* ``embed`` and ``out_embed``: rows over ``model`` — the vocab-parallel
+  input lookup (:mod:`repro_torch.models.model`) and the distributed head
+  (:mod:`repro_torch.models.head`) over a
   :class:`repro_torch.core.mips.ShardedIndex`;
-* the MoE experts over ``model`` (:func:`repro_torch.models.moe
-  .forward_dist`): the expert dim when ``E % tp == 0`` ("ep"), else the
-  expert FFN hidden ("tp");
+* the trunk's matrices Megatron-style: ``wq wk wv w1 w3 wx wz
+  w_gate_branch w_in wdt wb wc w_a w_i`` column-parallel, ``wo w2 w_out``
+  row-parallel over ``model``, each matrix's other dim over ``data``
+  (FSDP: all-gathered per layer on use, the gradient reduce-scattered);
+  the MoE experts' expert dim over ``model`` ("ep", their ``d_in`` over
+  ``data``) or their FFN hidden ("tp"), the router's ``d_in`` over
+  ``data``;
+* norms, conv taps and the per-head / per-channel vectors replicated;
 * the batch over ``data``.
 
-The rest of the trunk is replicated over ``model`` (Megatron-style TP and
-FSDP of the trunk weights are not in the port). :func:`param_spec` is the
-reference's rule for these leaves, as data.
+How each block computes the single-device function on that storage
+(Megatron split where the split falls on whole heads, channels or gate
+blocks, else a gather over ``model`` on use) is in
+:mod:`repro_torch.models.tp` and the blocks. :func:`cache_shardings` is
+the reference's placement of the serving caches, which
+:func:`repro_torch.models.transformer.init_cache` allocates.
 
 Backend and device are explicit (:func:`init_rank`): the caller names the
 backend (``gloo`` or ``nccl``) and the device (``cuda:<rank % cards>``
@@ -36,7 +46,7 @@ import datetime
 import os
 import time
 import traceback
-from typing import Any, Callable
+from typing import Callable
 
 import torch
 import torch.distributed as dist
@@ -44,10 +54,11 @@ import torch.distributed as dist
 from repro_torch.collectives import Axis
 
 __all__ = ["Mesh", "MOE_SHARDING", "DEFAULT_TIMEOUT_S", "make_train_mesh",
-           "fsdp_axes", "param_spec", "moe_mode", "shard_dim", "local_slice",
-           "shard_params", "data_rows", "data_shardings",
-           "stacked_data_shardings", "init_rank", "run_ranks",
-           "file_init_method"]
+           "fsdp_axes", "param_spec", "spec_dims", "moe_mode", "shard_dim",
+           "map_with_path", "local_slice",
+           "local_shape", "shard_params", "cache_shardings", "data_rows",
+           "data_shardings", "stacked_data_shardings", "init_rank",
+           "run_ranks", "file_init_method"]
 
 DEFAULT_TIMEOUT_S = 120.0
 
@@ -139,12 +150,33 @@ def make_train_mesh(dp: int = 1, tp: int = 1, *,
 
 
 def fsdp_axes(mesh: Mesh) -> tuple[str, ...]:
-    """The batch axes of the mesh (the reference's FSDP axes): ``data``."""
-    return ("data",)
+    """The reference's FSDP axes (``("pod", "data")`` among the mesh's
+    axes): ``("data",)`` — the port's mesh has no pod axis. They carry the
+    batch and the FSDP dim of every large weight."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _spec_entry(axes: tuple[str, ...]):
+    """A spec entry for ``axes``, normalised as ``PartitionSpec`` does: a
+    one-axis tuple is its axis; no axes, None."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else axes
+
+
+def _size(mesh: Mesh, axes) -> int:
+    n = 1
+    for a in axes if isinstance(axes, tuple) else (axes,):
+        n *= mesh.shape[a]
+    return n
 
 
 def _dim_ok(dim: int, size: int) -> bool:
     return dim % size == 0 and dim >= size
+
+
+def _ok(dim: int, mesh: Mesh, axes) -> bool:
+    return _dim_ok(dim, _size(mesh, axes))
 
 
 def moe_mode(cfg, tp: int) -> str:
@@ -155,43 +187,66 @@ def moe_mode(cfg, tp: int) -> str:
     return "tp"
 
 
+_TP_OUT = frozenset({"wq", "wk", "wv", "w1", "w3", "wx", "wz",
+                     "w_gate_branch", "w_in", "wdt", "wb", "wc", "w_a",
+                     "w_i"})
+_TP_IN = frozenset({"wo", "w2", "w_out"})
+
+
 def param_spec(path_keys: list[str], shape: tuple[int, ...], mesh: Mesh,
                cfg) -> tuple:
-    """Placement of one parameter over the mesh, as the reference's
-    ``PartitionSpec`` entries (a tuple: "model" or None per dim), for the
-    leaves the port shards; every other leaf is replicated (all None).
-
-    * ``out_embed`` (V, d): rows over "model";
-    * MoE experts (L, E, in, out): the expert dim over "model" in "ep";
-      in "tp" the FFN hidden: ``w1`` / ``w3``'s out dim, ``w2``'s in dim.
-    """
+    """Placement of one parameter (its GLOBAL shape) over the mesh: the
+    reference's rule, entry for entry as its ``PartitionSpec`` holds them
+    (``"model"``, ``"data"`` — the FSDP axes, a one-axis tuple written as
+    its axis —, or None per dim). Stacked layer leaves carry a leading
+    layer dim, never sharded; leaves of at most 2 dims (norms, biases,
+    per-head vectors) and conv taps replicate."""
+    fa = _spec_entry(fsdp_axes(mesh))
     name = path_keys[-1]
-    rep = (None,) * len(shape)
-    if name == "out_embed" and len(shape) == 2:
+    if name in ("embed", "out_embed"):
         return ("model", None)
-    if (name in ("w1", "w2", "w3") and len(shape) == 4
-            and "mlp" in path_keys and getattr(cfg, "is_moe", False)):
-        tp = mesh.shape["model"]
-        if moe_mode(cfg, tp) == "ep":
-            return (None, "model", None, None)
-        dim = 2 if name == "w2" else 3
-        if not _dim_ok(shape[dim], tp):
-            return rep
-        return tuple("model" if i == dim else None for i in range(4))
-    return rep
+    if len(shape) <= 2 or name == "conv":
+        return (None,) * len(shape)
+    lead = (None,) * (len(shape) - 2)
+    d_in, d_out = shape[-2], shape[-1]
+    fsdp_in = fa if fa and _ok(d_in, mesh, fa) else None
+    if (MOE_SHARDING == "ep" and name in ("w1", "w2", "w3")
+            and len(shape) == 4 and _ok(shape[1], mesh, "model")):
+        return (None, "model", fsdp_in, None)
+    if name in _TP_OUT:
+        return lead + (fsdp_in,
+                       "model" if _ok(d_out, mesh, "model") else None)
+    if name in _TP_IN:
+        return lead + ("model" if _ok(d_in, mesh, "model") else None,
+                       fa if fa and _ok(d_out, mesh, fa) else None)
+    if name == "router":
+        return lead + (fsdp_in, None)
+    return (None,) * len(shape)
+
+
+def spec_dims(spec: tuple) -> dict[str, int]:
+    """{axis: dim} of the axes a spec shards (``"model"``, ``"data"``)."""
+    out = {}
+    for i, e in enumerate(spec):
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a is not None:
+                out[a] = i
+    return out
 
 
 def shard_dim(spec: tuple) -> int | None:
     """The dim a spec puts on "model", or None."""
-    return spec.index("model") if "model" in spec else None
+    return spec_dims(spec).get("model")
 
 
-def _map_with_path(fn, tree, path=()):
+def map_with_path(fn, tree, path=()):
+    """``tree`` (dicts and lists of tensors, Nones kept) with each leaf
+    replaced by ``fn(path, leaf)``; ``path``: the str keys down to it."""
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (str(k),))
+        return {k: map_with_path(fn, v, path + (str(k),))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map_with_path(fn, v, path + (str(i),))
+        return [map_with_path(fn, v, path + (str(i),))
                 for i, v in enumerate(tree)]
     if tree is None:
         return None
@@ -207,17 +262,63 @@ def local_slice(t: torch.Tensor, dim: int | None, size: int, index: int
     return t.narrow(dim, index * n, n).clone().contiguous()
 
 
+def local_shape(shape, spec: tuple, mesh: Mesh,
+                axes: tuple[str, ...] = ("model", "data")) -> tuple:
+    """The block of a ``shape`` leaf placed by ``spec`` that one rank
+    holds, over the mesh axes named in ``axes``."""
+    out = list(shape)
+    for a, d in spec_dims(spec).items():
+        if a in axes:
+            out[d] //= mesh.shape[a]
+    return tuple(out)
+
+
 def shard_params(params: dict, mesh: Mesh, cfg) -> dict:
-    """Full params -> this rank's params: every leaf that
-    :func:`param_spec` places on "model" cut to this rank's block (copied,
-    so the full tensor can be freed), the rest as given."""
-    tp, m = mesh.tp, mesh.model.index
+    """Full params -> this rank's params: every leaf cut to this rank's
+    block along each dim :func:`param_spec` places on "model" or "data"
+    (copied, so the full tensor can be freed); replicated leaves as
+    given."""
+    idx = {"model": mesh.model.index, "data": mesh.data.index}
 
     def one(path, t):
-        return local_slice(t, shard_dim(param_spec(list(path), tuple(t.shape),
-                                                   mesh, cfg)), tp, m)
+        spec = param_spec(list(path), tuple(t.shape), mesh, cfg)
+        for a, d in spec_dims(spec).items():
+            t = local_slice(t, d, mesh.shape[a], idx[a])
+        return t
 
-    return _map_with_path(one, params)
+    return map_with_path(one, params)
+
+
+def cache_shardings(cache: list, mesh: Mesh, cfg, paged: bool = False
+                    ) -> list:
+    """Placement of the serving cache's leaves (GLOBAL shapes, the
+    structure of :func:`repro_torch.models.transformer.init_cache`): the
+    reference's rule — batch (axis 1) over the FSDP axes when it divides
+    (not the paged pool's block axis), the KV ring's and the pool's KV
+    heads over "model", the SSM and RG-LRU ``state``'s heads / width over
+    "model" — except where the KV heads do not divide ``tp``: the
+    reference then splits the dense ring's positions over "model"; the
+    port keeps such a ring (and pool) replicated over "model" and gives
+    each rank its query heads (:mod:`repro_torch.models.attention`).
+    ``cfg`` is the reference's argument, unread there as here."""
+    fa = _spec_entry(fsdp_axes(mesh))
+
+    def one(path, leaf):
+        shape, name = tuple(leaf.shape), path[-1]
+        spec = [None] * len(shape)
+        pool_leaf = paged and name in ("k", "v") and len(shape) == 5
+        if len(shape) >= 2 and not pool_leaf and fa and _ok(shape[1], mesh,
+                                                            fa):
+            spec[1] = fa
+        if name in ("k", "v") and len(shape) == 5:
+            if _ok(shape[3], mesh, "model"):
+                spec[3] = "model"
+        elif name == "state" and len(shape) >= 3:
+            if _ok(shape[2], mesh, "model"):
+                spec[2] = "model"
+        return tuple(spec)
+
+    return map_with_path(one, cache)
 
 
 def data_rows(n: int, mesh: Mesh) -> tuple[int, int]:

@@ -7,7 +7,9 @@ amortized lazy-Gumbel sampler, on CUDA unless ``--device`` says otherwise.
 
 Weights are random, drawn from seed 0; prompts are random token ids. Every
 flag of the reference launcher is taken; encoder-only archs (no decode) are
-refused, as in the reference.
+refused, as in the reference. The launcher serves on one device; a TP
+mesh serves through ``Server(mesh=)`` (:mod:`repro_torch.serve.server`),
+the trunk sharded.
 """
 from __future__ import annotations
 

@@ -10,9 +10,11 @@ jitted dispatch, the port loops over it in Python; state stays on the
 device and the host reads it only where it needs a value.
 
 On a mesh (the model's ``mesh``), each rank steps on its data slice: the
-head's draws are keyed by the GLOBAL token index, the gradients are summed
-over the ``data`` axis and divided by ``dp`` (the mean over the global
-batch that GSPMD computes), the metrics are averaged the same way, and the
+head's draws are keyed by the GLOBAL token index, the gradients are
+averaged over the ``data`` axis (the mean over the global batch that GSPMD
+computes: the leaves replicated over ``data`` summed and divided by
+``dp``, the FSDP leaves — already summed by their gathers' reduce-scatter
+— divided by ``dp``), the metrics are averaged the same way, and the
 clipping norm is the whole model's (:func:`mesh_norm`); the decode and
 prefill steps run the distributed head through the model.
 """
@@ -23,6 +25,7 @@ import dataclasses
 import torch
 
 from repro_torch import collectives as coll
+from repro_torch.models import transformer
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 
@@ -132,7 +135,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         gnorm = None
         if mesh is not None:
             if mesh.dp > 1:
-                grads = data_mean(grads, mesh)
+                grads = data_mean(grads, mesh, model.cfg)
                 vals = data_mean([loss] + [metrics[k] for k in metrics],
                                  mesh)
                 loss = vals[0]
@@ -146,15 +149,32 @@ def make_train_step(model: Model, tcfg: TrainConfig):
     return train_step
 
 
-def data_mean(tree, mesh):
+def data_mean(tree, mesh, cfg=None):
     """The mean over the mesh's data axis of every tensor of ``tree`` (a
-    params-like dict or a list), in ONE all-reduce of their flattened
-    fp32 concatenation; same structure back."""
-    flat = adamw.tree_leaves(tree) if isinstance(tree, dict) else list(tree)
-    buf = torch.cat([t.detach().float().reshape(-1) for t in flat])
-    buf = coll.psum(buf, mesh.data) / mesh.dp
+    params-like dict or a list), in ONE all-reduce of the flattened fp32
+    concatenation of the leaves replicated over ``data``; same structure
+    back. With ``cfg``, a params tree's FSDP leaves (split over ``data``
+    by :func:`repro_torch.launch.mesh.param_spec`) arrive summed over the
+    axis by their gathers' reduce-scatter: they are only divided by
+    ``dp``."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    if isinstance(tree, dict):
+        paths, flat = zip(*_sorted_leaves(tree))
+    else:
+        paths, flat = (None,) * len(tree), list(tree)
+    fsdp = [p is not None and cfg is not None and "data" in
+            mesh_lib.spec_dims(transformer.spec_of(p, mesh, cfg))
+            for p in paths]
+    rep = [t for t, f in zip(flat, fsdp) if not f]
+    if rep:
+        buf = torch.cat([t.detach().float().reshape(-1) for t in rep])
+        buf = coll.psum(buf, mesh.data) / mesh.dp
     out, o = [], 0
-    for t in flat:
+    for t, f in zip(flat, fsdp):
+        if f:
+            out.append(t / mesh.dp)
+            continue
         out.append(buf[o:o + t.numel()].view(t.shape).to(t.dtype))
         o += t.numel()
     if isinstance(tree, dict):
@@ -176,23 +196,23 @@ def _sorted_leaves(tree, path=()):
 
 
 def mesh_norm(grads: dict, mesh, cfg) -> torch.Tensor:
-    """The global gradient norm over the whole (sharded) model: the squares
-    of the replicated leaves once, plus those of the model-sharded leaves
-    summed over the model axis — the same on every rank, so every replica
-    clips alike."""
+    """The global gradient norm over the whole (sharded) model: each
+    leaf's squares summed over exactly the axes its spec shards it on
+    (once for a replicated leaf) — the same on every rank, so every
+    replica clips alike."""
     from repro_torch.launch import mesh as mesh_lib
 
     dev = next(iter(adamw.tree_leaves(grads))).device
-    rep = torch.zeros((), dtype=torch.float32, device=dev)
-    shard = torch.zeros((), dtype=torch.float32, device=dev)
+    sums = {k: torch.zeros((), dtype=torch.float32, device=dev)
+            for k in ((), ("model",), ("data",), ("data", "model"))}
     for path, g in _sorted_leaves(grads):
-        sq = torch.sum(torch.square(g.float()))
-        spec = mesh_lib.param_spec(list(path), tuple(g.shape), mesh, cfg)
-        if mesh_lib.shard_dim(spec) is None:
-            rep = rep + sq
-        else:
-            shard = shard + sq
-    return torch.sqrt(rep + coll.psum(shard, mesh.model))
+        axes = tuple(sorted(mesh_lib.spec_dims(
+            transformer.spec_of(path, mesh, cfg))))
+        sums[axes] = sums[axes] + torch.sum(torch.square(g.float()))
+    tot = (sums[()] + coll.psum(sums[("model",)], mesh.model)
+           + coll.psum(sums[("data",)], mesh.data)
+           + coll.psum(sums[("data", "model")], mesh.world))
+    return torch.sqrt(tot)
 
 
 def make_train_loop_step(model: Model, tcfg: TrainConfig):

@@ -17,7 +17,10 @@ rank processes (``torch.multiprocessing``), each joins the process group
 through a ``file://`` rendezvous in the workdir under ``--dist-backend``
 (``gloo``, the default, or ``nccl``, which needs a card per rank and is
 refused otherwise) and runs on ``cuda:<rank % cards>``, or on the CPU with
-``--device cpu``. Rank 0's result is printed. On a multi-rank mesh the
+``--device cpu``. Every leaf is a rank's block as
+``launch.mesh.param_spec`` places it: the trunk Megatron-split over the
+model axis and FSDP-split over the data axis, the embeddings' rows over
+the model axis. Rank 0's result is printed. On a multi-rank mesh the
 checkpoints are sharded; ``--sharded-ckpt`` asks for that layout on one
 rank too.
 """
@@ -110,8 +113,9 @@ def main(argv=None) -> None:
                     help="data-parallel mesh axis size (ranks: dp*tp)")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel (model) mesh axis size: the "
-                         "output embedding, its index and the MoE experts "
-                         "shard over it")
+                         "trunk (Megatron), both embeddings, the head index "
+                         "and the MoE experts shard over it; the trunk's "
+                         "other dim shards over dp (FSDP)")
     ap.add_argument("--dist-backend", default="gloo",
                     choices=["gloo", "nccl"],
                     help="torch.distributed backend of a dp*tp > 1 run "

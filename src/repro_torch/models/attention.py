@@ -11,18 +11,37 @@ backward pass, so the (L, L) score matrix never exists whole. Decode
 attention goes through the ``flash_decode`` kernel
 (:mod:`repro_torch.kernels.ops`), which walks the page table itself on the
 paged layout.
+
+**On a mesh** (``mesh=``, :mod:`repro_torch.models.tp`): with the query
+heads dividing ``tp``, each rank computes its ``H / tp`` query heads
+(``wq`` column-split, ``wo`` row-split, the output summed by
+``reduce_from``) and, when the KV heads divide too, its ``KV / tp`` KV
+heads, which its cache holds. Where they do not (recurrentgemma's and
+paligemma's one KV head), ``wk`` / ``wv`` are gathered over ``model``,
+every rank computes and caches every KV head and attends its query heads
+to the ones they read. The reference splits such a dense ring over
+positions instead (``cache_shardings``), which needs a cross-rank softmax
+combine; replicating it is a layout difference, not another function.
+A ``tp`` that the query heads do not divide, or that leaves a rank's
+query heads reading unequal shares of the KV heads, is refused (no
+config meets either at tp ≤ 4).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import collectives as coll
 from repro_torch.kernels import ops
+from repro_torch.models import tp as tp_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dense_init, rope
 
-__all__ = ["init", "attention", "blockwise_attention", "forward", "prefill",
-           "init_cache", "init_pool", "cache_bytes_per_slot", "decode"]
+__all__ = ["init", "heads", "attention", "blockwise_attention", "forward",
+           "prefill", "init_cache", "init_pool", "cache_bytes_per_slot",
+           "decode"]
 
 _NEG = -1e30
 
@@ -43,16 +62,85 @@ def init(gen: torch.Generator, cfg: ArchConfig, count: int, device=None) -> dict
     }
 
 
-def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+@dataclasses.dataclass(frozen=True)
+class Heads:
+    """This rank's share of an attention layer: query heads ``[q0, q0 +
+    hq)``; the KV heads it computes and caches, ``[kv_held0, kv_held0 +
+    kv_held)``; of those, the ones its queries read, ``[kv0, kv1)``."""
+
+    q0: int
+    hq: int
+    kv_held0: int
+    kv_held: int
+    kv0: int
+    kv1: int
+
+
+def heads(cfg: ArchConfig, mesh=None) -> Heads:
+    """The head plan of this rank (the whole layer off a mesh)."""
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    ax = tp_lib.model_axis(mesh)
+    if ax is None:
+        return Heads(0, h, 0, kvh, 0, kvh)
+    tp, m = ax.size, ax.index
+    if h % tp:
+        raise NotImplementedError(
+            f"attention on tp={tp}: {h} query heads do not divide")
+    hq = h // tp
+    q0 = m * hq
+    if kvh % tp == 0:
+        n = kvh // tp
+        return Heads(q0, hq, m * n, n, 0, n)
+    g = h // kvh
+    kv0, kv1 = q0 // g, (q0 + hq - 1) // g + 1
+    if hq % (kv1 - kv0) or any((q0 + j) // g - kv0 != j // (hq // (kv1 - kv0))
+                               for j in range(hq)):
+        raise NotImplementedError(
+            f"attention on tp={tp}: {hq} query heads a rank read unequal "
+            f"shares of {kvh} KV heads")
+    return Heads(q0, hq, 0, kvh, kv0, kv1)
+
+
+def _read_kv(t: torch.Tensor, hp: Heads) -> torch.Tensor:
+    """The KV heads (dim 2) this rank's query heads read."""
+    if hp.kv0 == 0 and hp.kv1 == t.shape[2]:
+        return t
+    return t[:, :, hp.kv0:hp.kv1]
+
+
+def _proj(p: dict, cfg: ArchConfig, mesh, spec: dict | None, hp: Heads,
+          dt):
+    """(wq, wk, wv, wo) this rank multiplies by: its stored blocks, with
+    the KV projections whole where their heads do not divide."""
+    out = [p["wq"], p["wk"], p["wv"], p["wo"]]
+    if tp_lib.model_axis(mesh) is not None and hp.kv_held == cfg.n_kv_heads:
+        out[1:3] = [tp_lib.whole(p[k], spec[k], mesh, dtype=dt)
+                    for k in ("wk", "wv")]
+    return out
+
+
+def _qkv(w: list, cfg: ArchConfig, hp: Heads, x: torch.Tensor,
+         positions: torch.Tensor):
     b, l, _ = x.shape
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(b, l, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"].to(dt)).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"].to(dt)).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
+    wq, wk, wv = w[:3]
+    q = (x @ wq.to(dt)).reshape(b, l, hp.hq, cfg.head_dim)
+    k = (x @ wk.to(dt)).reshape(b, l, hp.kv_held, cfg.head_dim)
+    v = (x @ wv.to(dt)).reshape(b, l, hp.kv_held, cfg.head_dim)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _enter(x: torch.Tensor, mesh) -> torch.Tensor:
+    ax = tp_lib.model_axis(mesh)
+    return x if ax is None else coll.copy_to(x, ax)
+
+
+def _leave(out: torch.Tensor, mesh) -> torch.Tensor:
+    ax = tp_lib.model_axis(mesh)
+    return out if ax is None else coll.reduce_from(out, ax)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -160,19 +248,27 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
             positions: torch.Tensor, *, window: int | None = None,
-            prefix: int = 0) -> torch.Tensor:
-    """Training attention (no cache): (B, L, d) -> (B, L, d)."""
+            prefix: int = 0, mesh=None, spec: dict | None = None
+            ) -> torch.Tensor:
+    """Training attention (no cache): (B, L, d) -> (B, L, d). ``spec``:
+    the layer's per-layer specs, on a mesh."""
     b, l, _ = x.shape
     win = cfg.window if window is None else window
-    q, k, v = _qkv(p, cfg, x, positions)
-    out = blockwise_attention(q, k, v, causal=cfg.causal and not cfg.encoder_only,
+    hp = heads(cfg, mesh)
+    w = _proj(p, cfg, mesh, spec, hp, x.dtype)
+    x = _enter(x, mesh)
+    q, k, v = _qkv(w, cfg, hp, x, positions)
+    out = blockwise_attention(q, _read_kv(k, hp), _read_kv(v, hp),
+                              causal=cfg.causal and not cfg.encoder_only,
                               window=win, prefix=prefix)
-    return out.reshape(b, l, cfg.d_attn) @ p["wo"].to(x.dtype)
+    out = out.reshape(b, l, hp.hq * cfg.head_dim) @ w[3].to(x.dtype)
+    return _leave(out, mesh)
 
 
 def prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
             max_seq: int, *, window: int | None = None, prefix: int = 0,
-            lengths: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+            lengths: torch.Tensor | None = None, mesh=None,
+            spec: dict | None = None) -> tuple[torch.Tensor, dict]:
     """Forward + KV-cache build -> (out (B, L, d), {"k", "v"} (B, s_c, KV,
     hd)).
 
@@ -185,11 +281,15 @@ def prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
     b, l, _ = x.shape
     dt = x.dtype
     win = cfg.window if window is None else window
-    q, k, v = _qkv(p, cfg, x, positions)
-    out = attention(q, k, v, causal=cfg.causal and not cfg.encoder_only,
+    hp = heads(cfg, mesh)
+    w = _proj(p, cfg, mesh, spec, hp, dt)
+    x = _enter(x, mesh)
+    q, k, v = _qkv(w, cfg, hp, x, positions)
+    out = attention(q, _read_kv(k, hp), _read_kv(v, hp),
+                    causal=cfg.causal and not cfg.encoder_only,
                     window=win, prefix=prefix)
     s_c = min(win, max_seq) if win else max_seq
-    shape = (b, s_c, cfg.n_kv_heads, cfg.head_dim)
+    shape = (b, s_c, hp.kv_held, cfg.head_dim)
     if lengths is not None:
         j = torch.arange(s_c, device=x.device)
         last = lengths.to(x.device).long()[:, None] - 1
@@ -212,13 +312,15 @@ def prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
         cv = torch.zeros(shape, dtype=dt, device=x.device)
         ck[:, slots] = k[:, l - s_c:]
         cv[:, slots] = v[:, l - s_c:]
-    out = out.reshape(b, l, cfg.d_attn) @ p["wo"].to(dt)
-    return out, {"k": ck.to(dt), "v": cv.to(dt)}
+    out = out.reshape(b, l, hp.hq * cfg.head_dim) @ w[3].to(dt)
+    return _leave(out, mesh), {"k": ck.to(dt), "v": cv.to(dt)}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
                window: int | None = None, device=None) -> dict:
-    """Zeroed dense KV ring, (batch, s_c, KV, hd) per leaf."""
+    """Zeroed dense KV ring, (batch, s_c, KV, hd) per leaf (the global
+    shape: :func:`repro_torch.models.transformer.init_cache` cuts it to a
+    rank's KV heads on a mesh)."""
     win = cfg.window if window is None else window
     s_c = min(win, max_seq) if win else max_seq
     shape = (batch, s_c, cfg.n_kv_heads, cfg.head_dim)
@@ -253,8 +355,8 @@ def cache_bytes_per_slot(cfg: ArchConfig, max_seq: int, dtype,
 def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
            pos: torch.Tensor, *, window: int | None = None,
            pages: torch.Tensor | None = None,
-           write_mask: torch.Tensor | None = None
-           ) -> tuple[torch.Tensor, dict]:
+           write_mask: torch.Tensor | None = None, mesh=None,
+           spec: dict | None = None) -> tuple[torch.Tensor, dict]:
     """Single-token decode against a per-slot KV ring OR a paged pool.
 
     Dense (``pages=None``): ``cache`` leaves are ``(B, s_c, KV, hd)`` rings
@@ -271,10 +373,16 @@ def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     to another request). ``flash_decode`` then attends over the first
     ``min(pos + 1, s_c)`` ring rows through the page table, reading the
     pool in place (no gathered view).
+
+    On a mesh the cache holds this rank's KV heads (:func:`heads`) and
+    ``flash_decode`` runs on its query heads.
     """
     b = x.shape[0]
     dt = x.dtype
-    q, k, v = _qkv(p, cfg, x, pos[:, None])
+    hp = heads(cfg, mesh)
+    w = _proj(p, cfg, mesh, spec, hp, dt)
+    x = _enter(x, mesh)
+    q, k, v = _qkv(w, cfg, hp, x, pos[:, None])
     ar = torch.arange(b, device=x.device)
     if pages is None:
         s_c = cache["k"].shape[1]
@@ -292,7 +400,7 @@ def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
         cache["k"][phys, off] = k[:, 0].to(cache["k"].dtype)
         cache["v"][phys, off] = v[:, 0].to(cache["v"].dtype)
     lengths = torch.clamp(pos + 1, max=s_c).to(torch.int32)
-    o = ops.flash_decode(q[:, 0], cache["k"], cache["v"], lengths,
-                         pages=pages)
-    out = o.to(dt).reshape(b, 1, cfg.d_attn) @ p["wo"].to(dt)
-    return out, cache
+    o = ops.flash_decode(q[:, 0], _read_kv(cache["k"], hp),
+                         _read_kv(cache["v"], hp), lengths, pages=pages)
+    out = o.to(dt).reshape(b, 1, hp.hq * cfg.head_dim) @ w[3].to(dt)
+    return _leave(out, mesh), cache

@@ -10,11 +10,17 @@ as in the reference: the audio stub takes precomputed frame embeddings
 (``batch["patches"]``) that it puts before the text tokens.
 
 On a mesh (:class:`repro_torch.launch.mesh.Mesh`, ``Model(cfg, mesh=)``)
-each rank holds its slice of the output embedding's rows and of the MoE
-experts (:func:`repro_torch.launch.mesh.param_spec`), the trunk replicated
-over the model axis and this data rank's batch; the head is the
+each rank holds its block of every leaf as
+:func:`repro_torch.launch.mesh.param_spec` places it — the input and
+output embeddings' rows over the model axis, the trunk Megatron-split over
+it and FSDP-split over the data axis (:mod:`repro_torch.models
+.transformer`) — and this data rank's batch. The input lookup is
+vocab-parallel: each rank embeds the ids of its row block, zero
+elsewhere, and the rows are summed over the model axis; so tied
+embeddings share the output embedding's layout. The head is the
 distributed one (:mod:`repro_torch.models.head`) over a
-:class:`repro_torch.core.mips.ShardedIndex`.
+:class:`repro_torch.core.mips.ShardedIndex`; ``encode`` gathers each
+rank's vocab slice of the logits.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import collectives as coll
 from repro_torch import precision, resolve_device
 from repro_torch.core import amortized_head as ah
 from repro_torch.models import head as dist_head
@@ -64,10 +71,6 @@ class Model:
 
     def __init__(self, cfg: ArchConfig, precision_policy=None, device=None,
                  mesh=None):
-        if mesh is not None and cfg.tie_embeddings:
-            raise NotImplementedError(
-                "tied embeddings on a mesh: the port shards the output "
-                "embedding only (the input lookup stays replicated)")
         self.cfg = cfg
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -102,6 +105,28 @@ class Model:
         return params["embed"] if self.cfg.tie_embeddings else params["out_embed"]
 
     # ---------------------------------------------------------------- embed
+    def _lookup(self, params, ids: torch.Tensor) -> torch.Tensor:
+        """Token embeddings of ``ids`` in the compute dtype. On a mesh the
+        lookup is vocab-parallel: this rank's rows embed the ids they
+        hold, zero for the others, and the rows are summed over the model
+        axis (one nonzero term each: exact)."""
+        emb = params["embed"]
+        ids = ids.long()
+        ax = None if self.mesh is None or self.mesh.tp == 1 else \
+            self.mesh.model
+        if ax is None:
+            # an embedding lookup: its backward sums repeated tokens in a
+            # fixed order (advanced indexing's uses atomics on the CPU)
+            return torch.nn.functional.embedding(ids, emb).to(
+                self.compute_dtype)
+        v = emb.shape[0]
+        loc = ids - ax.index * v
+        hit = (loc >= 0) & (loc < v)
+        x = torch.nn.functional.embedding(loc.clamp(0, v - 1), emb)
+        x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+        return coll.reduce_from(x.to(self.compute_dtype), ax)
+
     def _embed_inputs(self, params, batch) -> tuple[torch.Tensor,
                                                     torch.Tensor, int]:
         """-> (x (B, L, d) compute dtype, positions (B, L), prefix): frame
@@ -113,10 +138,7 @@ class Model:
         if cfg.frontend == "audio_stub":
             x = batch["frames"].to(self.compute_dtype)
         else:
-            # an embedding lookup: its backward sums repeated tokens in a
-            # fixed order (advanced indexing's uses atomics on the CPU)
-            x = torch.nn.functional.embedding(
-                batch["tokens"].long(), params["embed"]).to(self.compute_dtype)
+            x = self._lookup(params, batch["tokens"])
             if cfg.frontend == "vision_stub":
                 x = torch.cat([batch["patches"].to(self.compute_dtype), x],
                               dim=1)
@@ -221,7 +243,8 @@ class Model:
         (:func:`repro_torch.models.transformer.init_cache`)."""
         dtype = self.compute_dtype if dtype is None else dtype
         return transformer.init_cache(self.cfg, batch, max_seq, dtype,
-                                      device=self.device, paged=paged)
+                                      device=self.device, paged=paged,
+                                      mesh=self.mesh)
 
     def _sample(self, params, hq, index, keys, draws, strict, strict_live,
                 router) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -264,7 +287,7 @@ class Model:
         paged pool; ``write_mask`` ((B,) bool, the engine's ``active``
         flags) sends retired slots' KV writes to the pool's sink block, so
         recycled blocks are never overwritten."""
-        x = params["embed"][ids][:, None].to(self.compute_dtype)  # (B, 1, d)
+        x = self._lookup(params, ids)[:, None]  # (B, 1, d)
         h, cache = transformer.apply_trunk_decode(
             params, self.cfg, x, cache, pos, pages=pages,
             write_mask=write_mask, mesh=self.mesh)
@@ -312,7 +335,7 @@ class Model:
         if self.cfg.frontend != "none":
             raise NotImplementedError(
                 "prefill_into_cache serves token-LM frontends only")
-        x = params["embed"][tokens].to(self.compute_dtype)  # (Bn, Lp, d)
+        x = self._lookup(params, tokens)  # (Bn, Lp, d)
         b, l, _ = x.shape
         pos = torch.arange(l, device=x.device)[None].expand(b, l)
         h, part = transformer.apply_trunk_prefill(
@@ -329,13 +352,14 @@ class Model:
     # ---------------------------------------------------------------- encoder
     def encode(self, params, batch) -> torch.Tensor:
         """Encoder-only archs (hubert): per-frame fp32 logits (B, L, vocab)
-        over the output embedding."""
-        if self.mesh is not None:
-            raise NotImplementedError("encode on a mesh: the logits need "
-                                      "the whole output embedding")
+        over the output embedding (on a mesh: each rank's vocab slice,
+        gathered over the model axis)."""
         x, pos, _ = self._embed_inputs(params, batch)
-        h, _ = transformer.apply_trunk(params, self.cfg, x, pos)
+        h, _ = transformer.apply_trunk(params, self.cfg, x, pos,
+                                       mesh=self.mesh)
         logits = h.float() @ self._out_embed(params).float().T
+        if self.mesh is not None and self.mesh.tp > 1:
+            logits = coll.all_gather_dim(logits, self.mesh.model, -1)
         return logits[..., : self.cfg.vocab]
 
 

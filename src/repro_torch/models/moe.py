@@ -30,7 +30,11 @@ mesh's ``model`` axis — the expert dim in "ep", else the FFN hidden
 ("tp"), as :func:`repro_torch.launch.mesh.moe_mode` places them (the one
 switch, ``launch.mesh.MOE_SHARDING``, decides storage and compute alike) —
 and the one cross-rank collective is a sum of the combined (T_loc, d)
-output.
+output. The router and the experts arrive whole over ``data``: their FSDP
+dims are gathered per layer before the block runs
+(:func:`repro_torch.models.tp.fsdp_gather`). Where "tp" finds the hidden
+indivisible, the experts are stored whole and every rank computes the
+layer.
 
 :data:`TRACE` (None by default) is a measurement hook: set it to a list and
 each call appends ``{"dropped", "assigned", "load"}`` device tensors (the
@@ -169,6 +173,8 @@ def forward_dist(p: dict, cfg: ArchConfig, x: torch.Tensor, mesh
     ax = mesh.model
     mp = ax.size
     use_ep = mesh_lib.moe_mode(cfg, mp) == "ep"
+    if not use_ep and cfg.expert_d_ff % mp:
+        return forward(p, cfg, x)  # experts stored whole (param_spec)
     xin = coll.copy_to(x, ax)
     p_loc = dict(p, router=coll.copy_to(p["router"], ax))
     if use_ep:

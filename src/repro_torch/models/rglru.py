@@ -10,12 +10,24 @@ to rounding, not bit for bit. Decode is the O(1) state update. Gate
 projections are block-diagonal (8 blocks), as in Griffin, and run in fp32;
 ``1 - a²`` is ``-expm1(2 log a)`` for stability near a → 1. The gelu is the
 tanh approximation (``jax.nn.gelu``'s default).
+
+**On a mesh** (``mesh=``), with ``tp`` dividing the 8 gate blocks: each
+rank runs its ``W / tp`` channels, whole gate blocks — ``w_gate_branch``
+/ ``w_in`` column-split, ``w_a`` / ``w_i`` gathered over ``model`` (the
+reference splits each block's output columns) and cut to its blocks,
+``lam`` and the conv taps sliced to its channels, ``w_out`` row-split —
+and its decode ``state`` is its channels'. The conv tail stays whole on
+every rank (the reference's cache placement), so prefill and decode
+gather the tail. A split of the width that cuts a gate block (``tp`` not
+dividing 8) is refused.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import collectives as coll
+from repro_torch.models import tp as tp_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dense_init, masked_conv_tail
 from repro_torch.models.ssm import _causal_conv, softplus
@@ -53,10 +65,11 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 def _gates(p: dict, u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Block-diagonal gate projections in fp32. u: (..., W) -> (log_a,
-    gate_i), both (..., W) fp32."""
+    gate_i), both (..., W) fp32 (W: the channels of ``p``'s blocks)."""
     shp = u.shape
     w = shp[-1]
-    ub = u.reshape(shp[:-1] + (_N_BLOCKS, w // _N_BLOCKS)).float()
+    nb = p["w_a"].shape[0]
+    ub = u.reshape(shp[:-1] + (nb, w // nb)).float()
     r = torch.sigmoid(torch.einsum("...nk,nkj->...nj", ub, p["w_a"]))
     gi = torch.sigmoid(torch.einsum("...nk,nkj->...nj", ub, p["w_i"]))
     # log a_t = -c * softplus(Λ) * r_t   (a in (0, 1), near 1 for small r)
@@ -78,6 +91,46 @@ def scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
+class _Split:
+    """This rank's channels ``[c0, c0 + w)`` and gate blocks ``[n0, n0 +
+    nb)``; ``ax`` is None off a mesh."""
+
+    def __init__(self, cfg: ArchConfig, mesh):
+        ax = tp_lib.model_axis(mesh)
+        tp, m = (1, 0) if ax is None else (ax.size, ax.index)
+        if _N_BLOCKS % tp:
+            raise NotImplementedError(
+                f"RG-LRU on tp={tp}: the split must keep the "
+                f"{_N_BLOCKS} gate blocks whole (tp dividing {_N_BLOCKS})")
+        self.ax = ax
+        self.w = cfg.lru_dim // tp
+        self.c0 = m * self.w
+        self.nb = _N_BLOCKS // tp
+        self.n0 = m * self.nb
+
+
+def _leaves(p: dict, spec: dict | None, mesh, sp: _Split) -> dict:
+    """The leaves this rank computes with: its channels' and gate
+    blocks' on the Megatron route."""
+    if sp.ax is None:
+        return p
+    ax = sp.ax
+    out = dict(p)
+    for k in ("w_a", "w_i"):
+        full = tp_lib.whole(p[k], spec[k], mesh)
+        out[k] = full[sp.n0:sp.n0 + sp.nb]
+    out["lam"] = tp_lib.local(p["lam"], ax, 0, sp.c0, sp.w)
+    out["conv"] = tp_lib.local(p["conv"], ax, 1, sp.c0, sp.w)
+    return out
+
+
+def _full_tail(tail: torch.Tensor, sp: _Split) -> torch.Tensor:
+    """This rank's channels of a conv tail -> the whole tail (gathered)."""
+    if sp.ax is None:
+        return tail
+    return torch.cat(coll.all_gather(tail, sp.ax).unbind(0), dim=-1)
+
+
 def _rglru(p: dict, u: torch.Tensor,
            lengths: torch.Tensor | None = None) -> torch.Tensor:
     """u: (B, L, W) conv output -> the recurrence's output, fp32."""
@@ -94,23 +147,30 @@ def _rglru(p: dict, u: torch.Tensor,
 
 def forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
             return_cache: bool = False,
-            lengths: torch.Tensor | None = None):
+            lengths: torch.Tensor | None = None, mesh=None,
+            spec: dict | None = None):
     """(B, L, d) -> (B, L, d) [, cache {"state" (B, W) fp32, "conv" (B,
-    width-1, W)}]. ``lengths`` (right-padded batched prefill): pads get
+    width-1, W)}]. ``spec``: the layer's per-layer specs, on a mesh. ``lengths`` (right-padded batched prefill): pads get
     log a = 0, the recurrence's identity, so the cached state is the state
     after each row's last valid token."""
     dt = x.dtype
+    sp = _Split(cfg, mesh)
+    p = _leaves(p, spec, mesh, sp)
+    if sp.ax is not None:
+        x = coll.copy_to(x, sp.ax)
     gate = _gelu(x @ p["w_gate_branch"].to(dt))
     u_raw = x @ p["w_in"].to(dt)
     u = _causal_conv(u_raw, p["conv"].to(dt))
     h = _rglru(p, u, lengths=lengths)
     out = (h.to(dt) * gate) @ p["w_out"].to(dt)
+    if sp.ax is not None:
+        out = coll.reduce_from(out, sp.ax)
     if not return_cache:
         return out
     w1 = cfg.conv_width - 1
     tail = (u_raw[:, -w1:] if lengths is None
             else masked_conv_tail(u_raw, lengths, w1))
-    return out, {"state": h[:, -1], "conv": tail}
+    return out, {"state": h[:, -1], "conv": _full_tail(tail, sp)}
 
 
 def init_cache(cfg: ArchConfig, batch: int, dtype, device=None) -> dict:
@@ -130,14 +190,20 @@ def cache_bytes_per_slot(cfg: ArchConfig, dtype) -> int:
     return 4 * w + (cfg.conv_width - 1) * w * itemsize
 
 
-def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict
+def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
+           mesh=None, spec: dict | None = None
            ) -> tuple[torch.Tensor, dict]:
     """x: (B, 1, d) -> ((B, 1, d), new cache): the O(1) recurrent update,
     the conv taken in fp32 against the fp32 ``conv``."""
     dt = x.dtype
+    sp = _Split(cfg, mesh)
+    p = _leaves(p, spec, mesh, sp)
+    if sp.ax is not None:
+        x = coll.copy_to(x, sp.ax)
     gate = _gelu(x @ p["w_gate_branch"].to(dt))  # (B, 1, W)
     u = x @ p["w_in"].to(dt)
-    window = torch.cat([cache["conv"], u], dim=1)  # (B, width, W)
+    tail = cache["conv"][..., sp.c0:sp.c0 + sp.w]  # every channel cached
+    window = torch.cat([tail, u], dim=1)  # (B, width, W)
     u_c = torch.einsum("bwc,wc->bc", window.float(),
                        p["conv"].float()).to(dt)  # (B, W)
     log_a, gi = _gates(p, u_c)
@@ -145,4 +211,7 @@ def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict
     beta = torch.sqrt(-torch.expm1(2.0 * log_a))
     h = a * cache["state"] + beta * gi * u_c.float()
     out = (h[:, None].to(dt) * gate) @ p["w_out"].to(dt)
-    return out, {"state": h, "conv": window[:, 1:]}
+    if sp.ax is not None:
+        out = coll.reduce_from(out, sp.ax)
+    new_tail = torch.cat([cache["conv"], _full_tail(u, sp)], dim=1)[:, 1:]
+    return out, {"state": h, "conv": new_tail}

@@ -23,7 +23,9 @@ ceiling. This module learns that mapping.
 A misprediction costs bandwidth, never correctness: the certificate still
 gates every widening step. ``staged_widen`` clips the predicted stage into
 the schedule. Routers are saved as ``.npz`` files with the reference's
-fields, so a router saved by either package loads in the other.
+fields, so a router saved by either package loads in the other. On a
+multi-rank mesh one rank fits and :func:`broadcast_router` hands its
+weights to the others, so every shard routes with the same router.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ __all__ = [
     "train_router",
     "save_router",
     "load_router",
+    "broadcast_router",
 ]
 
 HIDDEN = 16
@@ -189,3 +192,17 @@ def load_router(path: str, device=None) -> ProbeRouter:
     with np.load(path) as data:
         return ProbeRouter(*(torch.from_numpy(np.array(data[f])).to(device)
                              for f in ProbeRouter._fields))
+
+
+def broadcast_router(router: ProbeRouter | None, axis, device=None
+                     ) -> ProbeRouter:
+    """The axis' first rank's ``router`` on every rank of ``axis`` (the
+    others pass None), onto ``device``: its fp32 weights cross as numpy
+    arrays."""
+    from repro_torch import collectives as coll
+
+    arrs = (None if router is None else
+            {f: v.detach().cpu().numpy() for f, v in router._asdict().items()})
+    arrs = coll.broadcast_object(arrs, axis)
+    return ProbeRouter(*(torch.from_numpy(arrs[f]).to(device)
+                         for f in ProbeRouter._fields))

@@ -11,12 +11,25 @@ decode. The SSD sums run in fp32 (TF32 stays off, ``repro_torch/__init__``).
 
 Prefill convolves in the compute dtype (``conv`` cast at use), decode in
 fp32 against the fp32 ``conv``: that asymmetry is the reference's.
+
+**On a mesh** (``mesh=``), with the SSM heads dividing ``tp``: each rank
+runs its ``H / tp`` heads — ``wx`` / ``wz`` / ``wdt`` column-split,
+``dt_bias`` / ``a_log`` / ``d_skip`` / ``norm`` and the ``u`` channels of
+``conv`` sliced to them, ``wb`` / ``wc`` gathered whole (B and C are
+shared by every head), the gated RMSNorm's sum of squares summed over
+``model`` (it normalises the whole ``d_inner``), ``wo`` row-split — and
+its decode ``state`` is its heads'. The conv tail stays whole on every
+rank (the reference's cache placement), so prefill and decode gather
+the tail's ``u`` channels. A ``tp`` the SSM heads do not divide is
+refused (no config meets it at tp ≤ 4).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import collectives as coll
+from repro_torch.models import tp as tp_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dense_init, masked_conv_tail, rms_norm
 
@@ -71,9 +84,45 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
                                              device=x.device))
 
 
+class _Split:
+    """This rank's SSM heads ``[h0, h0 + h)`` and ``d_inner`` channels
+    ``[u0, u0 + di)``; ``ax`` is None off a mesh."""
+
+    def __init__(self, cfg: ArchConfig, mesh):
+        ax = tp_lib.model_axis(mesh)
+        tp, m = (1, 0) if ax is None else (ax.size, ax.index)
+        if cfg.ssm_heads % tp:
+            raise NotImplementedError(
+                f"SSM on tp={tp}: {cfg.ssm_heads} heads do not divide")
+        self.ax = ax
+        self.h = cfg.ssm_heads // tp
+        self.h0 = m * self.h
+        self.di = self.h * cfg.ssm_head_dim
+        self.u0 = m * self.di
+
+
+def _leaves(p: dict, cfg: ArchConfig, spec: dict | None, mesh, sp: _Split,
+            dt) -> dict:
+    """The leaves this rank computes with (see the module doc): its
+    heads', with B and C's projections whole."""
+    if sp.ax is None:
+        return p
+    ax, di = sp.ax, cfg.d_inner
+    out = dict(p)
+    for k in ("wb", "wc"):
+        out[k] = tp_lib.whole(p[k], spec[k], mesh, dtype=dt)
+    for k in ("dt_bias", "a_log", "d_skip"):
+        out[k] = tp_lib.local(p[k], ax, 0, sp.h0, sp.h)
+    out["norm"] = tp_lib.local(p["norm"], ax, 0, sp.u0, sp.di)
+    conv = coll.copy_to(p["conv"], ax)
+    out["conv"] = torch.cat([conv[:, sp.u0:sp.u0 + sp.di], conv[:, di:]],
+                            dim=1)
+    return out
+
+
 def _project(p: dict, x: torch.Tensor):
     """Shared projections. x: (B, L, d) -> (ubc (B, L, conv_dim), z, dt fp32
-    (B, L, H))."""
+    (B, L, H)) (this rank's ``u`` channels and heads on a mesh)."""
     dt_ = x.dtype
     u = x @ p["wx"].to(dt_)
     z = x @ p["wz"].to(dt_)
@@ -83,24 +132,43 @@ def _project(p: dict, x: torch.Tensor):
     return torch.cat([u, bb, cc], dim=-1), z, dt
 
 
-def _split_conv_out(cfg: ArchConfig, conv_out: torch.Tensor):
-    di, n = cfg.d_inner, cfg.ssm_state
+def _split_conv_out(cfg: ArchConfig, conv_out: torch.Tensor, di: int):
+    n = cfg.ssm_state
     return (F.silu(conv_out[..., :di]), F.silu(conv_out[..., di:di + n]),
             F.silu(conv_out[..., di + n:]))
 
 
 def _out(p: dict, cfg: ArchConfig, y: torch.Tensor, z: torch.Tensor,
-         dtype) -> torch.Tensor:
-    """Gated norm and output projection of the (B, L, d_inner) SSM output."""
+         dtype, sp: _Split) -> torch.Tensor:
+    """Gated norm and output projection of the (B, L, d_inner) SSM output
+    (this rank's channels on the Megatron route: the norm's sum of squares
+    and the projection's partials summed over the model axis)."""
     y = y.to(dtype) * F.silu(z)
-    return rms_norm(y, p["norm"], cfg.norm_eps) @ p["wo"].to(dtype)
+    if sp.ax is None:
+        return rms_norm(y, p["norm"], cfg.norm_eps) @ p["wo"].to(dtype)
+    yf = y.float()
+    ss = coll.all_reduce((yf * yf).sum(dim=-1, keepdim=True), sp.ax)
+    yn = (yf * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+          * (1.0 + p["norm"].float())).to(dtype)
+    return coll.reduce_from(yn @ p["wo"].to(dtype), sp.ax)
+
+
+def _full_tail(tail: torch.Tensor, sp: _Split) -> torch.Tensor:
+    """A conv tail of this rank's ``u`` channels plus B, C -> the whole
+    tail every rank caches (the ``u`` channels gathered over the axis)."""
+    if sp.ax is None:
+        return tail
+    u = coll.all_gather(tail[..., :sp.di], sp.ax).unbind(0)
+    return torch.cat(list(u) + [tail[..., sp.di:]], dim=-1)
 
 
 def forward(p: dict, cfg: ArchConfig, x: torch.Tensor, chunk: int = 128,
             return_cache: bool = False,
-            lengths: torch.Tensor | None = None):
+            lengths: torch.Tensor | None = None, mesh=None,
+            spec: dict | None = None):
     """(B, L, d) -> (B, L, d) [, cache {"state" (B, H, hd, N) fp32, "conv"
-    (B, width-1, conv_dim)}].
+    (B, width-1, conv_dim)}]. ``spec``: the layer's per-layer specs, on a
+    mesh.
 
     ``lengths`` ((B,) valid prefix lengths, right-padded batched prefill):
     pads get dt masked to 0, so their decay is 1 and their state
@@ -108,7 +176,11 @@ def forward(p: dict, cfg: ArchConfig, x: torch.Tensor, chunk: int = 128,
     returned cache is the state after each row's last valid token.
     L must be a multiple of ``min(chunk, L)``, as in the reference."""
     b, l, _ = x.shape
-    h, hd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    sp = _Split(cfg, mesh)
+    p = _leaves(p, cfg, spec, mesh, sp, x.dtype)
+    if sp.ax is not None:
+        x = coll.copy_to(x, sp.ax)
+    h, hd, n = sp.h, cfg.ssm_head_dim, cfg.ssm_state
     q = min(chunk, l)
     assert l % q == 0, (l, q)
     nc = l // q
@@ -118,7 +190,8 @@ def forward(p: dict, cfg: ArchConfig, x: torch.Tensor, chunk: int = 128,
         valid = (torch.arange(l, device=x.device)[None, :]
                  < lengths.to(x.device)[:, None])
         dt = torch.where(valid[..., None], dt, torch.zeros((), device=x.device))
-    u, bb, cc = _split_conv_out(cfg, _causal_conv(ubc, p["conv"].to(x.dtype)))
+    u, bb, cc = _split_conv_out(cfg, _causal_conv(ubc, p["conv"].to(x.dtype)),
+                                sp.di)
 
     a = -torch.exp(p["a_log"])  # (H,)
     da = (dt * a).reshape(b, nc, q, h)  # log-decay per step
@@ -151,13 +224,13 @@ def forward(p: dict, cfg: ArchConfig, x: torch.Tensor, chunk: int = 128,
 
     y = (y_diag + y_off).reshape(b, l, h, hd)
     y = y + xh.reshape(b, l, h, hd) * p["d_skip"][None, None, :, None]
-    out = _out(p, cfg, y.reshape(b, l, cfg.d_inner), z, x.dtype)
+    out = _out(p, cfg, y.reshape(b, l, sp.di), z, x.dtype, sp)
     if not return_cache:
         return out
     w1 = cfg.conv_width - 1
     tail = (ubc[:, -w1:] if lengths is None
             else masked_conv_tail(ubc, lengths, w1))
-    return out, {"state": st, "conv": tail}
+    return out, {"state": st, "conv": _full_tail(tail, sp)}
 
 
 def init_cache(cfg: ArchConfig, batch: int, dtype, device=None) -> dict:
@@ -182,17 +255,26 @@ def cache_bytes_per_slot(cfg: ArchConfig, dtype) -> int:
     return state + (cfg.conv_width - 1) * conv_dim * itemsize
 
 
-def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict
+def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
+           mesh=None, spec: dict | None = None
            ) -> tuple[torch.Tensor, dict]:
     """x: (B, 1, d) -> ((B, 1, d), new cache): the O(1) state update, the
     conv taken in fp32 against the fp32 ``conv``."""
     b = x.shape[0]
-    h, hd = cfg.ssm_heads, cfg.ssm_head_dim
-    ubc, z, dt = _project(p, x)  # ubc: (B, 1, conv_dim)
-    window = torch.cat([cache["conv"], ubc], dim=1)  # (B, width, C)
+    sp = _Split(cfg, mesh)
+    p = _leaves(p, cfg, spec, mesh, sp, x.dtype)
+    if sp.ax is not None:
+        x = coll.copy_to(x, sp.ax)
+    h, hd, di = sp.h, cfg.ssm_head_dim, cfg.d_inner
+    ubc, z, dt = _project(p, x)  # ubc: (B, 1, this rank's conv channels)
+    tail = cache["conv"]  # (B, width-1, conv_dim): every channel
+    if sp.ax is not None:
+        tail = torch.cat([tail[..., sp.u0:sp.u0 + sp.di], tail[..., di:]],
+                         dim=-1)
+    window = torch.cat([tail, ubc], dim=1)  # (B, width, C)
     conv_out = torch.einsum("bwc,wc->bc", window.float(),
                             p["conv"].float()).to(x.dtype)[:, None]
-    u, bb, cc = _split_conv_out(cfg, conv_out)
+    u, bb, cc = _split_conv_out(cfg, conv_out, sp.di)
 
     a = -torch.exp(p["a_log"])
     dt0 = dt[:, 0]  # (B, H)
@@ -203,5 +285,6 @@ def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict
         "bhp,bn->bhpn", dtx, bb[:, 0].float())
     y = torch.einsum("bhpn,bn->bhp", st, cc[:, 0].float())
     y = y + xh * p["d_skip"][None, :, None]
-    out = _out(p, cfg, y.reshape(b, 1, cfg.d_inner), z, x.dtype)
-    return out, {"state": st, "conv": window[:, 1:]}
+    out = _out(p, cfg, y.reshape(b, 1, sp.di), z, x.dtype, sp)
+    new_tail = torch.cat([cache["conv"], _full_tail(ubc, sp)], dim=1)[:, 1:]
+    return out, {"state": st, "conv": new_tail}

@@ -21,16 +21,31 @@ block pool ``(layers, n_blocks + 1, block_len, KV, hd)`` addressed through
 per-slot page tables; its last block is the sink that takes the writes a
 page table does not map (see :func:`repro_torch.models.attention
 .init_pool`). Recurrent state stays slot-resident in both layouts.
+
+**On a mesh** (``mesh=``): every leaf is this rank's block as
+:func:`repro_torch.launch.mesh.param_spec` places it. Each layer step
+first all-gathers the leaves split over ``data`` (FSDP,
+:func:`repro_torch.models.tp.fsdp_gather`) — inside the training step's
+checkpoint, so the recompute gathers again and the gradient is
+reduce-scattered back — then runs its blocks on their ``model`` split
+(attention, SwiGLU, SSM and RG-LRU Megatron-style, the MoE over its
+experts). The serving caches are allocated as
+:func:`repro_torch.launch.mesh.cache_shardings` places them over
+``model``: a rank's KV heads and its share of the recurrent state.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import collectives as coll
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import attention, moe, rglru, ssm
+from repro_torch.models import tp as tp_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dense_init, mlp_init, rms_norm, swiglu
 
@@ -46,6 +61,8 @@ __all__ = [
     "apply_trunk_decode",
     "PagedLayout",
     "ring_len",
+    "param_specs",
+    "spec_of",
 ]
 
 
@@ -202,11 +219,15 @@ def _unstack(tree) -> list:
     return list(torch.unbind(tree))
 
 
-def _ffn(p: dict, cfg: ArchConfig, h: torch.Tensor, mesh=None
+def _ffn(p: dict, cfg: ArchConfig, h: torch.Tensor, mesh=None,
+         spec: dict | None = None
          ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The post-mixer sub-block: h + MLP(norm2(h)) (SwiGLU, or the MoE with
-    its aux loss; None for SwiGLU). On a mesh the MoE runs with its experts
-    split over the model axis (:func:`moe.forward_dist`)."""
+    its aux loss; None for SwiGLU). On a mesh (``spec``: the layer's
+    per-layer specs) the MoE runs with its experts split over the model
+    axis (:func:`moe.forward_dist`) and SwiGLU Megatron-style where its
+    hidden divides: ``w1`` / ``w3`` column-split, ``w2`` row-split, the
+    partial outputs summed over the axis."""
     x = rms_norm(h, p["norm2"], cfg.norm_eps)
     if cfg.is_moe:
         b, l, d = x.shape
@@ -215,35 +236,102 @@ def _ffn(p: dict, cfg: ArchConfig, h: torch.Tensor, mesh=None
         else:
             out, aux = moe.forward(p["mlp"], cfg, x.reshape(-1, d))
         return h + out.reshape(b, l, d), aux
-    return h + swiglu(x, p["mlp"]["w1"], p["mlp"]["w2"], p["mlp"]["w3"]), None
+    w = p["mlp"]
+    if tp_lib.model_dim(_sub(spec, "mlp", "w2"), mesh) is None:
+        return h + swiglu(x, w["w1"], w["w2"], w["w3"]), None
+    ax = mesh.model
+    out = swiglu(coll.copy_to(x, ax), w["w1"], w["w2"], w["w3"])
+    return h + coll.reduce_from(out, ax), None
+
+
+@functools.lru_cache(maxsize=32)
+def _specs(cfg: ArchConfig, dp: int, tp: int, moe_sharding: str
+           ) -> tuple[dict, list]:
+    """(spec tree of the params, per block group its per-layer spec tree
+    (the layer dim dropped)) on a (dp, tp) mesh, from the global shapes."""
+    mesh = mesh_lib.Mesh(dp, tp, 0, None, None, None)
+    meta = init_params(torch.Generator(), cfg, device="meta")
+    tree = mesh_lib.map_with_path(
+        lambda path, t: mesh_lib.param_spec(list(path), tuple(t.shape), mesh,
+                                            cfg), meta)
+
+    def per_layer(t):
+        if isinstance(t, dict):
+            return {k: per_layer(v) for k, v in t.items()}
+        return t[1:]
+
+    return tree, [per_layer(g) for g in tree["blocks"]]
+
+
+def param_specs(cfg: ArchConfig, mesh) -> dict:
+    """:func:`repro_torch.launch.mesh.param_spec` of every leaf of
+    ``cfg``'s params on ``mesh``, in the params' structure (computed once
+    per geometry and shared: read it, do not change it)."""
+    return _specs(cfg, mesh.dp, mesh.tp, mesh_lib.MOE_SHARDING)[0]
+
+
+def spec_of(path, mesh, cfg: ArchConfig) -> tuple:
+    """The spec of the params leaf at ``path`` (str keys)."""
+    t = param_specs(cfg, mesh)
+    for k in path:
+        t = t[int(k)] if isinstance(t, list) else t[k]
+    return t
+
+
+def _layer_specs(cfg: ArchConfig, mesh) -> list:
+    """Per block group, one layer's spec tree; Nones off a mesh."""
+    if mesh is None:
+        return [None] * len(block_groups(cfg))
+    return _specs(cfg, mesh.dp, mesh.tp, mesh_lib.MOE_SHARDING)[1]
+
+
+def _gathered(ps: dict, gspec: dict | None, mesh, dtype) -> dict:
+    """One layer step's leaves, FSDP dims gathered over ``data``."""
+    if gspec is None:
+        return ps
+    return tp_lib.fsdp_gather(ps, gspec, mesh, dtype, _CAST)
+
+
+def _sub(gspec: dict | None, *keys):
+    """The spec subtree at ``keys``; None off a mesh."""
+    for k in keys:
+        gspec = None if gspec is None else gspec[k]
+    return gspec
 
 
 # ----------------------------------------------------------------- train
 
 
 def _block(p: dict, cfg: ArchConfig, kind: str, h: torch.Tensor,
-           positions: torch.Tensor, prefix: int, mesh=None
+           positions: torch.Tensor, prefix: int, mesh=None,
+           spec: dict | None = None
            ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One layer of the training forward -> (h, aux or None)."""
     x = rms_norm(h, p["norm1"], cfg.norm_eps)
+    ms = _sub(spec, "mix")
     if kind == "ssm":
-        return h + ssm.forward(p["mix"], cfg, x), None
+        return h + ssm.forward(p["mix"], cfg, x, mesh=mesh, spec=ms), None
     if kind == "attn":
         mix = attention.forward(p["mix"], cfg, x, positions,
-                                window=_layer_window(cfg), prefix=prefix)
+                                window=_layer_window(cfg), prefix=prefix,
+                                mesh=mesh, spec=ms)
     else:  # rec
-        mix = rglru.forward(p["mix"], cfg, x)
-    return _ffn(p, cfg, h + mix, mesh)
+        mix = rglru.forward(p["mix"], cfg, x, mesh=mesh, spec=ms)
+    return _ffn(p, cfg, h + mix, mesh, spec)
 
 
 def _group_step(ps: dict, pattern: tuple, cfg: ArchConfig, h: torch.Tensor,
-                positions: torch.Tensor, prefix: int, mesh=None
+                positions: torch.Tensor, prefix: int, mesh=None,
+                gspec: dict | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One step of a block group (one layer of each pattern kind) -> (h,
-    the step's summed aux loss)."""
+    the step's summed aux loss). On a mesh its FSDP leaves are gathered
+    first (``gspec``: their specs)."""
+    ps = _gathered(ps, gspec, mesh, h.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j, kind in enumerate(pattern):
-        h, a = _block(ps[str(j)], cfg, kind, h, positions, prefix, mesh)
+        h, a = _block(ps[str(j)], cfg, kind, h, positions, prefix, mesh,
+                      _sub(gspec, str(j)))
         if a is not None:
             aux = aux + a
     return h, aux
@@ -261,23 +349,24 @@ def apply_trunk(params: dict, cfg: ArchConfig, x: torch.Tensor,
     (rec, rec, attn) group), then the final normed output — what deep-kNN
     (:mod:`repro_torch.workloads.dknn`) indexes, one index per tap.
 
-    ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`): MoE layers split their
-    experts over its model axis; the rest of the trunk is replicated and
-    the batch is this data rank's (so nothing here constrains it, where the
-    reference pins activations to the batch axes)."""
+    ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`): ``params`` are this
+    rank's blocks and ``x`` its data rank's batch; each layer gathers its
+    FSDP leaves and runs its blocks on their model split (the module
+    doc)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = x
     taps = []
-    for stack, (pattern, _) in zip(params["blocks"], block_groups(cfg)):
+    for stack, gspec, (pattern, _) in zip(
+            params["blocks"], _layer_specs(cfg, mesh), block_groups(cfg)):
         for ps in _unstack(stack):
             if REMAT:
                 h, a = checkpoint(_group_step, ps, pattern, cfg, h,
-                                  positions, prefix, mesh,
+                                  positions, prefix, mesh, gspec,
                                   use_reentrant=False,
                                   preserve_rng_state=False)
             else:
                 h, a = _group_step(ps, pattern, cfg, h, positions, prefix,
-                                   mesh)
+                                   mesh, gspec)
             aux = aux + a
             if return_taps:
                 taps.append(h.float())
@@ -293,21 +382,22 @@ def apply_trunk(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
 def _block_prefill(p: dict, cfg: ArchConfig, kind: str, h: torch.Tensor,
                    positions: torch.Tensor, max_seq: int, prefix: int,
-                   lengths: torch.Tensor | None, mesh=None
-                   ) -> tuple[torch.Tensor, dict]:
+                   lengths: torch.Tensor | None, mesh=None,
+                   spec: dict | None = None) -> tuple[torch.Tensor, dict]:
     x = rms_norm(h, p["norm1"], cfg.norm_eps)
+    ms = _sub(spec, "mix")
     if kind == "ssm":
         mix, cache = ssm.forward(p["mix"], cfg, x, return_cache=True,
-                                 lengths=lengths)
+                                 lengths=lengths, mesh=mesh, spec=ms)
         return h + mix, cache
     if kind == "attn":
         mix, cache = attention.prefill(
             p["mix"], cfg, x, positions, max_seq, window=_layer_window(cfg),
-            prefix=prefix, lengths=lengths)
+            prefix=prefix, lengths=lengths, mesh=mesh, spec=ms)
     else:
         mix, cache = rglru.forward(p["mix"], cfg, x, return_cache=True,
-                                   lengths=lengths)
-    h, _ = _ffn(p, cfg, h + mix, mesh)
+                                   lengths=lengths, mesh=mesh, spec=ms)
+    h, _ = _ffn(p, cfg, h + mix, mesh, spec)
     return h, cache
 
 
@@ -321,13 +411,15 @@ def apply_trunk_prefill(params: dict, cfg: ArchConfig, x: torch.Tensor,
     stub's bidirectional image tokens; ``lengths``: right-padded rows."""
     caches = []
     h = x
-    for stack, (pattern, _) in zip(params["blocks"], block_groups(cfg)):
+    for stack, gspec, (pattern, _) in zip(
+            params["blocks"], _layer_specs(cfg, mesh), block_groups(cfg)):
         per: dict[str, list] = {str(j): [] for j in range(len(pattern))}
         for i in range(_count(stack)):
-            ps = _layer(stack, i)
+            ps = _gathered(_layer(stack, i), gspec, mesh, h.dtype)
             for j, kind in enumerate(pattern):
                 h, c = _block_prefill(ps[str(j)], cfg, kind, h, positions,
-                                      max_seq, prefix, lengths, mesh)
+                                      max_seq, prefix, lengths, mesh,
+                                      _sub(gspec, str(j)))
                 per[str(j)].append(c)
         caches.append({j: {name: torch.stack([c[name] for c in cs])
                            for name in cs[0]} for j, cs in per.items()})
@@ -390,14 +482,19 @@ def _block_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int, dtype,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
-               device=None, paged: PagedLayout | None = None) -> list:
+               device=None, paged: PagedLayout | None = None,
+               mesh=None) -> list:
     """Zeroed serving cache in the block-group structure: attention leaves
     (layers, batch, s_c, KV, hd); SSM / RG-LRU leaves (layers, batch, ...)
     (fp32 state, conv tail in ``dtype``). With ``paged``, the attention
     leaves are the shared block pool (layers, n_blocks + 1, block_len, KV,
     hd) instead, batch-free (the slot -> block map is the page table handed
     to decode and insert); an arch without attention layers raises
-    ``ValueError``, as its decode state is already max_seq-free."""
+    ``ValueError``, as its decode state is already max_seq-free.
+
+    ``mesh``: each leaf is this rank's block over the model axis as
+    :func:`repro_torch.launch.mesh.cache_shardings` places it (every data
+    rank serves the same slots, so the batch stays whole)."""
     if paged is not None:
         if "attn" not in cfg.layer_kinds():
             raise ValueError(
@@ -405,15 +502,24 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
                 f"{cfg.layer_pattern!r} has none (its decode state is "
                 "already max_seq-free)")
         paged.n_pages(cfg, max_seq)  # validate the geometry
-    caches = []
+    meta = []
     for pattern, count in block_groups(cfg):
         group = {}
         for j, kind in enumerate(pattern):
             one = _block_cache(cfg, kind, batch, max_seq, dtype, paged)
-            group[str(j)] = {k: torch.zeros((count,) + v.shape, dtype=v.dtype,
-                                            device=device)
+            group[str(j)] = {k: torch.empty((count,) + v.shape,
+                                            dtype=v.dtype, device="meta")
                              for k, v in one.items()}
-        caches.append(group)
+        meta.append(group)
+    specs = (None if mesh is None else mesh_lib.cache_shardings(
+        meta, mesh, cfg, paged=paged is not None))
+    caches = []
+    for gi, group in enumerate(meta):
+        caches.append({j: {k: torch.zeros(
+            v.shape if specs is None else mesh_lib.local_shape(
+                v.shape, specs[gi][j][k], mesh, ("model",)),
+            dtype=v.dtype, device=device) for k, v in layer.items()}
+            for j, layer in group.items()})
     return caches
 
 
@@ -444,25 +550,29 @@ def apply_trunk_decode(params: dict, cfg: ArchConfig, x: torch.Tensor,
     (:func:`repro_torch.models.attention.decode`)."""
     h = x
     win = _layer_window(cfg)
-    for stack, cache, (pattern, _) in zip(params["blocks"], caches,
-                                          block_groups(cfg)):
+    for stack, cache, gspec, (pattern, _) in zip(
+            params["blocks"], caches, _layer_specs(cfg, mesh),
+            block_groups(cfg)):
         for i in range(_count(stack)):
-            ps = _layer(stack, i)
+            ps = _gathered(_layer(stack, i), gspec, mesh, h.dtype)
             for j, kind in enumerate(pattern):
-                p = ps[str(j)]
+                p, spec = ps[str(j)], _sub(gspec, str(j))
                 lc = _layer(cache[str(j)], i)
                 xn = rms_norm(h, p["norm1"], cfg.norm_eps)
                 if kind == "attn":
                     mix, _ = attention.decode(p["mix"], cfg, xn, lc, pos,
                                               window=win, pages=pages,
-                                              write_mask=write_mask)
+                                              write_mask=write_mask,
+                                              mesh=mesh,
+                                              spec=_sub(spec, "mix"))
                 else:
                     mod = ssm if kind == "ssm" else rglru
-                    mix, new = mod.decode(p["mix"], cfg, xn, lc)
+                    mix, new = mod.decode(p["mix"], cfg, xn, lc, mesh=mesh,
+                                          spec=_sub(spec, "mix"))
                     for name, v in new.items():
                         lc[name].copy_(v)
                 if kind == "ssm":
                     h = h + mix
                 else:
-                    h, _ = _ffn(p, cfg, h + mix, mesh)
+                    h, _ = _ffn(p, cfg, h + mix, mesh, spec)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), caches

@@ -18,7 +18,9 @@ Two policies (``ServeConfig.sched``):
   a little dispatch-amortization for TTFT on the queued request.
 
 Schedulers are pure host-side policy: they order rids and pick window
-sizes; slot/block accounting stays in the Server.
+sizes; slot/block accounting stays in the Server. On a multi-rank mesh
+the Server hands every rank's scheduler rank 0's clock reading and ITL
+EWMA, so all ranks order and pick alike.
 """
 from __future__ import annotations
 

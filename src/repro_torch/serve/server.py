@@ -46,15 +46,19 @@ decode window per dispatch from the ITL EWMA.
 offsets, seconds): requests become admissible once their arrival passes.
 
 **TP serving** (``Server(mesh=)``): every rank of the mesh runs this
-engine on the same requests in lockstep — each holds its slice of the
-output embedding and its shard of a
-:class:`repro_torch.core.mips.ShardedIndex`, the trunk replicated — and
-the distributed head (:mod:`repro_torch.models.head`) gives every rank the
-same tokens, so every host decision (admission, windows, retirement) is
-made on replicated values. Decisions read off the wall clock would differ
-between ranks, so the slo scheduler and open-loop arrivals are refused on
-a multi-rank mesh, as is strict re-sampling (the reference refuses it on a
-TP mesh too). Rank 0 reports.
+engine on the same requests in lockstep — each holds its blocks of the
+trunk and of the embeddings, its KV heads and recurrent-state share
+(:mod:`repro_torch.models.transformer`), and its shard of a
+:class:`repro_torch.core.mips.ShardedIndex` — and the distributed head
+(:mod:`repro_torch.models.head`) gives every rank the same tokens. The
+reference is one SPMD host; here each rank runs its own host loop, so a
+decision read off a clock or fitted from data is made once, on rank 0,
+and broadcast before the step that uses it: the run's clock origin and,
+each round, rank 0's clock reading and ITL EWMA (from which every rank
+makes the same arrival, admission-order and slo-window decisions), and
+the probe router's fitted weights (fitted on rank 0's shard). Every other
+decision is made on replicated values. Strict re-sampling is refused on a
+TP mesh, as in the reference. Rank 0 reports.
 """
 from __future__ import annotations
 
@@ -155,19 +159,10 @@ class Server:
                 f"any prompt inside max_seq={scfg.max_seq}")
         if scfg.sched not in ("fifo", "slo"):
             raise ValueError(f"unknown scheduler {scfg.sched!r} (fifo | slo)")
-        if mesh is not None:
-            if scfg.strict:
-                raise NotImplementedError(
-                    "strict exact-fallback is not wired through the "
-                    "distributed head; serve with strict=False on a TP mesh")
-            if mesh.dp * mesh.tp > 1 and scfg.sched != "fifo":
-                raise ValueError("a multi-rank mesh serves fifo: the slo "
-                                 "scheduler's windows follow each rank's "
-                                 "own clock")
-            if mesh.dp * mesh.tp > 1 and scfg.probe_router == "fit":
-                raise NotImplementedError(
-                    "fitting the probe router over a sharded index; load "
-                    "one (probe_router=<path>) instead")
+        if mesh is not None and scfg.strict:
+            raise NotImplementedError(
+                "strict exact-fallback is not wired through the "
+                "distributed head; serve with strict=False on a TP mesh")
         self.mesh = mesh
         self.cfg = cfg
         self.scfg = scfg
@@ -290,12 +285,27 @@ class Server:
             warnings.warn(f"head index {where}: re-rank pool short {short} "
                           f"slots {knob}")
 
+    @property
+    def _ranks(self) -> int:
+        return 1 if self.mesh is None else self.mesh.world.size
+
+    def _agree(self, value):
+        """Rank 0's ``value`` on every rank (a host decision's input read
+        off rank 0's clock); the value itself on one rank."""
+        if self._ranks == 1:
+            return value
+        from repro_torch import collectives as coll
+
+        return coll.broadcast_object(value, self.mesh.world)
+
     def _make_router(self):
         """The adaptive probe's stage router per ``scfg.probe_router`` (""
         disabled / "fit" a supervised fit at start-up / an .npz path). The
         fit takes queries from the embedding rows the index serves (scaled
         like low-temperature serving hiddens), labels each with its first
-        certificate-passing stage and trains the tiny MLP, on the device."""
+        certificate-passing stage and trains the tiny MLP, on the device.
+        On a multi-rank mesh rank 0 fits on its own shard (the router each
+        shard's probe uses, at the shard's k) and broadcasts the weights."""
         spec = self.scfg.probe_router
         hc = self.model.head_cfg
         if not spec:
@@ -308,13 +318,26 @@ class Server:
 
         if spec != "fit":
             return router_lib.load_router(spec, device=self.device)
-        emb = self.model.head_index_db(self.params)
-        stride = max(1, emb.shape[0] // 512)
-        qs = emb[::stride][:512].float()
-        qs = qs / torch.clamp(torch.linalg.norm(qs, dim=1, keepdim=True),
-                              min=1e-6) * 8.0  # peaked score profiles
-        return router_lib.train_router(self.index, qs, hc.k, c=hc.c,
-                                       seed=self.scfg.seed)
+        router = None
+        if self._ranks == 1 or self.mesh.rank == 0:
+            index, k = self.index, hc.k
+            if isinstance(index, mips.ShardedIndex):
+                from repro_torch.models import head as dist_head
+
+                index = index.local
+                k = dist_head.shard_geometry(hc, self.cfg.vocab_padded,
+                                             self.mesh.tp)[1]
+            emb = self.model.head_index_db(self.params)
+            stride = max(1, emb.shape[0] // 512)
+            qs = emb[::stride][:512].float()
+            qs = qs / torch.clamp(torch.linalg.norm(qs, dim=1, keepdim=True),
+                                  min=1e-6) * 8.0  # peaked score profiles
+            router = router_lib.train_router(index, qs, k, c=hc.c,
+                                             seed=self.scfg.seed)
+        if self._ranks > 1:
+            router = router_lib.broadcast_router(router, self.mesh.world,
+                                                 device=self.device)
+        return router
 
     def _bin_widths(self, widths: np.ndarray, mask: np.ndarray | None) -> None:
         """Add emitted tokens' effective probe widths to
@@ -450,11 +473,7 @@ class Server:
         run's start): a request becomes admissible once its arrival passes,
         and its queue time and TTFT count from it. ``priorities``: optional
         per-request priority (lower = more urgent; the slo scheduler).
-        On a multi-rank mesh ``arrivals`` are refused (the ranks' clocks
-        would admit at different steps)."""
-        if (arrivals is not None and self.mesh is not None
-                and self.mesh.dp * self.mesh.tp > 1):
-            raise ValueError("open-loop arrivals on a multi-rank mesh")
+        On a multi-rank mesh the arrival clock is rank 0's."""
         seed = self.scfg.seed + (self._runs << 32)  # a fresh stream per run
         self._runs += 1
         if self.scfg.engine == "reference":
@@ -471,7 +490,13 @@ class Server:
         dev = self.device
         nslots = s.batch_slots
         results: list[RequestResult] = []
+        # decisions that read the clock (arrivals, the slo order and
+        # window) take rank 0's reading on a multi-rank mesh
+        clocked = self._ranks > 1 and (arrivals is not None
+                                       or s.sched != "fifo")
         t_start = time.perf_counter()
+        if clocked:
+            t_start = self._agree(t_start)
         due, reqs = self._intake(prompts, results, t_start, arrivals,
                                  priorities)
         due = collections.deque(due)  # arrival-sorted (t_enq, rid)
@@ -535,7 +560,9 @@ class Server:
                         retire(reqs[rid], slot)
 
         while len(results) < len(prompts):
-            now = time.perf_counter()
+            now, itl_ms = time.perf_counter(), self._itl_ms
+            if clocked:
+                now, itl_ms = self._agree((now, itl_ms))
             # 0) open-loop arrivals become admissible as their time passes
             while due and due[0][0] <= now:
                 waiting.append(due.popleft()[1])
@@ -603,8 +630,8 @@ class Server:
             # pressure)
             live = any(r is not None for r in slot_req)
             if live:
-                window = self.sched.pick_window(waiting, reqs, now,
-                                                self._itl_ms, self._windows)
+                window = self.sched.pick_window(waiting, reqs, now, itl_ms,
+                                                self._windows)
                 t_issue = time.perf_counter()
                 cache, state, toks, oks, emitted, widths = self._decode_fn(
                     window)(self.run_params, cache, state, seed, self.index,

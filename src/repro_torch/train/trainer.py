@@ -71,6 +71,7 @@ from repro_torch.core import mips
 from repro_torch.data.synthetic import DataConfig, SyntheticStream
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
+from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
@@ -172,8 +173,9 @@ class Trainer:
     def _layout(self, path: tuple, t: torch.Tensor) -> tuple:
         """Placement of a checkpoint leaf over the mesh (see
         :mod:`repro_torch.checkpoint.manager`): the params' and their Adam
-        moments' by :func:`repro_torch.launch.mesh.param_spec`, the head
-        index's rows by model shard and its quantizers per shard."""
+        moments' by :func:`repro_torch.launch.mesh.param_spec` (every axis
+        a leaf is split over, with its dim), the head index's rows by model
+        shard and its quantizers per shard."""
         if self.mesh is None:
             return ("rep", None)
         if path[0] == "index":
@@ -184,9 +186,9 @@ class Trainer:
             keys = path[2:]
         else:
             return ("rep", None)
-        dim = mesh_lib.shard_dim(mesh_lib.param_spec(
-            list(keys), tuple(t.shape), self.mesh, self.cfg))
-        return ("rep", None) if dim is None else ("dim", dim)
+        dims = mesh_lib.spec_dims(transformer.spec_of(keys, self.mesh,
+                                                      self.cfg))
+        return ("dim", dims) if dims else ("rep", None)
 
     def init_state(self) -> dict:
         params = self.model.init(self.run.seed)

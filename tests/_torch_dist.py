@@ -283,6 +283,13 @@ def _host(tree):
     return [t.detach().cpu().numpy() for t in adamw.tree_leaves(tree)]
 
 
+def _paths(tree):
+    """Leaf paths in :func:`_host`'s order."""
+    from repro_torch.launch.steps import _sorted_leaves
+
+    return [p for p, _ in _sorted_leaves(tree)]
+
+
 def dist_step_case(mesh, spec):
     """One DP×TP train step from the reference's params on this rank's
     slices and data rows -> (loss, this rank's updated params, leaf
@@ -302,7 +309,7 @@ def dist_step_case(mesh, spec):
         opt=adamw.OptConfig(**spec["opt"]), precision="f32"))
     params, opt, m = step(params, opt, batch, (0, 0))
     return {"loss": float(m["loss"]), "params": _host(params),
-            "step": int(opt["step"])}
+            "paths": _paths(params), "step": int(opt["step"])}
 
 
 def _run_cfg(steps_):
@@ -321,7 +328,8 @@ def _run_cfg(steps_):
 def _restored(tr, step):
     st, meta, _ = tr.ckpt.restore(step=step, device="cpu")
     return {"params": _host(st["params"]), "m": _host(st["opt"]["m"]),
-            "index": _host(st["index"]), "meta": meta}
+            "paths": _paths(st["params"]), "index": _host(st["index"]),
+            "meta": meta}
 
 
 def dist_trainer_case(mesh, spec):
@@ -477,4 +485,179 @@ def cuda_sharded_cases(mesh, spec):
                     "values": tk.values.cpu().numpy(),
                     "loss": loss.cpu().numpy(), "sample": ids.cpu().numpy(),
                     "ok": ok.cpu().numpy()}
+    return out
+
+
+# ------------------------------------------------------------- the trunk
+def _path_grads(tree, path=()):
+    """{"a/b/c": grad as numpy} of a params tree whose leaves carry
+    ``.grad``."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_path_grads(v, path + (str(k),)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_path_grads(v, path + (str(i),)))
+    elif tree is not None:
+        out["/".join(path)] = tree.grad.detach().numpy()
+    return out
+
+
+def trunk_loss_case(mesh, cfg, np_params, batch):
+    """The exact-head loss of ``batch`` through the vocab-parallel lookup,
+    the trunk and the distributed head on this rank's blocks of the full
+    ``np_params`` (numpy, the reference's) -> (total, d(total)/d(embedded
+    input), {path: this rank's gradient block}). ``mesh`` None: one
+    device."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core import amortized_head as ah
+    from repro_torch.models import head as dh
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    model = Model(cfg, "f32", device="cpu", mesh=mesh)
+    params = params_from_jax(np_params, cfg)
+    if mesh is not None:
+        params = mesh_lib.shard_params(params, mesh, cfg)
+    diff = adamw.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    if cfg.frontend == "audio_stub":
+        x = torch.from_numpy(batch["frames"]).requires_grad_(True)
+    else:
+        x = model._lookup(diff, torch.from_numpy(batch["tokens"]))
+        x.retain_grad()
+    b, l, _ = x.shape
+    pos = torch.arange(l)[None].expand(b, l)
+    h, aux = transformer.apply_trunk(diff, cfg, x, pos, mesh=mesh)
+    h2 = h.reshape(b * l, -1)
+    t2 = torch.from_numpy(batch["labels"]).reshape(-1).long()
+    emb = model._out_embed(diff)
+    if mesh is None:
+        loss = ah.head_loss(emb, h2, t2, model.head_cfg).loss
+    else:
+        loss = dh.dist_head_loss(mesh, emb, h2, t2, model.head_cfg)
+    total = loss.mean() + 0.01 * aux
+    total.backward()
+    return {"loss": float(total.detach()), "d_x": x.grad.numpy(),
+            "grads": _path_grads(diff)}
+
+
+def trunk_decode_case(mesh, cfg, np_params, spec, paged: bool):
+    """Prefill two right-padded prompts into the serving cache, then three
+    decode steps, through the trunk on this rank's blocks -> the hidden
+    states of each step and the final cache (this rank's blocks)."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+
+    model = Model(cfg, "f32", device="cpu", mesh=mesh)
+    params = params_from_jax(np_params, cfg)
+    if mesh is not None:
+        params = mesh_lib.shard_params(params, mesh, cfg)
+    max_seq, bl = spec["max_seq"], spec["block_len"]
+    layout = (transformer.PagedLayout(block_len=bl, n_blocks=spec["n_blocks"])
+              if paged else None)
+    b = spec["tokens"].shape[0]
+    cache = model.init_cache(b, max_seq, paged=layout)
+    pages = torch.from_numpy(spec["pages"]) if paged else None
+    tokens = torch.from_numpy(spec["tokens"])
+    lengths = torch.from_numpy(spec["lengths"])
+    hs = []
+    with torch.no_grad():
+        x = model._lookup(params, tokens)
+        l = x.shape[1]
+        pos = torch.arange(l)[None].expand(b, l)
+        h, part = transformer.apply_trunk_prefill(
+            params, cfg, x, pos, max_seq=max_seq, lengths=lengths, mesh=mesh)
+        hs.append(h[torch.arange(b), lengths.long() - 1].numpy())
+        cache = transformer.insert_cache_slots(cache, part, torch.arange(b),
+                                               pages=pages)
+        ids = torch.from_numpy(spec["next_ids"])
+        p = lengths.long()
+        for i in range(ids.shape[0]):
+            x = model._lookup(params, ids[i])[:, None]
+            h, cache = transformer.apply_trunk_decode(
+                params, cfg, x, cache, p, pages=pages,
+                write_mask=torch.ones(b, dtype=torch.bool) if paged else None,
+                mesh=mesh)
+            hs.append(h[:, 0].numpy())
+            p = p + 1
+    return {"h": hs, "cache": [{j: {k: v.numpy() for k, v in lay.items()}
+                                for j, lay in g.items()} for g in cache]}
+
+
+def trunk_cases(mesh, spec):
+    """Every case of ``spec`` on this rank: the families' loss and
+    gradients, tied embeddings, ``encode`` and the decode runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models.model import Model
+
+    out = {"loss": {}, "decode": {}}
+    for name, c in spec.get("loss", {}).items():
+        cfg = dataclasses.replace(get_smoke(c["arch"]), **c.get("kw", {}))
+        out["loss"][name] = trunk_loss_case(mesh, cfg, c["params"], c["batch"])
+    for name, c in spec.get("decode", {}).items():
+        cfg = get_smoke(c["arch"]).scaled(head_mode="exact")
+        out["decode"][name] = trunk_decode_case(mesh, cfg, c["params"], c,
+                                                c["paged"])
+    if "encode" in spec:
+        c = spec["encode"]
+        cfg = get_smoke(c["arch"]).scaled(head_mode="exact")
+        model = Model(cfg, "f32", device="cpu", mesh=mesh)
+        params = mesh_lib.shard_params(params_from_jax(c["params"], cfg),
+                                       mesh, cfg)
+        out["encode"] = model.encode(
+            params, {"frames": torch.from_numpy(c["frames"])}).numpy()
+    return out
+
+
+def serve_tier_case(mesh, spec):
+    """The serving tier on this rank of a tp mesh (the trunk sharded):
+    fifo and slo (a 1 ms TTFT target, so slo shrinks its windows) under
+    staggered arrivals, paged (block_len 8) against dense, and the
+    adaptive probe with ``probe_router="fit"`` (its weights), then the
+    router rank 0 saved, reloaded from its ``.npz``."""
+    import dataclasses
+
+    from repro_torch.models import router as router_lib
+    from repro_torch.models.model import Model
+    from repro_torch.serve.server import ServeConfig, Server
+
+    cfg = _small_cfg(head_mips="ivf")
+    params = Model(cfg, "f32", device="cpu", mesh=mesh).init(0)
+    prompts, arrivals = spec["prompts"], spec["arrivals"]
+    kw = dict(batch_slots=2, max_seq=48, max_new_tokens=6, seed=3,
+              decode_window=4)
+    out, index = {}, None
+
+    def serve(c, scfg, **run_kw):
+        nonlocal index
+        srv = Server(c, params, scfg, precision_policy="f32", device="cpu",
+                     index=index, mesh=mesh)
+        index = srv.index
+        return srv, [r.tokens for r in srv.run(prompts, **run_kw)]
+
+    fifo, out["fifo"] = serve(cfg, ServeConfig(**kw), arrivals=arrivals)
+    out["fifo_dispatches"] = fifo.stats["decode_dispatches"]
+    slo, out["slo"] = serve(cfg, ServeConfig(sched="slo", ttft_slo_s=1e-3,
+                                             **kw),
+                            arrivals=arrivals, priorities=spec["priorities"])
+    out["slo_dispatches"] = slo.stats["decode_dispatches"]
+    _, out["paged"] = serve(cfg, ServeConfig(block_len=8, **kw))
+    _, out["dense"] = serve(cfg, ServeConfig(**kw))
+    acfg = dataclasses.replace(cfg, head_adaptive_probe=True,
+                               head_n_probe_init=1, head_n_probe_max=8,
+                               head_fused_decode=True)
+    index = None
+    fit, out["fit"] = serve(acfg, ServeConfig(probe_router="fit", **kw))
+    out["router"] = {f: v.numpy() for f, v in fit.router._asdict().items()}
+    path = os.path.join(spec["dir"], "router.npz")
+    if mesh.rank == 0:
+        router_lib.save_router(path, fit.router)
+    torch.distributed.barrier()
+    _, out["loaded"] = serve(acfg, ServeConfig(probe_router=path, **kw))
     return out

@@ -5,7 +5,8 @@ tests/test_dist.py::test_dp_tp_trainer_sharded_ckpt_async_refresh_resume):
 * a dp 2 × tp 2 train step with the exact head against the reference's
   single-device ``make_train_step`` on the same global batch, params
   carried across by ``convert.shard_params_from_jax``: the loss and every
-  rank's updated params (its slice of the output embedding) at fp32
+  rank's block of every updated leaf (the trunk Megatron-split over
+  ``model`` and FSDP-split over ``data``, the embeddings' rows) at fp32
   allclose (rtol 1e-4, atol 2e-5, the single-device step test's) wherever
   the reference's gradient is above 100 AdamW eps; below that, Adam's
   first step ``lr · g / (|g| + eps)`` turns the last bits of a gradient
@@ -17,7 +18,7 @@ tests/test_dist.py::test_dp_tp_trainer_sharded_ckpt_async_refresh_resume):
   own schedule — kick at 8, swap at 10, one swap — and a manifest that
   reads ``sharded`` and ``complete``;
 * the step-4 checkpoint restored on a dp-1 mesh (and on one rank, whole)
-  equal to what the dp-2 ranks restore;
+  equal to the dp-2 ranks' restored blocks put together;
 * a tp-2 ``Server`` over a ``ShardedIndex``: fused T=4 ≡ unfused T=1
   token for token, twice bitwise, the same tokens on both ranks;
 * sharded saves over the unpublished directories of a crashed attempt at
@@ -34,6 +35,7 @@ import torch
 
 import _torch_dist as td
 import repro.models.transformer as jtr
+from _torch_trunk import _block
 from repro.configs import get_smoke as jget_smoke
 from repro.data.synthetic import DataConfig as JDataConfig
 from repro.data.synthetic import make_batch as jmake_batch
@@ -41,6 +43,9 @@ from repro.launch import steps as jsteps
 from repro.models.model import Model as JModel
 from repro.optim import adamw as jadamw
 from repro_torch.checkpoint import manager
+from repro_torch.configs import get_smoke
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import transformer as ttr
 
 torch.set_num_threads(1)
 
@@ -97,25 +102,35 @@ def tp_serve(tmp_path_factory, dp_tp):
                     {"prompts": prompts, "workdir": str(wd / "run")})
 
 
+def _dims(path, dp=2, tp=2, **kw):
+    """{axis: dim} of a leaf of the test's model on a (dp, tp) mesh."""
+    cfg = get_smoke("tinyllama-1.1b").scaled(
+        d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, vocab=4096, **kw)
+    return mesh_lib.spec_dims(ttr.spec_of(
+        path, mesh_lib.Mesh(dp, tp, 0, None, None, None), cfg))
+
+
 def test_dp_tp_step_matches_single_device(dp_tp, reference_step):
     _, outs = dp_tp
     _, _, want, loss = reference_step
     eps, lr = 1e-8, OPT["lr"]
+    split = set()
     for rank, o in enumerate(outs):
-        m = rank % 2
+        coords = {"data": rank // 2, "model": rank % 2}
         st = o["step"]
         assert st["step"] == 1
         np.testing.assert_allclose(st["loss"], loss, rtol=1e-5)
         assert len(st["params"]) == len(want)
-        for got, (w, g) in zip(st["params"], want):
-            w, g = np.asarray(w), np.asarray(g)
-            if got.shape != w.shape:  # out_embed: this rank's rows
-                v = got.shape[0]
-                w, g = w[m * v:(m + 1) * v], g[m * v:(m + 1) * v]
+        for path, got, (w, g) in zip(st["paths"], st["params"], want):
+            dims = _dims(path, head_mode="exact")
+            split.update(dims)
+            w = _block(np.asarray(w), dims, coords, got.shape)
+            g = _block(np.asarray(g), dims, coords, got.shape)
             well = np.abs(g) > 100 * eps
             np.testing.assert_allclose(got[well], w[well], rtol=1e-4,
                                        atol=2e-5)
             assert np.all(np.abs(got - w)[~well] <= lr)
+    assert split == {"data", "model"}  # the trunk is split both ways
 
 
 def test_trainer_async_schedule_and_sharded_manifest(dp_tp):
@@ -139,15 +154,42 @@ def _equal(a, b):
 
 
 def test_restore_on_dp1_equals_dp2(dp_tp, tp_serve):
+    """The dp-1 restore of each model rank equals the dp-2 ranks' blocks
+    of that model rank put together along each leaf's data dim."""
     wd, outs = dp_tp
-    for rank, o in enumerate(outs):
-        got = tp_serve[rank % 2]["restored4"]
-        want = o["trainer"]["restored4"]
-        for key in ("params", "m", "index"):
-            _equal(got[key], want[key])
+    kw = dict(head_mode="amortized", head_mips="ivf", head_k=96, head_l=96)
+    for m in range(2):
+        got = tp_serve[m]["restored4"]
+        halves = [outs[d * 2 + m]["trainer"]["restored4"] for d in range(2)]
+        for h in halves:
+            _equal(got["index"], h["index"])
         assert got["meta"]["step"] == 4
+        for key in ("params", "m"):
+            for i, path in enumerate(got["paths"]):
+                d = _dims(path, **kw).get("data")
+                parts = [h[key][i] for h in halves]
+                if d is None:
+                    _equal([parts[0]], [parts[1]])
+                    want = parts[0]
+                else:
+                    want = np.concatenate(parts, axis=d)
+                np.testing.assert_array_equal(got[key][i], want)
     # one rank, no mesh: whole tensors, the model shards side by side
     full, _, _ = manager.restore(str(wd / "run"), step=4)
+    only, _, _ = manager.restore(str(wd / "run"), step=4, keys=("params",))
+    assert set(only) == {"params"}
+    _equal(td._host(only["params"]), td._host(full["params"]))
+    for i, path in enumerate(outs[0]["trainer"]["restored4"]["paths"]):
+        t = full["params"]
+        for k in path:
+            t = t[int(k)] if isinstance(t, list) else t[k]
+        parts = {(d, m): outs[d * 2 + m]["trainer"]["restored4"]["params"][i]
+                 for d in range(2) for m in range(2)}
+        dims = _dims(path, **kw)
+        for (d, m), blk in parts.items():
+            np.testing.assert_array_equal(
+                blk, _block(t.numpy(), dims, {"data": d, "model": m},
+                            blk.shape))
     # the snapshot rows come back whole; the per-shard centroids need two
     # model shards and are dropped
     assert set(full["index"]) == {"db"}
