@@ -134,8 +134,26 @@ sharded and complete, every replicated leaf (the norms) equal on the
 four ranks, the step-4 checkpoint restored whole on one process equal to
 the four ranks' blocks put together; the peak memory a rank) and a
 resume from step 2 whose losses equal the uninterrupted run's bit for
-bit. Each kernel record gains ``launches_sharded`` (summed over the
-ranks).
+bit. Also on tp 2: the IVF-PQ and SRP-LSH heads over their own
+``ShardedIndex`` (4 requests × 16 tokens, fused T=8 ≡ unfused T=1), and
+recurrentgemma-9b at full width, 8 of 38 layers, with the IVF head: its
+one KV head does not divide, so each rank holds 1,024 of the 2,048-row
+window's positions and the ranks combine ``flash_decode``'s log-sum-exp
+(4 requests of 1,000–2,040 prompt tokens × 32 new tokens at max_seq
+4,096, crossing the shard boundary and wrapping the ring; decode window 8
+≡ 1 and a bitwise repeat; fp32 teacher-forced logits within 1e-4 of one
+device at every step; KV MB a rank half of one device's), after the
+``flash_decode_lse`` kernel at that shard's shape. Each kernel record
+gains ``launches_sharded`` (summed over the ranks).
+
+After ``[train]``, the ``[cost]`` phase: one serving decode step (4
+slots, the 512-position ring, the fused IVF head) and one training step
+(2 × 1,024 tokens) of full-width tinyllama-1.1b traced under the cost
+model's ``CostMode`` on the card and as a meta trace: their flops, HBM
+bytes and per-kernel counts must be equal; printed beside the step's
+device time, the modelled ``t_compute`` / ``t_memory`` / bound at the
+H100's data-sheet peaks, and the traced ``temp_gb`` beside
+``max_memory_allocated``.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -354,6 +372,14 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def kcost():
+    """``repro_torch.kernels.cost``: each kernel's bytes and operations,
+    the one count of a bound here and of a launch in the cost model."""
+    from repro_torch.kernels import cost
+
+    return cost
+
+
 # ---------------------------------------------------------------- kernels
 def close(torch, got, want, rel: float = 1e-5) -> bool:
     """allclose at rtol 1e-4 and an atol of ``rel`` times the largest
@@ -465,16 +491,14 @@ def flash_decode_case(torch, gen, g: Geometry, timer: Timer, S: int,
                     "sdpa")
     except TypeError:  # a PyTorch without GQA in SDPA: no one-call yardstick
         lib = None
-    live = int(lengths.clamp(1, S).sum().item())
+    c = kcost().flash_decode(q, kc, lengths,
+                             live=int(lengths.clamp(1, S).sum().item()))
     return {"err": err,
             "timed": timer.both(lambda: kfd.flash_decode(q, kc, vc, lengths),
                                 "flash_decode"),
             "plain_ms": timer(lambda: ref.flash_decode_ref(q, kc, vc, lengths),
                               "flash_decode plain"),
-            "lib_ms": lib,
-            "nb": nbytes(q, lengths) + 2 * live * g.hkv * g.hd * 2
-            + B * g.hq * g.hd * 4,
-            "flops": 4 * live * g.hq * g.hd}
+            "lib_ms": lib, "nb": c.bytes, "flops": c.flops}
 
 
 def flash_decode_paged_case(torch, gen, g: Geometry, timer: Timer, S: int,
@@ -542,7 +566,8 @@ def flash_decode_paged_case(torch, gen, g: Geometry, timer: Timer, S: int,
         vs = vp[idx].reshape(view).transpose(1, 2)
         return sdpa(q[:, :, None], ks, vs, attn_mask=mask, enable_gqa=True)
 
-    live = int(lengths.clamp(1, S).sum().item())
+    c = kcost().flash_decode(q, kp, lengths, pages=pages,
+                             live=int(lengths.clamp(1, S).sum().item()))
     return {"err": err,
             "timed": timer.both(lambda: kfd.flash_decode(q, kp, vp, lengths,
                                                          pages=pages), tag),
@@ -551,9 +576,7 @@ def flash_decode_paged_case(torch, gen, g: Geometry, timer: Timer, S: int,
             "plain_ms": timer(lambda: ref.flash_decode_paged_ref(
                 q, kp, vp, lengths, pages), f"{tag} plain"),
             "lib_ms": timer(library, "gather + sdpa"),
-            "nb": nbytes(q, lengths, pages) + 2 * live * g.hkv * g.hd * 2
-            + B * g.hq * g.hd * 4,
-            "flops": 4 * live * g.hq * g.hd}
+            "nb": c.bytes, "flops": c.flops}
 
 
 def paged_kernel_checks(torch, g: Geometry, timer: Timer) -> dict:
@@ -657,9 +680,8 @@ def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
                       "ivf_gather_score"),
            timer(lambda: ref.ivf_gather_score_ref(mv, mids, probe, qv),
                  "ivf_gather_score plain"), None,
-           uniq.numel() * g.cap * (g.d + 1) * 4 + nbytes(probe, qv)
-           + b * g.n_probe * g.cap * 8,
-           2.0 * b * g.n_probe * g.cap * g.d, FP32_FLOPS)
+           *kcost().ivf_gather_score(mv, mids, probe, qv,
+                                     n_unique=uniq.numel())[:2], FP32_FLOPS)
 
     # ---- ivf_screen_select on the same tables + overflow
     o_ids = torch.randint(0, g.n, (g.o_cap,), generator=gen, device="cuda",
@@ -695,9 +717,9 @@ def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
                       "ivf_screen_select"),
            timer(lambda: ref.ivf_screen_select_ref(*args, g.k),
                  "ivf_screen_select plain"), None,
-           live_uniq * g.d * 4 + uniq.numel() * g.cap * 4
-           + nbytes(o_sc, o_ids, probe, qv) + b * g.k * 8,
-           2.0 * g.d * int(live_rows.sum().item()), FP32_FLOPS)
+           *kcost().ivf_screen_select(
+               *args, g.k, n_unique=uniq.numel(), live_unique=live_uniq,
+               live_rows=int(live_rows.sum().item()))[:2], FP32_FLOPS)
     del mv
 
     # ---- tail_gather_argmax over the output-embedding table
@@ -747,9 +769,9 @@ def kernel_checks(torch, g: Geometry, timer: Timer) -> list[dict]:
                       "tail_gather_argmax"),
            timer(lambda: ref.tail_gather_argmax_ref(*targs),
                  "tail_gather_argmax plain"), None,
-           rows * g.d * 4 + nbytes(pos, m_used, pert_s, s_ids, heights, h)
-           + t * 8,
-           2.0 * g.d * int(m_used.sum().item()), FP32_FLOPS)
+           *kcost().tail_gather_argmax(
+               *targs, rows=rows, m_total=int(m_used.sum().item()))[:2],
+           FP32_FLOPS)
     return out
 
 
@@ -837,9 +859,8 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
         timer(lambda: ref.fused_estimator_ref(*args, return_y=True),
               "fused_estimator plain"),
         None,
-        rows_live * g.d * 4 + nbytes(ids, log_w, h) + t * 4 + t * g.d * 4
-        + t * m * 4,
-        4.0 * g.d * n_live, FP32_FLOPS))
+        *kcost().fused_estimator(*args, return_y=True, rows=rows_live,
+                                 n_live=n_live)[:2], FP32_FLOPS))
     del want_y, again_y
 
     # an O(1) cotangent, so that p and d_emb are far above rounding
@@ -873,9 +894,9 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
                    "fused_estimator_bwd"),
         timer(lambda: ref.fused_estimator_bwd_ref(*bargs, y=yb),
               "fused_estimator_bwd plain"), None,
-        nbytes(bargs[1], bargs[2], *bargs[4:], yb) + g.n * g.d * 4
-        + tb * m * 4,
-        2.0 * g.d * int(bl.sum().item()), FP32_FLOPS))
+        *kcost().fused_estimator_bwd(*bargs, y=yb,
+                                     n_live=int(bl.sum().item()))[:2],
+        FP32_FLOPS))
     del emb, args, bargs, want_d, got_d, again_d, got_y, yb
 
     # ---- ivf_gather_score at the training probe's 256 queries: uniform
@@ -957,9 +978,8 @@ def gather_record(torch, g: Geometry, timer: Timer, rec: dict, tag: str,
     b = probe.shape[0]
     uniq = torch.unique(probe)
     b_ms, b_by = bound_ms(
-        uniq.numel() * g.cap * (g.d + 1) * 4 + nbytes(probe, qv)
-        + b * g.n_probe * g.cap * 8,
-        2.0 * b * g.n_probe * g.cap * g.d, FP32_FLOPS)
+        *kcost().ivf_gather_score(mv, mids, probe, qv,
+                                  n_unique=uniq.numel())[:2], FP32_FLOPS)
     ms, host = timer.both(lambda: kigs.ivf_gather_score(mv, mids, probe, qv),
                           f"ivf_gather_score {tag}")
     plain = timer(lambda: ref.ivf_gather_score_ref(mv, mids, probe, qv),
@@ -988,9 +1008,9 @@ def screen_record(torch, g: Geometry, timer: Timer, rec: dict, tag: str,
     live_rows = int((mids[probe.long()] >= 0).sum().item())
     live_uniq = int((mids[uniq.long()] >= 0).sum().item())
     b_ms, b_by = bound_ms(
-        live_uniq * g.d * 4 + uniq.numel() * g.cap * 4
-        + nbytes(o_sc, o_ids, probe, qv) + b * g.k * 8,
-        2.0 * g.d * live_rows, FP32_FLOPS)
+        *kcost().ivf_screen_select(*sargs, g.k, n_unique=uniq.numel(),
+                                   live_unique=live_uniq,
+                                   live_rows=live_rows)[:2], FP32_FLOPS)
     ms, host = timer.both(lambda: kdf.ivf_screen_select(*sargs, k=g.k),
                           f"ivf_screen_select {tag}")
     plain = timer(lambda: ref.ivf_screen_select_ref(*sargs, g.k),
@@ -1094,9 +1114,9 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
               f"pq_lut_score b={b} disagrees on random LUTs: "
               f"{max_err(got_r, want_r)}")
         uniq = torch.unique(probe)
-        pool = b * g.n_probe * g.cap
         # codes of the distinct probed tiles, probe and LUTs in; the
         # (b, np, cap) f32 sums out; m_sub adds per member
+        c = kcost().pq_lut_score(codes, probe, lut, n_unique=uniq.numel())
         rec = {"max_abs_err": max_err(got_r, want_r),
                "timed": timer.both(lambda: kpls.pq_lut_score(codes, probe,
                                                               lut),
@@ -1104,9 +1124,7 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
                "plain_ms": timer(lambda: ref.pq_lut_score_ref(codes, probe,
                                                                lut),
                                  f"pq_lut_score b={b} plain"),
-               "nb": uniq.numel() * g.cap * g.m_sub + nbytes(probe, lut)
-               + pool * 4,
-               "flops": float(pool * g.m_sub),
+               "nb": c.bytes, "flops": c.flops,
                "bitwise_random": torch.equal(got_r, want_r)}
         pq_record(records, "pq_lut_score", tag, b, rec)
 
@@ -1160,6 +1178,9 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
         tiles = torch.unique(probe)
         # ids of the probed tiles, codes of their live members, LUTs,
         # coarse, probe, overflow pair in; top-r (values, ids) out
+        c = kcost().pq_screen_select(*sargs, g.r, tiles=tiles.numel(),
+                                     live_slots=live_slots.numel(),
+                                     live=int(live.sum().item()))
         rec = {"max_abs_err": max_err(rv, wrv),
                "timed": timer.both(lambda: kdf.pq_screen_select(*sargs,
                                                                  r=g.r),
@@ -1167,9 +1188,7 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
                "plain_ms": timer(lambda: ref.pq_screen_select_ref(*sargs,
                                                                   g.r),
                                  f"pq_screen_select b={b} plain"),
-               "nb": tiles.numel() * g.cap * 4 + live_slots.numel() * g.m_sub
-               + nbytes(lut, coarse, probe, o_sc, o_ids) + b * g.r * 8,
-               "flops": float(int(live.sum().item()) * (g.m_sub + 1)),
+               "nb": c.bytes, "flops": c.flops,
                "bitwise_random": torch.equal(rv, wrv)}
         pq_record(records, "pq_screen_select", tag, b, rec)
 
@@ -1205,14 +1224,14 @@ def pq_kernel_checks(torch, g: Geometry, timer: Timer,
         rows = torch.unique(full_i[alive]).numel()
         # each distinct live survivor row once, candidates, screening values
         # and q in; the top-k (values, ids) out; a 2d dot per live survivor
+        c = kcost().rerank_select(*targs, g.k, rows=rows,
+                                  alive=int(alive.sum().item()))
         rec = {"max_abs_err": max_err(rv, wrv),
                "timed": timer.both(lambda: kdf.rerank_select(*targs, k=g.k),
                                    f"rerank_select b={b}"),
                "plain_ms": timer(lambda: ref.rerank_select_ref(*targs, g.k),
                                  f"rerank_select b={b} plain"),
-               "nb": rows * g.d * 4 + nbytes(full_i, full_v, q)
-               + b * g.k * 8,
-               "flops": 2.0 * g.d * int(alive.sum().item()),
+               "nb": c.bytes, "flops": c.flops,
                "bitwise_random": torch.equal(rv, wrv)}
         pq_record(records, "rerank_select", tag, b, rec)
     del emb, emb_rand
@@ -1489,6 +1508,161 @@ def profile(torch, label: str, fn) -> dict:
                            "us_per_call": covered_us(spans[k]) / n}
                        for k, n in calls_of.items() if n}}
     print(f"[profile] {label} " + json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- cost
+COST_TAG = "[cost]"
+COST_REPEATS = 3  # timed repeats of each step (events; the median)
+
+
+def cost_phase(torch, seed: int, records: list[dict], smi: str) -> dict:
+    """The ``[cost]`` phase: the cost model (:mod:`repro_torch.launch
+    .cost_model`) on the card. At tinyllama-1.1b's full width (random
+    weights from ``seed``, the IVF head), one serving decode step at the
+    serving shape (4 slots, a 512-position ring, fused head) and one
+    training step at the chip's training configuration (2 x 1,024 tokens)
+    each run once under ``CostMode`` on CUDA tensors and once as a meta
+    trace of the same step; the flops, HBM bytes and per-kernel counts of
+    the two must be equal. Printed beside them: the step's device time
+    (profiled busy time and CUDA-event time, unprofiled), the model's
+    ``t_compute``, ``t_memory`` and bound at the H100 SXM data-sheet peaks,
+    the bound's share of the busy time, and the traced ``temp_gb`` beside
+    ``torch.cuda.max_memory_allocated`` over the step (their ratio is
+    recorded, not gated). The counts charge ``flash_decode`` every ring
+    row, an upper bound; the serving step's record adds ``bound_ms_live``,
+    its bound with this step's live rows. Each record gains
+    ``launches_cost``: the
+    kernel's launches (``ops.launch_counts``) in the two card steps under
+    ``CostMode``, which must equal the calls the cost model charged."""
+    import statistics
+
+    from repro_torch.configs import get
+    from repro_torch.launch import roofline, steps
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cost_model import CostMode, to_meta
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    cfg = get("tinyllama-1.1b").scaled(head_mips="ivf",
+                                       head_fused_decode=True)
+    model = Model(cfg, "bf16", device="cuda")
+    meta_model = Model(cfg, "bf16", device="meta")
+    params = model.init(seed)
+    index = model.make_head_index(params)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    sp = model.compute_params(params)
+    cache = model.init_cache(SLOTS, MAX_SEQ)
+    ids = torch.randint(0, cfg.vocab, (SLOTS,), generator=gen, device="cuda")
+    pos = torch.tensor([7, 130, 300, MAX_SEQ - 1], device="cuda")
+    keys = steps.slot_keys(seed, torch.arange(SLOTS, device="cuda"), pos)
+    batch = {k: torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                              generator=gen, device="cuda",
+                              dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    opt = adamw.init(params)
+    tcfg = steps.TrainConfig(opt=adamw.OptConfig(**TRAIN_OPT))
+    cases = {
+        "serve": (steps.make_serve_step(model),
+                  steps.make_serve_step(meta_model),
+                  (sp, cache, ids, pos, keys, index), SLOTS),
+        "train": (steps.make_train_step(model, tcfg),
+                  steps.make_train_step(meta_model, tcfg),
+                  (params, opt, batch, (seed, 0), index),
+                  TRAIN_BATCH * TRAIN_SEQ)}
+    out, launches = {}, {}
+    for name, (step, meta_step, args, tokens) in cases.items():
+        step(*args)  # warm-up: first-use costs out of the figures
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with CostMode() as mode:
+            step(*args)
+        torch.cuda.synchronize()
+        card = mode.cost
+        run = {k: n for k, n in ops.launch_counts().items() if n}
+        peak = torch.cuda.max_memory_allocated() - base
+        margs = to_meta(args)  # made outside the trace: inputs, not temps
+        with CostMode() as mode:
+            meta_step(*margs)
+        meta = mode.cost
+        del margs
+        same = {"flops": card.flops == meta.flops,
+                "hbm_bytes": card.hbm_bytes == meta.hbm_bytes,
+                "kernels": card.kernels == meta.kernels}
+        times = []
+        for _ in range(COST_REPEATS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            step(*args)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        prof = profile(torch, f"{COST_TAG} {name} step",
+                       lambda: (step(*args), tokens)[1])
+        t_c = roofline.t_compute(card.flops_by_dtype)
+        t_m = card.hbm_bytes / roofline.HW["hbm_bw"]
+        bound_ms = 1e3 * max(t_c, t_m)
+        rec = {"tokens": tokens, "flops": card.flops,
+               "flops_by_dtype": card.flops_by_dtype,
+               "hbm_bytes": card.hbm_bytes, "kernels": card.kernels,
+               "launches": run,
+               "aten_ops": card.op_count, "card_equals_meta": same,
+               "meta_flops": meta.flops, "meta_hbm_bytes": meta.hbm_bytes,
+               "t_compute_ms": 1e3 * t_c, "t_memory_ms": 1e3 * t_m,
+               "bound_ms": bound_ms,
+               "bound_by": "operations" if t_c >= t_m else "bytes",
+               "device_busy_ms": prof["device_ms"],
+               "device_idle_share": prof["device_idle_share"],
+               "event_ms": statistics.median(times),
+               "bound_share_of_busy": bound_ms / prof["device_ms"],
+               "temp_gb": card.peak_bytes / 2**30,
+               "meta_temp_gb": meta.peak_bytes / 2**30,
+               "max_memory_allocated_gb": peak / 2**30,
+               "temp_over_allocated": card.peak_bytes / peak if peak else None}
+        if name == "serve":
+            # flash_decode is charged every ring row (the op reads no
+            # device value); this step's live rows are known here
+            ring = next(lay["k"] for g in cache for lay in g.values()
+                        if "k" in lay)[0]
+            qm = torch.empty(SLOTS, cfg.n_heads, ring.shape[-1],
+                             dtype=ring.dtype, device="meta")
+            lens = torch.empty(SLOTS, dtype=torch.int32, device="meta")
+            live = int((pos.cpu() + 1).clamp(max=ring.shape[1]).sum())
+            n = card.kernels["flash_decode"]["charges"]
+            top = kcost.flash_decode(qm, ring, lens)
+            at = kcost.flash_decode(qm, ring, lens, live=live)
+            f_live = dict(card.flops_by_dtype)
+            f_live[top.dtype] -= n * (top.flops - at.flops)
+            b_live = card.hbm_bytes - n * (top.bytes - at.bytes)
+            rec["ring_rows_live"] = [live, SLOTS * ring.shape[1]]
+            rec["bound_ms_live"] = 1e3 * max(
+                roofline.t_compute(f_live), b_live / roofline.HW["hbm_bw"])
+            rec["bound_live_share_of_busy"] = (rec["bound_ms_live"]
+                                               / prof["device_ms"])
+        print(f"{COST_TAG} {name} step ({smi}) " + json.dumps(rec),
+              flush=True)
+        check(all(same.values()), f"{COST_TAG} {name}: the card's counts "
+              f"differ from the meta trace's: {json.dumps(same)} "
+              f"(flops {card.flops} / {meta.flops}, bytes {card.hbm_bytes} "
+              f"/ {meta.hbm_bytes}, kernels {json.dumps(card.kernels)} / "
+              f"{json.dumps(meta.kernels)})")
+        charges = {k: v["charges"] for k, v in card.kernels.items()}
+        check(run == charges, f"{COST_TAG} {name}: kernels launched "
+              f"{json.dumps(run)} differ from those charged "
+              f"{json.dumps(charges)}")
+        for k, n in run.items():
+            launches[k] = launches.get(k, 0) + n
+        out[name] = rec
+    for rec in records:
+        rec["launches_cost"] = launches.get(rec["name"], 0)
+    del params, sp, cache, opt, index
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2382,7 +2556,8 @@ def family_cfg(name: str):
 
 def tag_record(rec: dict, tag: str, err: float, timed, plain_ms: float,
                lib_ms, nb: float, flops: float, peak: float,
-               label: str = "[families]", **extra) -> None:
+               label: str = "[families]", shown: str | None = None,
+               **extra) -> None:
     """A kernel's check and times at another path's shape, as keys
     ``<tag>_*`` of its record (the record's own keys stay the main path's),
     printed on a ``<label> kernel`` line."""
@@ -2393,7 +2568,8 @@ def tag_record(rec: dict, tag: str, err: float, timed, plain_ms: float,
                 f"{tag}_bound_ms": b_ms, f"{tag}_bound_by": b_by,
                 f"{tag}_library_ms": lib_ms},
                **{f"{tag}_{k}": v for k, v in extra.items()})
-    print(f"{label} kernel {rec['name']} {tag}: ok max_abs_err={err:.3g} "
+    print(f"{label} kernel {shown or rec['name']} {tag}: ok "
+          f"max_abs_err={err:.3g} "
           f"ms={ms:.4f} host_us={host:.1f} plain_ms={plain_ms:.4f} "
           f"bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms} "
           + json.dumps(extra), flush=True)
@@ -2426,9 +2602,9 @@ def estimator_check(torch, gen, timer: Timer, rec: dict, tag: str, n: int,
                           f"fused_estimator {tag}"),
                timer(lambda: ref.fused_estimator_ref(*args, return_y=True),
                      f"fused_estimator {tag} plain"), None,
-               rows_live * d * 4 + nbytes(ids, log_w, h) + t * 4
-               + t * d * 4 + t * 2 * k * 4,
-               4.0 * d * int(live.sum().item()), FP32_FLOPS, label=label,
+               *kcost().fused_estimator(
+                   *args, return_y=True, rows=rows_live,
+                   n_live=int(live.sum().item()))[:2], FP32_FLOPS, label=label,
                d=d, k=k, tokens=t)
     return emb, ids, h, log_w, got_y, want_z
 
@@ -2492,9 +2668,9 @@ def family_kernel_checks(torch, records: list[dict]) -> None:
                           "ivf_gather_score mamba2"),
                timer(lambda: ref.ivf_gather_score_ref(mv, mids, probe, qv),
                      "ivf_gather_score mamba2 plain"), None,
-               uniq.numel() * g.cap * (g.d + 1) * 4 + nbytes(probe, qv)
-               + b * g.n_probe * g.cap * 8,
-               2.0 * b * g.n_probe * g.cap * g.d, FP32_FLOPS,
+               *kcost().ivf_gather_score(mv, mids, probe, qv,
+                                         n_unique=uniq.numel())[:2],
+               FP32_FLOPS,
                d=g.d, queries=b)
     o_ids = torch.randint(0, g.n, (g.o_cap,), generator=gen, device="cuda",
                           dtype=torch.int32)
@@ -2520,9 +2696,9 @@ def family_kernel_checks(torch, records: list[dict]) -> None:
                           "ivf_screen_select mamba2"),
                timer(lambda: ref.ivf_screen_select_ref(*sargs, g.k),
                      "ivf_screen_select mamba2 plain"), None,
-               live_uniq * g.d * 4 + uniq.numel() * g.cap * 4
-               + nbytes(o_sc, o_ids, probe, qv) + b * g.k * 8,
-               2.0 * g.d * live_rows, FP32_FLOPS, d=g.d, k=g.k,
+               *kcost().ivf_screen_select(
+                   *sargs, g.k, n_unique=uniq.numel(), live_unique=live_uniq,
+                   live_rows=live_rows)[:2], FP32_FLOPS, d=g.d, k=g.k,
                pool=g.n_probe * g.cap + g.o_cap)
     del mv, mids, sargs, pool_s, pool_i
 
@@ -2551,9 +2727,9 @@ def family_kernel_checks(torch, records: list[dict]) -> None:
                           "fused_estimator_bwd mamba2"),
                timer(lambda: ref.fused_estimator_bwd_ref(*bargs, y=yb),
                      "fused_estimator_bwd mamba2 plain"), None,
-               nbytes(bargs[1], bargs[2], *bargs[4:], yb) + g.n * g.d * 4
-               + int(live_tok.sum().item()) * m * 4,
-               2.0 * g.d * int(torch.isfinite(bargs[3]).sum().item()),
+               *kcost().fused_estimator_bwd(
+                   *bargs, y=yb,
+                   n_live=int(torch.isfinite(bargs[3]).sum().item()))[:2],
                FP32_FLOPS, d=g.d, k=k, tokens=int(live_tok.sum().item()))
     print(f"[timer] [families] calls whose host issue outlasted the hold: "
           f"{json.dumps(timer.uncovered)}", flush=True)
@@ -2904,9 +3080,8 @@ def index_gather_check(torch, timer: Timer, rec: dict, tag: str, index,
                           f"ivf_gather_score {tag}"),
                timer(lambda: ref.ivf_gather_score_ref(*args),
                      f"ivf_gather_score {tag} plain"), None,
-               uniq.numel() * st.cap * (d + 1) * 4 + nbytes(probe, qf)
-               + b * n_probe * st.cap * 8,
-               2.0 * b * n_probe * st.cap * d, FP32_FLOPS, label=INDEX_TAG,
+               *kcost().ivf_gather_score(*args, n_unique=uniq.numel())[:2],
+               FP32_FLOPS, label=INDEX_TAG,
                d=d, queries=b, n_probe=n_probe, clusters=st.n_clusters,
                cap=st.cap)
 
@@ -3435,6 +3610,14 @@ SHARD_MOE_TOKENS = 256  # tokens of the forward_dist == forward check
 SHARD_RING_N = 1 << 22  # elements a rank of the int8 ring all-reduce
 SHARD_RING_REL = 0.04  # the ring's relative error bound (the reference's)
 SHARD_TIMEOUT_S = 600.0  # a spawned group's limit
+# recurrentgemma-9b on tp 2: its one KV head does not divide, so the dense
+# ring (the 2,048-row window at max_seq 4,096) is split over positions,
+# 1,024 a rank; prompts of 900-2,100 tokens and 32 new tokens cross the
+# shard boundary, and the longest wraps the ring
+SHARD_RG_PROMPTS = (1000, 1400, 1800, 2040)
+SHARD_RG_MAX_SEQ, SHARD_RG_NEW = 4096, 32
+SHARD_RG_RTOL = 1e-4  # tp-2 logits against one device, fp32, every step
+SHARD_HEADS = ("ivfpq", "lsh")  # the other heads served on tp 2
 
 
 def shard_kernel_checks(torch, records: list[dict]) -> None:
@@ -3481,6 +3664,7 @@ def shard_kernel_checks(torch, records: list[dict]) -> None:
                c["plain_ms"], c["lib_ms"], c["nb"], c["flops"], BF16_FLOPS,
                label=SHARD_TAG, positions=MAX_SEQ, block_len=64, heads=heads,
                dense_ms=c["dense_ms"])
+    flash_decode_lse_case(torch, gen, timer, by_name["flash_decode"])
     n, k, l = dh.shard_geometry(hc, cfg.vocab_padded, SHARD_TP)
     n = min(n, cfg.vocab)
     d = cfg.d_model
@@ -3510,9 +3694,9 @@ def shard_kernel_checks(torch, records: list[dict]) -> None:
                           "ivf_gather_score shard"),
                timer(lambda: ref.ivf_gather_score_ref(mv, mids, probe, qv),
                      "ivf_gather_score shard plain"), None,
-               uniq.numel() * cap * (d + 1) * 4 + nbytes(probe, qv)
-               + b * n_probe * cap * 8,
-               2.0 * b * n_probe * cap * d, FP32_FLOPS, label=SHARD_TAG,
+               *kcost().ivf_gather_score(mv, mids, probe, qv,
+                                         n_unique=uniq.numel())[:2],
+               FP32_FLOPS, label=SHARD_TAG,
                rows=n, queries=b)
     o_ids = torch.randint(0, n, (o_cap,), generator=gen, device="cuda",
                           dtype=torch.int32)
@@ -3538,9 +3722,10 @@ def shard_kernel_checks(torch, records: list[dict]) -> None:
                           "ivf_screen_select shard"),
                timer(lambda: ref.ivf_screen_select_ref(*sargs, k),
                      "ivf_screen_select shard plain"), None,
-               live_uniq * d * 4 + uniq.numel() * cap * 4
-               + nbytes(o_sc, o_ids, probe, qv) + b * k * 8,
-               2.0 * d * live_rows, FP32_FLOPS, label=SHARD_TAG, k=k,
+               *kcost().ivf_screen_select(
+                   *sargs, k, n_unique=uniq.numel(), live_unique=live_uniq,
+                   live_rows=live_rows)[:2], FP32_FLOPS, label=SHARD_TAG,
+               k=k,
                pool=n_probe * cap + o_cap)
     del mv, mids, sargs, pool_s, pool_i
 
@@ -3570,9 +3755,9 @@ def shard_kernel_checks(torch, records: list[dict]) -> None:
                           "tail_gather_argmax shard"),
                timer(lambda: ref.tail_gather_argmax_ref(*targs),
                      "tail_gather_argmax shard plain"), None,
-               int(torch.unique(pos[live]).numel()) * d * 4
-               + nbytes(pos, m_used, pert_s, s_ids, heights, h) + b * 8,
-               2.0 * d * int(m_used.sum().item()), FP32_FLOPS,
+               *kcost().tail_gather_argmax(
+                   *targs, rows=int(torch.unique(pos[live]).numel()),
+                   m_total=int(m_used.sum().item()))[:2], FP32_FLOPS,
                label=SHARD_TAG, k=k, m_cap=m_cap)
     del emb, targs
     estimator_check(torch, gen, timer, by_name["fused_estimator"], "shard",
@@ -3581,6 +3766,56 @@ def shard_kernel_checks(torch, records: list[dict]) -> None:
           f"{json.dumps(timer.uncovered)}", flush=True)
     del timer
     torch.cuda.empty_cache()
+
+
+def flash_decode_lse_case(torch, gen, timer: Timer, rec: dict) -> None:
+    """``flash_decode(..., return_lse=True)`` at one shard of
+    recurrentgemma-9b's split ring (4 x 1,024 positions, 16 query heads on
+    one KV head of 256, bf16), one row empty: held against
+    ``flash_decode_lse_ref`` (the output at atol 2e-3, the log-sum-exp
+    where it is finite at rtol 1e-5 / atol 1e-4; the empty row 0 and -inf
+    on both), timed beside its plain version and SDPA (masked, GQA), as
+    keys ``lse_shard_*`` of the ``flash_decode`` record."""
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import ref
+
+    b, s, hq, hkv, hd = SLOTS, SHARD_RG_MAX_SEQ // 2 // SHARD_TP, 16, 1, 256
+    q = torch.randn((b, hq, hd), generator=gen, device="cuda").bfloat16()
+    kc = torch.randn((b, s, hkv, hd), generator=gen, device="cuda").bfloat16()
+    vc = torch.randn((b, s, hkv, hd), generator=gen, device="cuda").bfloat16()
+    lengths = torch.tensor([0, 1, s // 2 + 3, s], device="cuda",
+                           dtype=torch.int32)
+    o, lse = kfd.flash_decode(q, kc, vc, lengths, return_lse=True)
+    wo, wl = ref.flash_decode_lse_ref(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(wl)
+    err = max((o - wo).abs().max().item(),
+              (lse[fin] - wl[fin]).abs().max().item())
+    check(torch.equal(torch.isfinite(lse), fin) and not bool(fin[0].any())
+          and bool((o[0] == 0).all()),
+          "flash_decode_lse: the empty row is not 0 / -inf")
+    check(torch.allclose(o, wo, rtol=0, atol=2e-3)
+          and torch.allclose(lse[fin], wl[fin], rtol=1e-5, atol=1e-4),
+          f"flash_decode_lse disagrees with its plain version: {err}")
+    mask = (torch.arange(s, device="cuda")[None] < lengths[:, None])
+    qs, ks, vs = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        sdpa(qs, ks, vs, attn_mask=mask[:, None, None, :], enable_gqa=True)
+        lib = timer(lambda: sdpa(qs, ks, vs, attn_mask=mask[:, None, None, :],
+                                 enable_gqa=True), "sdpa lse shard")
+    except TypeError:  # no GQA in this PyTorch's SDPA
+        lib = None
+    c = kcost().flash_decode(q, kc, lengths, lse=True,
+                             live=int(lengths.clamp(0, s).sum().item()))
+    tag_record(rec, "lse_shard", err,
+               timer.both(lambda: kfd.flash_decode(q, kc, vc, lengths,
+                                                   return_lse=True),
+                          "flash_decode lse shard"),
+               timer(lambda: ref.flash_decode_lse_ref(q, kc, vc, lengths),
+                     "flash_decode lse shard plain"), lib, c.bytes, c.flops,
+               BF16_FLOPS, label=SHARD_TAG, shown="flash_decode_lse",
+               positions=s, heads=[hq, hkv, hd], empty_rows=1)
 
 
 def _shard_out(out_dir: str, rank: int, obj) -> None:
@@ -3690,6 +3925,183 @@ def _rank_serve(torch, mesh, seed: int, counts: dict) -> dict:
     out["slo_windows"] = {str(w): picked.count(w) for w in sorted(set(picked))}
     out["requests"] = len(prompts)
     out["tokens"] = first
+    return out
+
+
+def _kv_bytes(cache) -> int:
+    """Bytes of a serving cache's attention K / V leaves."""
+    return sum(t.numel() * t.element_size() for g in cache
+               for lay in g.values() for name, t in lay.items()
+               if name in ("k", "v"))
+
+
+def _rank_rg(torch, mesh, seed: int, counts: dict) -> dict:
+    """recurrentgemma-9b on tp 2 at full width, 8 of 38 layers, the IVF
+    ShardedIndex head, dense serving: its one KV head does not divide, so
+    each rank holds 1,024 of the window's 2,048 ring positions. Served at
+    decode window 8, 1 and 8 again over one index (the unfused head: a
+    shard's 8-probe pool is 16,640 slots, past the fused screen's 16,384);
+    then, in fp32, the logits of the 1,000- and the 2,040-token prompts
+    and 32 teacher-forced steps each (past the shard boundary; past the
+    ring's end, so it wraps) against one device."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import report
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+    from repro_torch.serve.server import ServeConfig, Server
+
+    full = get("recurrentgemma-9b")
+    depth = FAMILY_CUTS["recurrentgemma-9b"]
+    cfg = full.scaled(n_layers=depth, head_mips="ivf")
+    rng = np.random.default_rng(seed)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab, n)))
+               for n in SHARD_RG_PROMPTS]
+    if mesh.rank == 0:
+        print(f"{SHARD_TAG} cut recurrentgemma-9b tp{SHARD_TP}: n_layers "
+              f"{full.n_layers} -> {depth} (d {full.d_model}, vocab "
+              f"{full.vocab}); traffic {len(prompts)} requests of "
+              f"{list(SHARD_RG_PROMPTS)} prompt tokens x {SHARD_RG_NEW} new "
+              f"tokens at max_seq {SHARD_RG_MAX_SEQ} (ring {full.local_window}"
+              f", {full.local_window // SHARD_TP} a rank)", flush=True)
+    out: dict = {}
+    # teacher-forced logits, fp32: tp 2 against one device, from the
+    # shortest prompt (decode crosses the shard boundary) and the longest
+    # (decode wraps the ring: the owner's write of slot 0, full shards)
+    tokens = list(map(int, rng.integers(0, cfg.vocab, SHARD_RG_NEW)))
+    teach = (prompts[0], prompts[-1])
+    rels = []
+    with torch.no_grad():
+        logits = {}
+        for label, m in (("tp", mesh), ("one", None)):
+            model = Model(cfg, "f32", device="cuda", mesh=m)
+            params = model.init(seed)
+            emb = model._out_embed(params)
+            v = emb.shape[0]
+            rows = slice(0, v) if m is not None else slice(
+                mesh.model.index * v // SHARD_TP,
+                (mesh.model.index + 1) * v // SHARD_TP)
+            steps_ = []
+            for prompt in teach:
+                cache = model.init_cache(1, SHARD_RG_MAX_SEQ)
+                x = model._lookup(params, torch.tensor([prompt],
+                                                       device="cuda"))
+                l = x.shape[1]
+                pos = torch.arange(l, device="cuda")[None]
+                h, part = transformer.apply_trunk_prefill(
+                    params, cfg, x, pos, max_seq=SHARD_RG_MAX_SEQ, mesh=m)
+                cache = transformer.insert_cache_slots(
+                    cache, part, torch.arange(1, device="cuda"), mesh=m)
+                steps_.append(h[:, -1].float() @ emb[rows].float().T)
+                p = torch.tensor([l], device="cuda")
+                for t in tokens:
+                    x = model._lookup(params, torch.tensor([t],
+                                                           device="cuda"))
+                    h, cache = transformer.apply_trunk_decode(
+                        params, cfg, x[:, None], cache, p, mesh=m)
+                    steps_.append(h[:, 0].float() @ emb[rows].float().T)
+                    p = p + 1
+                del cache, part
+            logits[label] = steps_
+            del model, params, emb
+            torch.cuda.empty_cache()
+        for a, b in zip(logits["tp"], logits["one"]):
+            rels.append(((a - b).abs().max() / b.abs().max()).item())
+        del logits
+    torch.cuda.empty_cache()
+    out["teacher_rel_err_max"] = max(rels)
+    out["teacher_steps"] = len(rels)
+    # serving, bf16
+    params = Model(cfg, "bf16", device="cuda", mesh=mesh).init(seed)
+    runs, index = {}, None
+    for label, window in (("T=8", WINDOW), ("T=1", 1), ("T=8 again",
+                                                        WINDOW)):
+        srv = Server(cfg, params, ServeConfig(
+            batch_slots=SLOTS, max_seq=SHARD_RG_MAX_SEQ,
+            max_new_tokens=SHARD_RG_NEW, decode_window=window, seed=seed),
+            precision_policy="bf16", device="cuda", index=index, mesh=mesh)
+        index = srv.index
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = srv.run(prompts)
+        torch.cuda.synchronize()
+        run = ops.launch_counts()
+        for k, n in run.items():
+            counts[k] = counts.get(k, 0) + n
+        rep = report(res, srv)
+        rep["launches"] = run
+        if label == "T=8":
+            rep["kv_mb_rank"] = _kv_bytes(srv.cache) / 1e6
+            rep["kv_mb_one_device"] = _kv_bytes(transformer.init_cache(
+                cfg, SLOTS, SHARD_RG_MAX_SEQ, torch.bfloat16,
+                device="meta")) / 1e6
+            rep["ring_rows_rank"] = next(
+                lay["k"].shape[2] for g in srv.cache for lay in g.values()
+                if "k" in lay)
+            out.update({k: rep[k] for k in ("kv_mb_rank", "kv_mb_one_device",
+                                            "ring_rows_rank")})
+        if mesh.rank == 0:
+            print(f"{SHARD_TAG} recurrentgemma-9b tp{SHARD_TP} serve {label} "
+                  + json.dumps(rep), flush=True)
+        runs[label] = [r.tokens for r in res]
+        out[label] = rep
+        del srv
+    out["window_eq"] = sum(a == b for a, b in zip(runs["T=8"], runs["T=1"]))
+    out["repeat_bitwise"] = sum(a == b for a, b in zip(runs["T=8"],
+                                                       runs["T=8 again"]))
+    out["complete"] = all(len(t) == SHARD_RG_NEW for t in runs["T=8"])
+    out["requests"] = len(prompts)
+    out["tokens"] = runs["T=8"]
+    return out
+
+
+def _rank_heads(torch, mesh, seed: int, counts: dict) -> dict:
+    """The IVF-PQ and the SRP-LSH heads on tp 2 (full-depth tinyllama-1.1b,
+    the trunk sharded, a ShardedIndex of each kind): 4 requests x 16 new
+    tokens, fused T=8 against unfused T=1 over one index each."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import report
+    from repro_torch.models.model import Model
+    from repro_torch.serve.server import ServeConfig, Server
+
+    base = get("tinyllama-1.1b")
+    prompts = family_prompts(base, seed)[:SLOTS]
+    params = Model(base, "bf16", device="cuda", mesh=mesh).init(seed)
+    out = {}
+    for mips in SHARD_HEADS:
+        cfg = base.scaled(head_mips=mips)
+        toks, index, reps = {}, None, {}
+        for fused, window in ((True, WINDOW), (False, 1)):
+            srv = Server(cfg.scaled(head_fused_decode=fused), params,
+                         ServeConfig(batch_slots=SLOTS, max_seq=MAX_SEQ,
+                                     max_new_tokens=SHARD_NEW_TOKENS,
+                                     decode_window=window, seed=seed),
+                         precision_policy="bf16", device="cuda", index=index,
+                         mesh=mesh)
+            index = srv.index
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            res = srv.run(prompts)
+            torch.cuda.synchronize()
+            run = ops.launch_counts()
+            for k, n in run.items():
+                counts[k] = counts.get(k, 0) + n
+            toks[fused] = [r.tokens for r in res]
+            reps["fused" if fused else "unfused"] = dict(
+                report(res, srv), launches=run)
+            del srv
+        out[mips] = {"fused_eq_unfused": sum(
+            a == b for a, b in zip(toks[True], toks[False])),
+            "requests": len(prompts), "tokens": toks[True],
+            "index_mb_shard": index.local.memory_bytes() / 1e6, **reps}
+        if mesh.rank == 0:
+            print(f"{SHARD_TAG} tp{SHARD_TP} {mips} head serve " + json.dumps(
+                {k: v for k, v in out[mips].items() if k != "tokens"}),
+                flush=True)
+        del index
     return out
 
 
@@ -3851,6 +4263,9 @@ def sharded_tp_rank(rank: int, world: int, init: str, out_dir: str,
     for name, fn in (("ring", lambda: _rank_ring(torch, mesh, seed)),
                      ("serve", lambda: _rank_serve(torch, mesh, seed,
                                                    counts)),
+                     ("heads", lambda: _rank_heads(torch, mesh, seed,
+                                                   counts)),
+                     ("rg", lambda: _rank_rg(torch, mesh, seed, counts)),
                      ("exact", lambda: _rank_exact(torch, mesh, seed)),
                      ("moe", lambda: _rank_moe(torch, mesh, seed, counts))):
         t0 = time.perf_counter()
@@ -4082,6 +4497,47 @@ def _sharded_gates(out: dict, smi: str) -> None:
     print(f"{SHARD_TAG} tp{SHARD_TP} serve summary ({smi}) "
           + json.dumps(summary), flush=True)
     check(fused["ok_rate"] > 0.9, f"TP serving ok_rate {fused['ok_rate']}")
+    for mips in SHARD_HEADS:
+        h = tp["heads"][mips]
+        print(f"{SHARD_TAG} tp{SHARD_TP} {mips} head fused T={WINDOW} == "
+              f"unfused T=1 tokens: {h['fused_eq_unfused']}/{h['requests']}",
+              flush=True)
+        check(h["fused_eq_unfused"] == h["requests"],
+              f"TP serving, {mips} head: fused and unfused served different "
+              "tokens")
+        check(all(r["heads"][mips]["tokens"] == h["tokens"]
+                  for r in out["tp_ranks"]), f"{mips} head: ranks disagree")
+    rg = tp["rg"]
+    rg_sum = {k: rg[k] for k in ("teacher_rel_err_max", "teacher_steps",
+                                 "kv_mb_rank", "kv_mb_one_device",
+                                 "ring_rows_rank", "window_eq",
+                                 "repeat_bitwise", "complete")}
+    rg_sum.update(itl_p50_ms=rg["T=8"]["itl_p50_ms"],
+                  tokens_per_s=rg["T=8"]["tokens_per_s"],
+                  ttft_p50_ms=rg["T=8"].get("ttft_p50_ms"),
+                  cache_mb_rank=rg["T=8"]["cache_mb"])
+    print(f"{SHARD_TAG} recurrentgemma-9b tp{SHARD_TP} split ring ({smi}) "
+          + json.dumps(rg_sum), flush=True)
+    print(f"{SHARD_TAG} recurrentgemma-9b tp{SHARD_TP} decode window "
+          f"{WINDOW} == 1 tokens: {rg['window_eq']}/{rg['requests']}; two "
+          f"T={WINDOW} runs bitwise: {rg['repeat_bitwise']}/{rg['requests']};"
+          f" fp32 teacher-forced logits vs one device, max rel err "
+          f"{rg['teacher_rel_err_max']:.3g} over {rg['teacher_steps']} "
+          f"steps; KV MB a rank {rg['kv_mb_rank']:.3f} vs one device "
+          f"{rg['kv_mb_one_device']:.3f}", flush=True)
+    check(rg["window_eq"] == rg["requests"] and rg["complete"],
+          "recurrentgemma tp2: window 8 and window 1 served different tokens")
+    check(rg["repeat_bitwise"] == rg["requests"],
+          "recurrentgemma tp2: two runs served different tokens")
+    check(all(r["rg"]["teacher_rel_err_max"] <= SHARD_RG_RTOL
+              for r in out["tp_ranks"]),
+          f"recurrentgemma tp2 logits differ from one device: "
+          f"{[r['rg']['teacher_rel_err_max'] for r in out['tp_ranks']]}")
+    check(abs(rg["kv_mb_rank"] * SHARD_TP - rg["kv_mb_one_device"]) < 1e-6
+          and rg["ring_rows_rank"] == 2048 // SHARD_TP,
+          "recurrentgemma tp2: a rank does not hold half the KV ring")
+    check(all(r["rg"]["tokens"] == rg["tokens"] for r in out["tp_ranks"]),
+          "recurrentgemma tp2: ranks disagree")
     print(f"{SHARD_TAG} exact-mode tp{SHARD_TP} head == single device: "
           + json.dumps(tp["exact"]), flush=True)
     check(all(r["exact"]["ok"] for r in out["tp_ranks"]),
@@ -4208,6 +4664,11 @@ def main() -> int:
             train_counts.setdefault(name, run_counts[name])
     _, train_us = probe_diagnostics(torch, args.seed, cfg)
     print(f"[train] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cost_phase(torch, args.seed, records, smi)
+    print(f"{COST_TAG} phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
     paper_phase(torch, args.seed, records, smi)

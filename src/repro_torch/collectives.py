@@ -41,18 +41,34 @@ itself, never an all-reduce and a slice). :func:`broadcast`
 and :func:`broadcast_object` hand every rank the axis' first rank's value:
 how a host decision that rank 0 makes (a clock read, a fitted router)
 reaches the others.
+
+**Virtual axes and the cost model.** An axis whose backend is ``"meta"``
+(:func:`repro_torch.launch.mesh.make_production_mesh`) has no process
+group: every op on it returns a meta tensor of the result's shape (an
+all-gather ``size`` times its input, a reduce-scatter ``1/size``) and
+moves nothing. It takes meta tensors only and raises on any other, so a
+virtual axis never stands in for a real one. Every op over an axis of
+more than one rank, real or virtual, reports its operand bytes by kind
+and axis to the active cost recorder (:mod:`repro_torch.cost_hook`),
+with the reference's operand rule (``hlo_analysis.py``): an all-gather's
+operand is its result / group, a reduce-scatter's its result × group,
+every other collective's the same shape as its result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import cost_hook
+
 __all__ = ["Axis", "HOST_BYTES", "reset_host_bytes",
            "psum", "pmax", "pmin", "all_gather", "ppermute", "copy_to",
            "reduce_from", "all_reduce", "reduce_scatter", "all_gather_dim",
+           "all_gather_dim_replicated",
            "broadcast", "broadcast_object"]
 
 # {op: bytes} a gloo collective moved across the host for CUDA tensors
@@ -81,6 +97,17 @@ class Axis:
         """A size-1 axis: every collective is the identity."""
         return cls(name, 1, 0, (0,), None, "gloo")
 
+    @classmethod
+    def virtual(cls, name: str, size: int, index: int = 0) -> "Axis":
+        """An axis of ``size`` ranks without a process group (backend
+        ``"meta"``): its collectives return meta results of the right
+        shape and record their bytes."""
+        return cls(name, size, index, tuple(range(size)), None, "meta")
+
+    @property
+    def is_virtual(self) -> bool:
+        return self.backend == "meta"
+
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
@@ -98,13 +125,30 @@ def _via_host(axis: Axis, op: str, t: torch.Tensor,
     return True
 
 
+@contextlib.contextmanager
+def _collective(kind: str, axis: Axis, x: torch.Tensor):
+    """Around one collective on ``x`` (its operand): refuse a non-meta
+    tensor on a virtual axis; report the operand bytes to the active cost
+    recorder and hold back its per-op counting of the op's own tensor
+    work (a collective is charged as its traffic alone)."""
+    if axis.is_virtual and not x.is_meta:
+        raise ValueError(f"virtual axis {axis.name!r} got a tensor on "
+                         f"{x.device}: a virtual mesh traces meta tensors "
+                         "only")
+    with cost_hook.collective(kind, axis.name, _nbytes(x)):
+        yield
+
+
 def _all_reduce(x: torch.Tensor, axis: Axis, op) -> torch.Tensor:
     if axis.size == 1:
         return x
-    out = x.detach().clone().contiguous()
-    _via_host(axis, "all_reduce", out)
-    dist.all_reduce(out, op=op, group=axis.group)
-    return out
+    with _collective("all-reduce", axis, x):
+        if axis.is_virtual:
+            return torch.empty_like(x)
+        out = x.detach().clone().contiguous()
+        _via_host(axis, "all_reduce", out)
+        dist.all_reduce(out, op=op, group=axis.group)
+        return out
 
 
 def psum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
@@ -124,11 +168,14 @@ def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """(size, *x.shape): every rank's ``x`` in axis order."""
     if axis.size == 1:
         return x.detach()[None]
-    src = x.detach().contiguous()
-    _via_host(axis, "all_gather", src)
-    outs = [torch.empty_like(src) for _ in range(axis.size)]
-    dist.all_gather(outs, src, group=axis.group)
-    return torch.stack(outs)
+    with _collective("all-gather", axis, x):
+        if axis.is_virtual:
+            return x.new_empty((axis.size,) + tuple(x.shape))
+        src = x.detach().contiguous()
+        _via_host(axis, "all_gather", src)
+        outs = [torch.empty_like(src) for _ in range(axis.size)]
+        dist.all_gather(outs, src, group=axis.group)
+        return torch.stack(outs)
 
 
 def ppermute(x: torch.Tensor, axis: Axis, shift: int = 1) -> torch.Tensor:
@@ -137,18 +184,21 @@ def ppermute(x: torch.Tensor, axis: Axis, shift: int = 1) -> torch.Tensor:
     pairs ``[(i, (i + shift) % size)]``)."""
     if axis.size == 1 or shift % axis.size == 0:
         return x.detach().clone()
-    src = x.detach().contiguous()
-    dst = axis.ranks[(axis.index + shift) % axis.size]
-    frm = axis.ranks[(axis.index - shift) % axis.size]
-    staged = _via_host(axis, "ppermute", src)
-    send = src.cpu() if staged else src
-    recv = torch.empty_like(send)
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, dst, group=axis.group),
-        dist.P2POp(dist.irecv, recv, frm, group=axis.group)])
-    for r in reqs:
-        r.wait()
-    return recv.to(x.device) if staged else recv
+    with _collective("collective-permute", axis, x):
+        if axis.is_virtual:
+            return torch.empty_like(x)
+        src = x.detach().contiguous()
+        dst = axis.ranks[(axis.index + shift) % axis.size]
+        frm = axis.ranks[(axis.index - shift) % axis.size]
+        staged = _via_host(axis, "ppermute", src)
+        send = src.cpu() if staged else src
+        recv = torch.empty_like(send)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, dst, group=axis.group),
+            dist.P2POp(dist.irecv, recv, frm, group=axis.group)])
+        for r in reqs:
+            r.wait()
+        return recv.to(x.device) if staged else recv
 
 
 class _CopyTo(torch.autograd.Function):
@@ -214,12 +264,17 @@ def reduce_scatter(x: torch.Tensor, axis: Axis, dim: int = 0
     if axis.size == 1:
         return x
     n = x.shape[dim] // axis.size
-    src = x.detach().movedim(dim, 0).contiguous()
-    _via_host(axis, "reduce_scatter", src, _nbytes(src) // axis.size)
-    out = torch.empty((n,) + src.shape[1:], dtype=src.dtype,
-                      device=src.device)
-    dist.reduce_scatter(out, list(src.split(n)), group=axis.group)
-    return out.movedim(0, dim)
+    with _collective("reduce-scatter", axis, x):
+        if axis.is_virtual:
+            shape = list(x.shape)
+            shape[dim] = n
+            return x.new_empty(shape)
+        src = x.detach().movedim(dim, 0).contiguous()
+        _via_host(axis, "reduce_scatter", src, _nbytes(src) // axis.size)
+        out = torch.empty((n,) + src.shape[1:], dtype=src.dtype,
+                          device=src.device)
+        dist.reduce_scatter(out, list(src.split(n)), group=axis.group)
+        return out.movedim(0, dim)
 
 
 def _gather_cat(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
@@ -250,20 +305,49 @@ def all_gather_dim(x: torch.Tensor, axis: Axis, dim: int,
     return _GatherDim.apply(x, axis, dim, dtype)
 
 
+class _GatherRep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, dtype):
+        ctx.axis, ctx.dim, ctx.in_dtype = axis, dim, x.dtype
+        ctx.n = x.shape[dim]
+        return _gather_cat(x if dtype is None else x.to(dtype), axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        blk = g.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n)
+        return blk.to(ctx.in_dtype).contiguous(), None, None, None
+
+
+def all_gather_dim_replicated(x: torch.Tensor, axis: Axis, dim: int,
+                              dtype: torch.dtype | None = None
+                              ) -> torch.Tensor:
+    """Every rank's block joined along ``dim``, for a use that every rank
+    of the axis repeats on the same inputs (a block computed whole on
+    each rank): the gradient is then the same on every rank, and its
+    backward keeps this rank's block of it, with no communication."""
+    if axis.size == 1:
+        return x if dtype is None else x.to(dtype)
+    return _GatherRep.apply(x, axis, dim, dtype)
+
+
 def broadcast(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """The axis' first rank's ``x`` on every rank (same shape and dtype on
     all). Not differentiable."""
     if axis.size == 1:
         return x
-    out = x.detach().clone().contiguous()
-    _via_host(axis, "broadcast", out)
-    dist.broadcast(out, src=axis.ranks[0], group=axis.group)
-    return out
+    with _collective("broadcast", axis, x):
+        if axis.is_virtual:
+            return torch.empty_like(x)
+        out = x.detach().clone().contiguous()
+        _via_host(axis, "broadcast", out)
+        dist.broadcast(out, src=axis.ranks[0], group=axis.group)
+        return out
 
 
 def broadcast_object(obj: Any, axis: Axis) -> Any:
-    """The axis' first rank's ``obj`` (picklable) on every rank."""
-    if axis.size == 1:
+    """The axis' first rank's ``obj`` (picklable) on every rank (on a
+    virtual axis: ``obj``, the first rank's own)."""
+    if axis.size == 1 or axis.is_virtual:
         return obj
     box = [obj]
     dist.broadcast_object_list(box, src=axis.ranks[0], group=axis.group)

@@ -332,7 +332,7 @@ def stratified_logz(emb: torch.Tensor, h: torch.Tensor, ids: torch.Tensor,
     """Per-token ``log Σ_i w_i e^{y_i}`` over candidates (t,), differentiable
     w.r.t. ``emb`` and ``h`` (∇_h = Algorithm 4's expectation estimate).
 
-    On CUDA tensors the candidates always stream through the
+    On CUDA (and meta) tensors the candidates always stream through the
     ``fused_estimator`` kernel (no (t, m, d) gather in device memory),
     backed by its backward kernel. On the CPU, ``use_kernel`` takes that
     route through the kernels' plain versions; without it the rows are
@@ -343,7 +343,7 @@ def stratified_logz(emb: torch.Tensor, h: torch.Tensor, ids: torch.Tensor,
     # table, as the reference's gather clamps
     ids = torch.clamp(ids.detach(), 0, emb.shape[0] - 1)
     log_w = log_w.float()  # stratum weights: fp32 always
-    if use_kernel or h.is_cuda:
+    if use_kernel or ops.kernel_route(h):
         return _FusedLogZ.apply(emb, h, ids, log_w)
     # an embedding lookup, not ``emb[ids]``: advanced indexing's backward
     # on the CPU adds repeated rows with atomics across threads, in an order

@@ -253,7 +253,7 @@ class IVFIndex:
         fixed and adaptive probes share this pool exactly."""
         st = self.state
         b = qf.shape[0]
-        if self.config.use_kernel or qf.is_cuda:
+        if self.config.use_kernel or ops.kernel_route(qf):
             scores, ids = ops.ivf_gather_score(st.member_vecs, st.member_ids,
                                                probe, qf)
         else:

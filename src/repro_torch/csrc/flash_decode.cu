@@ -253,7 +253,8 @@ template <typename T, int kDims, bool kPaged>
 __global__ void __launch_bounds__(1024) flash_decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ lengths, float* __restrict__ ws, int S, int Hq,
-    int Hkv, int hd, int n_split, float scale, int vec, PageTable pt) {
+    int Hkv, int hd, int n_split, float scale, int vec, PageTable pt,
+    int skip_empty) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int spages[kPaged ? kSplit : 1];
   const int G = Hq / Hkv;
@@ -263,7 +264,9 @@ __global__ void __launch_bounds__(1024) flash_decode_split_kernel(
   // the combine kernel may be scheduled now; it waits for this grid's end
   repro_torch::allow_dependent_launch();
   const int len = min(lengths[b], S);
-  const int rows_end = len > 0 ? len : S;
+  // a row of length 0 reads every row (the reference's all-masked
+  // average), or with skip_empty (the log-sum-exp call) none
+  const int rows_end = len > 0 ? len : (skip_empty ? 0 : S);
   const int row0 = split * kSplit;
   if (row0 >= rows_end) return;  // block-uniform: past the sequence
   const int nrows = min(kSplit, rows_end - row0);
@@ -446,7 +449,7 @@ __global__ void __launch_bounds__(1024) flash_decode_split_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
     float* __restrict__ ws, int S, int Hq, int Hkv, int hd, int n_split,
-    float scale, PageTable pt) {
+    float scale, PageTable pt, int skip_empty) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int spages[kPaged ? kSplit : 1];
   using bf16 = __nv_bfloat16;
@@ -457,7 +460,9 @@ __global__ void __launch_bounds__(1024) flash_decode_split_mma_kernel(
   const int b = blockIdx.z;
   repro_torch::allow_dependent_launch();
   const int len = min(lengths[b], S);
-  const int rows_end = len > 0 ? len : S;
+  // a row of length 0 reads every row (the reference's all-masked
+  // average), or with skip_empty (the log-sum-exp call) none
+  const int rows_end = len > 0 ? len : (skip_empty ? 0 : S);
   const int row0 = split * kSplit;
   if (row0 >= rows_end) return;  // block-uniform: past the sequence
   const int nrows = min(kSplit, rows_end - row0);
@@ -628,11 +633,14 @@ __global__ void __launch_bounds__(1024) flash_decode_split_mma_kernel(
 // One block per (sequence, query head): the live splits' partials merged in
 // split order. The block copies kCombineChunk records at a time into shared
 // memory with coalesced loads, then thread c folds output dim c over them
-// in split order.
+// in split order. With lse (non-null) it also stores m + log(l), the log of
+// the row's sum of exp(scaled score); a row of length 0 then has no split
+// and gives out = 0, lse = -inf.
 __global__ void __launch_bounds__(kCombineThreads)
     flash_decode_combine_kernel(const float* __restrict__ ws,
                                 const int* __restrict__ lengths,
-                                float* __restrict__ out, int S, int Hq,
+                                float* __restrict__ out,
+                                float* __restrict__ lse, int S, int Hq,
                                 int hd, int n_split) {
   extern __shared__ float sbuf[];  // kCombineChunk * (hd + 2) records
   __shared__ float sw[kCombineChunk];
@@ -641,7 +649,7 @@ __global__ void __launch_bounds__(kCombineThreads)
   const int tid = threadIdx.x;
   const int rec = hd + 2;
   const int len = min(lengths[bh / Hq], S);
-  const int rows_end = len > 0 ? len : S;
+  const int rows_end = len > 0 ? len : (lse != nullptr ? 0 : S);
   const int ns = (rows_end + kSplit - 1) / kSplit;
   const float* wp = ws + static_cast<size_t>(bh) * n_split * rec;
   // launched early (programmatic dependent launch): wait until the split
@@ -678,13 +686,18 @@ __global__ void __launch_bounds__(kCombineThreads)
     }
     __syncthreads();
   }
-  if (tid < hd) out[static_cast<size_t>(bh) * hd + tid] = acc / l;
+  if (lse == nullptr) {
+    if (tid < hd) out[static_cast<size_t>(bh) * hd + tid] = acc / l;
+    return;
+  }
+  if (tid < hd) out[static_cast<size_t>(bh) * hd + tid] = ns > 0 ? acc / l : 0.f;
+  if (tid == 0) lse[bh] = ns > 0 ? m + logf(l) : -INFINITY;
 }
 
 template <typename T, int kDims, bool kPaged>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           float* out, float* ws, int B, int S, int Hq, int Hkv, int hd,
-           const PageTable& pt, cudaStream_t stream) {
+           float* out, float* lse, float* ws, int B, int S, int Hq, int Hkv,
+           int hd, const PageTable& pt, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int n_split = (S + kSplit - 1) / kSplit;
   const int threads = 32 * (G < 4 ? 4 : G);
@@ -718,64 +731,66 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), lengths, ws, S, Hq, Hkv, hd,
-        n_split, scale, pt);
+        n_split, scale, pt, lse != nullptr);
   } else {
     flash_decode_split_kernel<T, kDims, kPaged>
         <<<grid, threads, smem, stream>>>(
             static_cast<const T*>(q), static_cast<const T*>(k),
             static_cast<const T*>(v), lengths, ws, S, Hq, Hkv, hd, n_split,
-            scale, vec, pt);
+            scale, vec, pt, lse != nullptr);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return repro_torch::launch_dependent(
       flash_decode_combine_kernel, dim3(B * Hq), dim3(kCombineThreads),
       sizeof(float) * kCombineChunk * static_cast<size_t>(hd + 2), stream,
-      static_cast<const float*>(ws), lengths, out, S, Hq, hd, n_split);
+      static_cast<const float*>(ws), lengths, out, lse, S, Hq, hd, n_split);
 }
 
 // The launch for q/k/v of type T, with as many output dims per lane as hd
 // needs.
 template <typename T, bool kPaged>
 int launch_dims(const void* q, const void* k, const void* v,
-                const int* lengths, float* out, float* ws, int B, int S,
-                int Hq, int Hkv, int hd, const PageTable& pt,
+                const int* lengths, float* out, float* lse, float* ws, int B,
+                int S, int Hq, int Hkv, int hd, const PageTable& pt,
                 cudaStream_t s) {
   if (hd <= 32)
-    return launch<T, 1, kPaged>(q, k, v, lengths, out, ws, B, S, Hq, Hkv,
-                                hd, pt, s);
+    return launch<T, 1, kPaged>(q, k, v, lengths, out, lse, ws, B, S, Hq,
+                                Hkv, hd, pt, s);
   if (hd <= 64)
-    return launch<T, 2, kPaged>(q, k, v, lengths, out, ws, B, S, Hq, Hkv,
-                                hd, pt, s);
+    return launch<T, 2, kPaged>(q, k, v, lengths, out, lse, ws, B, S, Hq,
+                                Hkv, hd, pt, s);
   if (hd <= 128)
-    return launch<T, 4, kPaged>(q, k, v, lengths, out, ws, B, S, Hq, Hkv,
-                                hd, pt, s);
-  return launch<T, kMaxDimsPerLane, kPaged>(q, k, v, lengths, out, ws, B, S,
-                                            Hq, Hkv, hd, pt, s);
+    return launch<T, 4, kPaged>(q, k, v, lengths, out, lse, ws, B, S, Hq,
+                                Hkv, hd, pt, s);
+  return launch<T, kMaxDimsPerLane, kPaged>(q, k, v, lengths, out, lse, ws,
+                                            B, S, Hq, Hkv, hd, pt, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k and v share it). ws: the split
 // workspace, B * Hq * ceil(S / split_rows) * (hd + 2) floats; split_rows
-// must be the kernel's kSplit (the caller sizes ws with it). Enqueues the
-// split kernel and the combine kernel; returns the CUDA error code of the
-// launches (0 = success). The caller validates shapes: Hq % Hkv == 0,
-// Hq / Hkv <= 32, hd <= 256.
+// must be the kernel's kSplit (the caller sizes ws with it). lse: null, or
+// B * Hq floats for each row's log-sum-exp (a row of length 0 is then
+// empty: out 0, lse -inf, nothing read). Enqueues the split kernel and the
+// combine kernel; returns the CUDA error code of the launches (0 =
+// success). The caller validates shapes: Hq % Hkv == 0, Hq / Hkv <= 32,
+// hd <= 256.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const int* lengths,
                                    float* out, float* ws, int B, int S,
                                    int Hq, int Hkv, int hd, int split_rows,
-                                   int dtype, void* stream) {
+                                   int dtype, void* stream, float* lse) {
   if (split_rows != kSplit) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const PageTable none{nullptr, 0, 1, 1};
   if (dtype == 1)
-    return launch_dims<__nv_bfloat16, false>(q, k, v, lengths, out, ws, B, S,
-                                             Hq, Hkv, hd, none, s);
-  return launch_dims<float, false>(q, k, v, lengths, out, ws, B, S, Hq, Hkv,
-                                   hd, none, s);
+    return launch_dims<__nv_bfloat16, false>(q, k, v, lengths, out, lse, ws,
+                                             B, S, Hq, Hkv, hd, none, s);
+  return launch_dims<float, false>(q, k, v, lengths, out, lse, ws, B, S, Hq,
+                                   Hkv, hd, none, s);
 }
 
 // The paged layout: k_pool / v_pool are (n_pool, block_len, Hkv, hd) and
@@ -795,7 +810,8 @@ extern "C" int flash_decode_paged_launch(
   const int S = n_pages * block_len;
   if (dtype == 1)
     return launch_dims<__nv_bfloat16, true>(q, k_pool, v_pool, lengths, out,
-                                            ws, B, S, Hq, Hkv, hd, pt, s);
-  return launch_dims<float, true>(q, k_pool, v_pool, lengths, out, ws, B, S,
-                                  Hq, Hkv, hd, pt, s);
+                                            nullptr, ws, B, S, Hq, Hkv, hd,
+                                            pt, s);
+  return launch_dims<float, true>(q, k_pool, v_pool, lengths, out, nullptr,
+                                  ws, B, S, Hq, Hkv, hd, pt, s);
 }

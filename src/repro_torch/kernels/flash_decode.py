@@ -17,6 +17,15 @@ the pool through the page table in place (its launches count as
 The kernel splits each sequence into ``SPLIT_ROWS``-row blocks and combines
 their partial softmax states in a second kernel, both enqueued by one C
 call; the output and the split workspace share one allocation.
+
+``return_lse=True`` (the dense ring) also returns each row's log-sum-exp
+``(B, Hq)`` fp32 — the natural log of Σ exp(q·k / √hd) over its live rows,
+``m + log(l)`` of the combine's merged state — so the partial softmaxes of
+a ring split over ranks can be combined (:mod:`repro_torch.models
+.attention`). A row of length 0 is then empty: no split reads it, its
+output is 0 and its lse -inf, where the default call keeps the
+reference's all-masked semantics (every row averaged). Its launches count
+as ``flash_decode``.
 """
 from __future__ import annotations
 
@@ -40,10 +49,13 @@ def workspace_floats(b: int, s: int, hq: int, hd: int) -> int:
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 lengths: torch.Tensor, pages: torch.Tensor | None = None
-                 ) -> torch.Tensor:
+                 lengths: torch.Tensor, pages: torch.Tensor | None = None,
+                 return_lse: bool = False):
     """Launch the kernel on CUDA tensors; raises on anything it does not take.
-    ``pages``: the paged layout (``k_cache`` / ``v_cache`` are the pool)."""
+    ``pages``: the paged layout (``k_cache`` / ``v_cache`` are the pool);
+    ``return_lse``: ``(out, lse)`` (dense only)."""
+    if return_lse and pages is not None:
+        raise ValueError("flash_decode: return_lse takes the dense ring only")
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k_cache.shape)}"
                          f" v{tuple(v_cache.shape)}")
@@ -74,19 +86,23 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     n_out = b * hq * hd
-    buf = torch.empty(n_out + workspace_floats(b, s, hq, hd),
+    n_ws = workspace_floats(b, s, hq, hd)
+    # [out | workspace | lse]: the default call's layout is the lse call's
+    buf = torch.empty(n_out + n_ws + (b * hq if return_lse else 0),
                       dtype=torch.float32, device=q.device)
     out = buf[:n_out].view(b, hq, hd)
     ws = buf.data_ptr() + 4 * n_out
     if pages is None:
+        lse = buf[n_out + n_ws:].view(b, hq) if return_lse else None
         fn = build.bind("flash_decode", "flash_decode_launch",
-                        [build.P] * 6 + [build.I] * 7 + [build.P])
+                        [build.P] * 6 + [build.I] * 7 + [build.P] * 2)
         err = fn(build.ptr(q), build.ptr(k_cache), build.ptr(v_cache),
                  build.ptr(lengths), build.ptr(out), ws, b, s, hq, hkv, hd,
-                 SPLIT_ROWS, _DTYPES[q.dtype], build.stream())
+                 SPLIT_ROWS, _DTYPES[q.dtype], build.stream(),
+                 build.ptr(lse) if return_lse else None)
         build.check(err, "flash_decode")
         launches["flash_decode"] += 1
-        return out
+        return (out, lse) if return_lse else out
     pages = pages.to(torch.int32).contiguous()
     fn = build.bind("flash_decode", "flash_decode_paged_launch",
                     [build.P] * 7 + [build.I] * 9 + [build.P])

@@ -19,6 +19,7 @@ from repro_torch.core.quant.pq import lut_scores
 __all__ = [
     "flash_decode_ref",
     "flash_decode_paged_ref",
+    "flash_decode_lse_ref",
     "ivf_gather_score_ref",
     "pq_lut_score_ref",
     "topk_select_ref",
@@ -48,6 +49,29 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhs,bshd->bhd", p, vf)
+
+
+def flash_decode_lse_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_decode(..., return_lse=True)``: (B,Hq,hd), (B,S,Hkv,hd) x2,
+    (B,) -> (o (B,Hq,hd) f32, lse (B,Hq) f32), lse the natural log of
+    Σ exp(q·k / √hd) over the positions below ``lengths[b]``. A row with
+    no live position weighs nothing: o = 0 and lse = -inf (where the
+    default call's -1e30 mask would average every position)."""
+    b, hq, hd = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    qf = q.float()
+    kf = k_cache.float().repeat_interleave(g, dim=2)  # (B, S, Hq, hd)
+    vf = v_cache.float().repeat_interleave(g, dim=2)
+    scores = torch.einsum("bhd,bshd->bhs", qf, kf) / (hd ** 0.5)
+    pos = torch.arange(s, device=q.device)
+    mask = pos[None, None, :] < lengths.to(q.device)[:, None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, float("-inf")))
+    lse = torch.logsumexp(scores, dim=-1)  # -inf on an empty row
+    p = torch.exp(scores - torch.where(torch.isinf(lse), 0.0, lse)[..., None])
+    return torch.einsum("bhs,bshd->bhd", p, vf), lse
 
 
 def flash_decode_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,

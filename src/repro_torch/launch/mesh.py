@@ -33,6 +33,13 @@ blocks, else a gather over ``model`` on use) is in
 the reference's placement of the serving caches, which
 :func:`repro_torch.models.transformer.init_cache` allocates.
 
+:func:`make_production_mesh` is the reference's production mesh as rank 0
+sees it, without ranks: its axes are virtual (backend ``"meta"``, no
+process group, :mod:`repro_torch.collectives`), so a step traced on meta
+tensors over it runs rank 0's share of the work and records every
+collective it would issue (the cost model's dry run,
+:mod:`repro_torch.launch.dryrun`).
+
 Backend and device are explicit (:func:`init_rank`): the caller names the
 backend (``gloo`` or ``nccl``) and the device (``cuda:<rank % cards>``
 unless the CPU is asked for); nothing switches by itself. NCCL with more
@@ -54,6 +61,7 @@ import torch.distributed as dist
 from repro_torch.collectives import Axis
 
 __all__ = ["Mesh", "MOE_SHARDING", "DEFAULT_TIMEOUT_S", "make_train_mesh",
+           "make_production_mesh", "make_virtual_mesh",
            "fsdp_axes", "param_spec", "spec_dims", "moe_mode", "shard_dim",
            "map_with_path", "local_slice",
            "local_shape", "shard_params", "cache_shardings", "data_rows",
@@ -79,6 +87,11 @@ class Mesh:
     data: Axis
     model: Axis
     world: Axis
+    name: str = ""
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.tp
 
     @property
     def shape(self) -> dict[str, int]:
@@ -147,6 +160,24 @@ def make_train_mesh(dp: int = 1, tp: int = 1, *,
             data_ax = axis("data", ranks, d_idx, g)
     world_ax = axis("world", list(range(n)), rank, dist.group.WORLD)
     return Mesh(dp, tp, rank, data_ax, model_ax, world_ax)
+
+
+def make_production_mesh(multi_pod: bool = False) -> Mesh:
+    """Rank 0's view of the reference's production mesh, virtual (no
+    process group; meta tensors only): 16 x 16 ``("data", "model")``
+    ("16x16"), or with ``multi_pod`` 2 x 16 x 16 with ``pod x data`` folded
+    into one data axis of 32 ("2x16x16": the reference's FSDP axes are
+    ``("pod", "data")``, which shard as one axis of their product)."""
+    if multi_pod:
+        return make_virtual_mesh(32, 16, "2x16x16")
+    return make_virtual_mesh(16, 16)
+
+
+def make_virtual_mesh(dp: int, tp: int, name: str = "") -> Mesh:
+    """Rank 0's view of a ``(dp, tp)`` mesh with virtual axes (no process
+    group, meta tensors only; :mod:`repro_torch.collectives`)."""
+    return Mesh(dp, tp, 0, Axis.virtual("data", dp), Axis.virtual("model", tp),
+                Axis.virtual("world", dp * tp), name or f"{dp}x{tp}")
 
 
 def fsdp_axes(mesh: Mesh) -> tuple[str, ...]:
@@ -293,14 +324,12 @@ def cache_shardings(cache: list, mesh: Mesh, cfg, paged: bool = False
                     ) -> list:
     """Placement of the serving cache's leaves (GLOBAL shapes, the
     structure of :func:`repro_torch.models.transformer.init_cache`): the
-    reference's rule — batch (axis 1) over the FSDP axes when it divides
-    (not the paged pool's block axis), the KV ring's and the pool's KV
-    heads over "model", the SSM and RG-LRU ``state``'s heads / width over
-    "model" — except where the KV heads do not divide ``tp``: the
-    reference then splits the dense ring's positions over "model"; the
-    port keeps such a ring (and pool) replicated over "model" and gives
-    each rank its query heads (:mod:`repro_torch.models.attention`).
-    ``cfg`` is the reference's argument, unread there as here."""
+    reference's rule, entry for entry — batch (axis 1) over the FSDP axes
+    when it divides (not the paged pool's block axis), the KV ring's and
+    the pool's KV heads over "model", else (the dense ring only) its
+    positions over "model" when they divide, the SSM and RG-LRU
+    ``state``'s heads / width over "model". ``cfg`` is the reference's
+    argument, unread there as here."""
     fa = _spec_entry(fsdp_axes(mesh))
 
     def one(path, leaf):
@@ -313,6 +342,8 @@ def cache_shardings(cache: list, mesh: Mesh, cfg, paged: bool = False
         if name in ("k", "v") and len(shape) == 5:
             if _ok(shape[3], mesh, "model"):
                 spec[3] = "model"
+            elif not pool_leaf and _ok(shape[2], mesh, "model"):
+                spec[2] = "model"
         elif name == "state" and len(shape) >= 3:
             if _ok(shape[2], mesh, "model"):
                 spec[2] = "model"

@@ -16,15 +16,33 @@ paged layout.
 heads dividing ``tp``, each rank computes its ``H / tp`` query heads
 (``wq`` column-split, ``wo`` row-split, the output summed by
 ``reduce_from``) and, when the KV heads divide too, its ``KV / tp`` KV
-heads, which its cache holds. Where they do not (recurrentgemma's and
-paligemma's one KV head), ``wk`` / ``wv`` are gathered over ``model``,
-every rank computes and caches every KV head and attends its query heads
-to the ones they read. The reference splits such a dense ring over
-positions instead (``cache_shardings``), which needs a cross-rank softmax
-combine; replicating it is a layout difference, not another function.
-A ``tp`` that the query heads do not divide, or that leaves a rank's
-query heads reading unequal shares of the KV heads, is refused (no
-config meets either at tp ≤ 4).
+heads, which its cache holds. Where the KV heads do not divide
+(recurrentgemma's and paligemma's one KV head, tinyllama's four at tp 16),
+``wk`` / ``wv`` are gathered over ``model``, every rank computes every KV
+head and attends its query heads to the ones they read. Where the query
+heads do not divide ``tp`` either (starcoder2's 24, paligemma's 8 at tp
+16), every rank computes the whole layer (:func:`repro_torch.models.tp
+.replicated`). A ``tp`` that leaves a rank's query heads reading unequal
+shares of the KV heads is refused (no config meets it).
+
+The dense KV ring follows the reference's placement
+(:func:`repro_torch.launch.mesh.cache_shardings`): its KV heads over
+``model`` where they divide, else its **positions**: rank ``r`` holds ring
+slots ``[r s_c / tp, (r + 1) s_c / tp)`` of every KV head (a ring whose
+length ``tp`` does not divide is refused by
+:func:`repro_torch.models.transformer.init_cache`), and a prefill's ring
+is cut to them as it enters the cache
+(:func:`repro_torch.models.transformer.insert_cache_slots`). A decode
+step writes the new token's K/V on the rank that owns slot ``pos % s_c``
+only; each rank attends every query head (``q`` gathered over ``model``) over its own
+positions, whose live slots are a prefix of its shard (the ring fills
+from slot 0), with ``flash_decode(..., return_lse=True)``, and the ranks'
+partial softmaxes combine exactly: ``m = pmax(lse)``, ``w = exp(lse -
+m)``, ``o = psum(w o) / psum(w)`` (an empty shard has ``lse = -inf`` and
+weighs nothing). Each rank then keeps its query heads for the row-split
+``wo``. The paged pool is never split over positions (the reference's
+``pool_leaf``): a pool whose KV heads do not divide is held whole on
+every rank.
 """
 from __future__ import annotations
 
@@ -74,6 +92,7 @@ class Heads:
     kv_held: int
     kv0: int
     kv1: int
+    rep: bool = False  # the whole layer on every rank (heads not dividing)
 
 
 def heads(cfg: ArchConfig, mesh=None) -> Heads:
@@ -83,9 +102,8 @@ def heads(cfg: ArchConfig, mesh=None) -> Heads:
     if ax is None:
         return Heads(0, h, 0, kvh, 0, kvh)
     tp, m = ax.size, ax.index
-    if h % tp:
-        raise NotImplementedError(
-            f"attention on tp={tp}: {h} query heads do not divide")
+    if h % tp:  # a split would cut a head: the whole layer on every rank
+        return Heads(0, h, 0, kvh, 0, kvh, rep=True)
     hq = h // tp
     q0 = m * hq
     if kvh % tp == 0:
@@ -111,7 +129,11 @@ def _read_kv(t: torch.Tensor, hp: Heads) -> torch.Tensor:
 def _proj(p: dict, cfg: ArchConfig, mesh, spec: dict | None, hp: Heads,
           dt):
     """(wq, wk, wv, wo) this rank multiplies by: its stored blocks, with
-    the KV projections whole where their heads do not divide."""
+    the KV projections whole where their heads do not divide (all four
+    whole where the query heads do not)."""
+    if hp.rep:
+        return [tp_lib.replicated(p[k], spec[k], mesh, dtype=dt)
+                for k in ("wq", "wk", "wv", "wo")]
     out = [p["wq"], p["wk"], p["wv"], p["wo"]]
     if tp_lib.model_axis(mesh) is not None and hp.kv_held == cfg.n_kv_heads:
         out[1:3] = [tp_lib.whole(p[k], spec[k], mesh, dtype=dt)
@@ -133,14 +155,23 @@ def _qkv(w: list, cfg: ArchConfig, hp: Heads, x: torch.Tensor,
     return q, k, v
 
 
-def _enter(x: torch.Tensor, mesh) -> torch.Tensor:
+def _enter(x: torch.Tensor, mesh, hp: Heads) -> torch.Tensor:
     ax = tp_lib.model_axis(mesh)
-    return x if ax is None else coll.copy_to(x, ax)
+    return x if ax is None or hp.rep else coll.copy_to(x, ax)
 
 
-def _leave(out: torch.Tensor, mesh) -> torch.Tensor:
+def _leave(out: torch.Tensor, mesh, hp: Heads) -> torch.Tensor:
     ax = tp_lib.model_axis(mesh)
-    return out if ax is None else coll.reduce_from(out, ax)
+    return out if ax is None or hp.rep else coll.reduce_from(out, ax)
+
+
+def ring_split(cfg: ArchConfig, mesh) -> coll.Axis | None:
+    """The model axis the dense KV ring's positions are split over (the KV
+    heads not dividing ``tp``), or None (a ring of whole positions)."""
+    ax = tp_lib.model_axis(mesh)
+    if ax is None or cfg.n_kv_heads % ax.size == 0:
+        return None
+    return ax
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -256,13 +287,13 @@ def forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     win = cfg.window if window is None else window
     hp = heads(cfg, mesh)
     w = _proj(p, cfg, mesh, spec, hp, x.dtype)
-    x = _enter(x, mesh)
+    x = _enter(x, mesh, hp)
     q, k, v = _qkv(w, cfg, hp, x, positions)
     out = blockwise_attention(q, _read_kv(k, hp), _read_kv(v, hp),
                               causal=cfg.causal and not cfg.encoder_only,
                               window=win, prefix=prefix)
     out = out.reshape(b, l, hp.hq * cfg.head_dim) @ w[3].to(x.dtype)
-    return _leave(out, mesh)
+    return _leave(out, mesh, hp)
 
 
 def prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -277,13 +308,17 @@ def prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
     token-by-token decode of the prompt would leave — and slots with no
     valid position stay zero. Pads sit after every valid position, so the
     causal mask keeps them out of the valid outputs.
+
+    The ring returned is whole; on a ring split over positions
+    (:func:`ring_split`) the serving cache keeps this rank's ``s_c / tp``
+    slots of it (:func:`repro_torch.models.transformer.insert_cache_slots`).
     """
     b, l, _ = x.shape
     dt = x.dtype
     win = cfg.window if window is None else window
     hp = heads(cfg, mesh)
     w = _proj(p, cfg, mesh, spec, hp, dt)
-    x = _enter(x, mesh)
+    x = _enter(x, mesh, hp)
     q, k, v = _qkv(w, cfg, hp, x, positions)
     out = attention(q, _read_kv(k, hp), _read_kv(v, hp),
                     causal=cfg.causal and not cfg.encoder_only,
@@ -313,7 +348,7 @@ def prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
         ck[:, slots] = k[:, l - s_c:]
         cv[:, slots] = v[:, l - s_c:]
     out = out.reshape(b, l, hp.hq * cfg.head_dim) @ w[3].to(dt)
-    return _leave(out, mesh), {"k": ck.to(dt), "v": cv.to(dt)}
+    return _leave(out, mesh, hp), {"k": ck.to(dt), "v": cv.to(dt)}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
@@ -375,32 +410,70 @@ def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     pool in place (no gathered view).
 
     On a mesh the cache holds this rank's KV heads (:func:`heads`) and
-    ``flash_decode`` runs on its query heads.
+    ``flash_decode`` runs on its query heads; a dense ring split over
+    positions (:func:`ring_split`) takes the cross-rank combine (module
+    docstring).
     """
     b = x.shape[0]
     dt = x.dtype
     hp = heads(cfg, mesh)
     w = _proj(p, cfg, mesh, spec, hp, dt)
-    x = _enter(x, mesh)
+    x = _enter(x, mesh, hp)
     q, k, v = _qkv(w, cfg, hp, x, pos[:, None])
     ar = torch.arange(b, device=x.device)
-    if pages is None:
-        s_c = cache["k"].shape[1]
-        slot = torch.remainder(pos.long(), s_c)
-        cache["k"][ar, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][ar, slot] = v[:, 0].to(cache["v"].dtype)
+    ax = ring_split(cfg, mesh) if pages is None else None
+    if ax is not None:
+        o = _decode_split(cache, q[:, 0], k[:, 0], v[:, 0], pos, ax, hp)
     else:
-        sink, block_len = cache["k"].shape[0] - 1, cache["k"].shape[1]
-        s_c = pages.shape[1] * block_len
-        slot = torch.remainder(pos.long(), s_c)
-        phys = pages.long()[ar, slot // block_len]
-        if write_mask is not None:  # retired slot: its blocks may be reowned
-            phys = torch.where(write_mask, phys, torch.full_like(phys, sink))
-        off = slot % block_len
-        cache["k"][phys, off] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][phys, off] = v[:, 0].to(cache["v"].dtype)
-    lengths = torch.clamp(pos + 1, max=s_c).to(torch.int32)
-    o = ops.flash_decode(q[:, 0], _read_kv(cache["k"], hp),
-                         _read_kv(cache["v"], hp), lengths, pages=pages)
+        if pages is None:
+            s_c = cache["k"].shape[1]
+            slot = torch.remainder(pos.long(), s_c)
+            cache["k"][ar, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][ar, slot] = v[:, 0].to(cache["v"].dtype)
+        else:
+            sink, block_len = cache["k"].shape[0] - 1, cache["k"].shape[1]
+            s_c = pages.shape[1] * block_len
+            slot = torch.remainder(pos.long(), s_c)
+            phys = pages.long()[ar, slot // block_len]
+            if write_mask is not None:  # retired slot: blocks may be reowned
+                phys = torch.where(write_mask, phys,
+                                   torch.full_like(phys, sink))
+            off = slot % block_len
+            cache["k"][phys, off] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][phys, off] = v[:, 0].to(cache["v"].dtype)
+        lengths = torch.clamp(pos + 1, max=s_c).to(torch.int32)
+        o = ops.flash_decode(q[:, 0], _read_kv(cache["k"], hp),
+                             _read_kv(cache["v"], hp), lengths, pages=pages)
     out = o.to(dt).reshape(b, 1, hp.hq * cfg.head_dim) @ w[3].to(dt)
-    return _leave(out, mesh), cache
+    return _leave(out, mesh, hp), cache
+
+
+def _decode_split(cache: dict, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, pos: torch.Tensor, ax: coll.Axis,
+                  hp: Heads) -> torch.Tensor:
+    """One decode step on a ring whose positions are split over ``ax``:
+    ``q`` (B, hq, hd) this rank's query heads, ``k`` / ``v`` (B, KV, hd)
+    the new token's; -> this rank's heads' output (B, hq, hd) fp32."""
+    b = q.shape[0]
+    s_loc = cache["k"].shape[1]
+    r0 = ax.index * s_loc  # this rank's first ring slot
+    s_c = s_loc * ax.size
+    ar = torch.arange(b, device=q.device)
+    slot = torch.remainder(pos.long(), s_c) - r0
+    mine = (slot >= 0) & (slot < s_loc)  # the owner writes, the rest keep
+    at = slot.clamp(0, s_loc - 1)
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        c[ar, at] = torch.where(mine[:, None, None], new.to(c.dtype),
+                                c[ar, at])
+    # the live slots are a prefix of the ring, so a prefix of each shard
+    live = torch.clamp(pos + 1, max=s_c) - r0
+    lengths = live.clamp(0, s_loc).to(torch.int32)
+    q_all = q if hp.rep else torch.cat(coll.all_gather(q, ax).unbind(0), 1)
+    o, lse = ops.flash_decode(q_all, cache["k"], cache["v"], lengths,
+                              return_lse=True)
+    m = coll.pmax(lse, ax)  # finite: slot 0 is live on the first rank
+    wgt = torch.exp(lse - m)  # an empty shard: exp(-inf) = 0
+    tot = coll.psum(torch.cat([o * wgt[..., None], wgt[..., None]], -1), ax)
+    o = tot[..., :-1] / tot[..., -1:]
+    return o if hp.rep else o[:, hp.q0:hp.q0 + hp.hq]

@@ -346,7 +346,7 @@ class Model:
         nxt, ok, _ = self._sample(params, hq, index, keys, draws, strict,
                                   strict_live, None)
         cache = transformer.insert_cache_slots(cache, part, slots,
-                                               pages=pages)
+                                               pages=pages, mesh=self.mesh)
         return nxt, ok, cache
 
     # ---------------------------------------------------------------- encoder

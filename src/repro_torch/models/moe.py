@@ -122,7 +122,11 @@ def forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     e_here = n_local or e
     dt = x.dtype
     r = route(p, cfg, x)
-    load = torch.bincount(r["idx"].reshape(-1), minlength=e)
+    idx = r["idx"].reshape(-1).long()
+    # the assignments per expert (a bincount whose length is e whatever the
+    # values, so a meta trace knows its shape)
+    load = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
     aux = e * torch.sum(r["probs"].mean(0) * (load.float() / (t * kx)))
     if TRACE is not None:
         TRACE.append({"dropped": (~r["keep"]).sum(), "assigned": t * kx,

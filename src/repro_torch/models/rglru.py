@@ -18,8 +18,11 @@ reference splits each block's output columns) and cut to its blocks,
 ``lam`` and the conv taps sliced to its channels, ``w_out`` row-split —
 and its decode ``state`` is its channels'. The conv tail stays whole on
 every rank (the reference's cache placement), so prefill and decode
-gather the tail. A split of the width that cuts a gate block (``tp`` not
-dividing 8) is refused.
+gather the tail. Where ``tp`` does not divide the 8 gate blocks (tp 16),
+a split of the width would cut a gate block: every rank then computes
+the whole block (:func:`repro_torch.models.tp.replicated`), and its decode
+gathers the ``state``, whose width the reference's cache placement still
+splits over ``model``, and keeps its own channels of the new one.
 """
 from __future__ import annotations
 
@@ -93,27 +96,41 @@ def scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 class _Split:
     """This rank's channels ``[c0, c0 + w)`` and gate blocks ``[n0, n0 +
-    nb)``; ``ax`` is None off a mesh."""
+    nb)``; ``ax`` is None off a mesh; ``rep``: the whole block on every
+    rank (``tp`` not dividing the gate blocks), whose stored ``state``
+    holds channels ``[s0, s0 + sw)``."""
 
     def __init__(self, cfg: ArchConfig, mesh):
         ax = tp_lib.model_axis(mesh)
         tp, m = (1, 0) if ax is None else (ax.size, ax.index)
-        if _N_BLOCKS % tp:
-            raise NotImplementedError(
-                f"RG-LRU on tp={tp}: the split must keep the "
-                f"{_N_BLOCKS} gate blocks whole (tp dividing {_N_BLOCKS})")
         self.ax = ax
+        self.rep = _N_BLOCKS % tp != 0
+        # the stored state's channels (cache_shardings: the width over
+        # model where it divides)
+        whole = cfg.lru_dim % tp != 0 or cfg.lru_dim < tp
+        self.sw = cfg.lru_dim if whole else cfg.lru_dim // tp
+        self.s0 = 0 if whole else m * self.sw
+        if self.rep:
+            tp, m = 1, 0
         self.w = cfg.lru_dim // tp
         self.c0 = m * self.w
         self.nb = _N_BLOCKS // tp
         self.n0 = m * self.nb
 
+    @property
+    def split(self) -> bool:
+        """Megatron-split over ``model``."""
+        return self.ax is not None and not self.rep
+
 
 def _leaves(p: dict, spec: dict | None, mesh, sp: _Split) -> dict:
     """The leaves this rank computes with: its channels' and gate
-    blocks' on the Megatron route."""
+    blocks' on the Megatron route, all of them on the replicated one."""
     if sp.ax is None:
         return p
+    if sp.rep:
+        return {k: tp_lib.replicated(v, spec[k], mesh)
+                for k, v in p.items()}
     ax = sp.ax
     out = dict(p)
     for k in ("w_a", "w_i"):
@@ -126,7 +143,7 @@ def _leaves(p: dict, spec: dict | None, mesh, sp: _Split) -> dict:
 
 def _full_tail(tail: torch.Tensor, sp: _Split) -> torch.Tensor:
     """This rank's channels of a conv tail -> the whole tail (gathered)."""
-    if sp.ax is None:
+    if not sp.split:
         return tail
     return torch.cat(coll.all_gather(tail, sp.ax).unbind(0), dim=-1)
 
@@ -156,21 +173,24 @@ def forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     dt = x.dtype
     sp = _Split(cfg, mesh)
     p = _leaves(p, spec, mesh, sp)
-    if sp.ax is not None:
+    if sp.split:
         x = coll.copy_to(x, sp.ax)
     gate = _gelu(x @ p["w_gate_branch"].to(dt))
     u_raw = x @ p["w_in"].to(dt)
     u = _causal_conv(u_raw, p["conv"].to(dt))
     h = _rglru(p, u, lengths=lengths)
     out = (h.to(dt) * gate) @ p["w_out"].to(dt)
-    if sp.ax is not None:
+    if sp.split:
         out = coll.reduce_from(out, sp.ax)
     if not return_cache:
         return out
     w1 = cfg.conv_width - 1
     tail = (u_raw[:, -w1:] if lengths is None
             else masked_conv_tail(u_raw, lengths, w1))
-    return out, {"state": h[:, -1], "conv": _full_tail(tail, sp)}
+    state = h[:, -1]
+    if sp.rep and sp.sw < cfg.lru_dim:  # the stored state: its channels
+        state = state[:, sp.s0:sp.s0 + sp.sw]
+    return out, {"state": state, "conv": _full_tail(tail, sp)}
 
 
 def init_cache(cfg: ArchConfig, batch: int, dtype, device=None) -> dict:
@@ -198,7 +218,7 @@ def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     dt = x.dtype
     sp = _Split(cfg, mesh)
     p = _leaves(p, spec, mesh, sp)
-    if sp.ax is not None:
+    if sp.split:
         x = coll.copy_to(x, sp.ax)
     gate = _gelu(x @ p["w_gate_branch"].to(dt))  # (B, 1, W)
     u = x @ p["w_in"].to(dt)
@@ -209,9 +229,14 @@ def decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     log_a, gi = _gates(p, u_c)
     a = torch.exp(log_a)
     beta = torch.sqrt(-torch.expm1(2.0 * log_a))
-    h = a * cache["state"] + beta * gi * u_c.float()
+    state = cache["state"]
+    if sp.rep and sp.sw < cfg.lru_dim:  # every channel's, from the shares
+        state = torch.cat(coll.all_gather(state, sp.ax).unbind(0), dim=-1)
+    h = a * state + beta * gi * u_c.float()
     out = (h[:, None].to(dt) * gate) @ p["w_out"].to(dt)
-    if sp.ax is not None:
+    if sp.split:
         out = coll.reduce_from(out, sp.ax)
     new_tail = torch.cat([cache["conv"], _full_tail(u, sp)], dim=1)[:, 1:]
+    if sp.rep and sp.sw < cfg.lru_dim:
+        h = h[:, sp.s0:sp.s0 + sp.sw]
     return out, {"state": h, "conv": new_tail}

@@ -14,8 +14,12 @@ projections whose heads do not divide ``tp``) the leaf is gathered over
 ``model`` (:func:`whole`, a reduce-scatter backward; a leaf the spec
 keeps whole enters through ``copy_to`` instead); replicated
 per-head / per-channel leaves enter through ``copy_to`` and are sliced
-(:func:`local`). A geometry whose split would cut a head or gate block
-in the compute is refused by its block.
+(:func:`local`). Where the split would cut a head or gate block in the
+compute (query heads, or RG-LRU gate blocks, that ``tp`` does not
+divide: starcoder2's 24 heads, paligemma's 8, Griffin's 8 gate blocks at
+tp 16), the block is computed whole on every rank of ``model``
+(:func:`replicated`: its leaves gathered, no ``copy_to`` on the way in,
+no sum on the way out): redundant work, the same function.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ import torch
 from repro_torch import collectives as coll
 from repro_torch.launch import mesh as mesh_lib
 
-__all__ = ["model_axis", "model_dim", "whole", "local", "fsdp_gather"]
+__all__ = ["model_axis", "model_dim", "whole", "replicated", "local",
+           "fsdp_gather"]
 
 
 def model_axis(mesh) -> coll.Axis | None:
@@ -55,6 +60,20 @@ def whole(w: torch.Tensor, spec: tuple | None, mesh, *,
     if d is None:
         return coll.copy_to(w, ax)
     return coll.all_gather_dim(w, ax, d, dtype=dtype)
+
+
+def replicated(w: torch.Tensor, spec: tuple | None, mesh, *,
+               dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The whole per-layer leaf for a block that every rank of ``model``
+    computes whole on the same input: split over "model", it is gathered
+    and its gradient — the same whole gradient on every rank — cut back
+    to this rank's block; stored whole, it is used as it is (each replica
+    computes its own gradient in full). Off a model axis, ``w`` itself."""
+    ax = model_axis(mesh)
+    d = None if ax is None else mesh_lib.shard_dim(spec)
+    if d is None:
+        return w if dtype is None else w.to(dtype)
+    return coll.all_gather_dim_replicated(w, ax, d, dtype=dtype)
 
 
 def local(t: torch.Tensor, ax: coll.Axis, dim: int, start: int, n: int

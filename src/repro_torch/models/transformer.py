@@ -428,7 +428,7 @@ def apply_trunk_prefill(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def insert_cache_slots(full: list, part: list, slots: torch.Tensor, *,
-                       pages: torch.Tensor | None = None) -> list:
+                       pages: torch.Tensor | None = None, mesh=None) -> list:
     """Write a prefill-built cache ``part`` (leaves (layers, Bn, ...)) into
     batch slots of the serving cache ``full`` (leaves (layers, B, ...)), in
     place. A slot's whole state is replaced (KV ring, SSM / RG-LRU state,
@@ -442,7 +442,11 @@ def insert_cache_slots(full: list, part: list, slots: torch.Tensor, *,
     to its physical blocks ``pages[b, i]``. Sentinel entries (``n_blocks``:
     unallocated pages, admission pad rows) land in the sink block, where the
     reference's scatter drops them. Recurrent leaves are slot-scattered in
-    both layouts."""
+    both layouts.
+
+    ``mesh``: a dense ring split over positions on this rank
+    (:func:`repro_torch.models.attention.ring_split`) takes this rank's
+    ``s_c / tp`` slots of each prefill ring."""
     keep = None
     for g_full, g_part in zip(full, part):
         for j, f_layer in g_full.items():
@@ -456,6 +460,10 @@ def insert_cache_slots(full: list, part: list, slots: torch.Tensor, *,
                                    + p.shape[3:])
                     f[:, pg] = pr.to(f.dtype)
                     continue
+                if name in ("k", "v") and p.shape[2] != f.shape[2]:
+                    ax = mesh.model  # a ring split over positions
+                    n = f.shape[2]  # this rank's slots of it
+                    p = p[:, :, ax.index * n:(ax.index + 1) * n]
                 if keep is None:  # one host read for the whole cache
                     keep = torch.nonzero(slots.to(p.device) < f.shape[1])[:, 0]
                 f[:, slots.to(f.device)[keep].long()] = p[:, keep].to(f.dtype)
@@ -494,7 +502,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
 
     ``mesh``: each leaf is this rank's block over the model axis as
     :func:`repro_torch.launch.mesh.cache_shardings` places it (every data
-    rank serves the same slots, so the batch stays whole)."""
+    rank serves the same slots, so the batch stays whole): a dense ring
+    whose KV heads do not divide ``tp`` holds ``s_c / tp`` of its
+    positions, and one whose length ``tp`` does not divide either is
+    refused (the reference replicates it; decode reads the split from the
+    geometry, :func:`repro_torch.models.attention.ring_split`)."""
     if paged is not None:
         if "attn" not in cfg.layer_kinds():
             raise ValueError(
@@ -513,6 +525,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
         meta.append(group)
     specs = (None if mesh is None else mesh_lib.cache_shardings(
         meta, mesh, cfg, paged=paged is not None))
+    if paged is None and attention.ring_split(cfg, mesh) is not None:
+        for gi, group in enumerate(meta):
+            for j, layer in group.items():
+                if "k" in layer and specs[gi][j]["k"][2] != "model":
+                    raise NotImplementedError(
+                        f"a KV ring of {layer['k'].shape[2]} positions on "
+                        f"tp={mesh.tp}: its {cfg.n_kv_heads} KV heads do "
+                        "not divide, so its positions must")
     caches = []
     for gi, group in enumerate(meta):
         caches.append({j: {k: torch.zeros(

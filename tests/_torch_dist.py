@@ -312,6 +312,29 @@ def dist_step_case(mesh, spec):
             "paths": _paths(params), "step": int(opt["step"])}
 
 
+def cost_train_case(mesh, spec):
+    """One DP×TP train step of the small model (exact head, fp32) under the
+    cost model on this rank -> its collective bytes by "kind@axis" and
+    its collective counts by kind."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.cost_model import CostMode
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    cfg = _small_cfg(head_mode="exact")
+    model = Model(cfg, "f32", device="cpu", mesh=mesh)
+    params = model.init(0)
+    opt = adamw.init(params)
+    batch = mesh_lib.data_shardings(
+        {k: torch.from_numpy(v) for k, v in spec["batch"].items()}, mesh)
+    step = steps.make_train_step(model, steps.TrainConfig(precision="f32"))
+    with CostMode() as mode:
+        step(params, opt, batch, (0, 0))
+    c = mode.cost
+    return {"by_axis": {f"{k}@{a}": b for (k, a), b in c.coll_by_axis.items()},
+            "counts": dict(c.coll_counts)}
+
+
 def _run_cfg(steps_):
     from repro_torch.launch.steps import TrainConfig
     from repro_torch.optim.adamw import OptConfig
@@ -392,6 +415,34 @@ def dist_serve_case(mesh, spec):
     out["index_bytes"] = srv.stats["index_bytes"]
     out["local_bytes"] = index.local.memory_bytes()
     return out
+
+
+def ring_serve_case(mesh, spec):
+    """A tp Server of recurrentgemma's smoke config (its one KV head: the
+    dense ring split over positions) with the IVF head: fused T=4 against
+    unfused T=1 over one ShardedIndex -> both runs' tokens and the ring's
+    positions on this rank."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import Model
+    from repro_torch.serve.server import ServeConfig, Server
+
+    cfg = get_smoke("recurrentgemma-9b").scaled(
+        vocab=4096, head_mips="ivf", local_window=spec["window"])
+    params = Model(cfg, "f32", device="cpu", mesh=mesh).init(0)
+    toks, index, ring = {}, None, None
+    for fused, window in ((True, 4), (False, 1)):
+        c = dataclasses.replace(cfg, head_fused_decode=fused)
+        srv = Server(c, params, ServeConfig(
+            batch_slots=2, max_seq=spec["max_seq"],
+            max_new_tokens=spec["new_tokens"], decode_window=window),
+            precision_policy="f32", device="cpu", index=index, mesh=mesh)
+        index = srv.index
+        toks[fused] = [r.tokens for r in srv.run(spec["prompts"])]
+        ring = next(lay["k"].shape[2] for g in srv.cache for lay in g.values()
+                    if "k" in lay)
+    return {"fused": toks[True], "unfused": toks[False], "ring": ring}
 
 
 def _ckpt_layout(path, t):
@@ -572,7 +623,7 @@ def trunk_decode_case(mesh, cfg, np_params, spec, paged: bool):
             params, cfg, x, pos, max_seq=max_seq, lengths=lengths, mesh=mesh)
         hs.append(h[torch.arange(b), lengths.long() - 1].numpy())
         cache = transformer.insert_cache_slots(cache, part, torch.arange(b),
-                                               pages=pages)
+                                               pages=pages, mesh=mesh)
         ids = torch.from_numpy(spec["next_ids"])
         p = lengths.long()
         for i in range(ids.shape[0]):
@@ -585,6 +636,54 @@ def trunk_decode_case(mesh, cfg, np_params, spec, paged: bool):
             p = p + 1
     return {"h": hs, "cache": [{j: {k: v.numpy() for k, v in lay.items()}
                                 for j, lay in g.items()} for g in cache]}
+
+
+def ring_decode_cases(mesh, spec):
+    """:func:`trunk_decode_case` (dense) for each case of ``spec``, its
+    smoke config scaled by the case's ``kw`` (a short window, so the ring
+    wraps) -> {name: its hidden states and final cache}."""
+    from repro_torch.configs import get_smoke
+
+    return {name: trunk_decode_case(
+        mesh, get_smoke(c["arch"]).scaled(**dict(c["kw"], head_mode="exact")),
+        c["params"], c, False) for name, c in spec.items()}
+
+
+def rglru_rep_case(mesh, spec):
+    """One RG-LRU layer on this rank's blocks of ``spec["params"]`` (numpy,
+    stacked over one layer) where ``tp`` does not divide the 8 gate blocks
+    (the whole block on every rank): the forward of ``spec["x"]``, the
+    gradients of ``sum(out * w)`` with respect to x and to this rank's
+    leaves, then a prefill cache and two decode steps (``mesh`` None: one
+    device)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import rglru
+
+    cfg = get_smoke("recurrentgemma-9b").scaled(**spec["kw"])
+    specs, leaves = {}, {}
+    for k, v in spec["params"].items():
+        t = torch.from_numpy(v)
+        if mesh is not None:
+            sp = mesh_lib.param_spec([k], tuple(t.shape), mesh, cfg)
+            d = mesh_lib.shard_dim(sp)
+            t = mesh_lib.local_slice(t, d, mesh.tp, mesh.model.index)
+            specs[k] = sp[1:]
+        leaves[k] = t[0].clone().requires_grad_(True)
+    x = torch.from_numpy(spec["x"]).requires_grad_(True)
+    kw = dict(mesh=mesh, spec=specs if mesh is not None else None)
+    out, cache = rglru.forward(leaves, cfg, x, return_cache=True, **kw)
+    (out * torch.from_numpy(spec["w"])).sum().backward()
+    res = {"out": out.detach().numpy(), "d_x": x.grad.numpy(),
+           "grads": {k: v.grad.numpy() for k, v in leaves.items()}}
+    steps_ = []
+    with torch.no_grad():
+        for xd in spec["x_dec"]:
+            o, cache = rglru.decode(leaves, cfg, torch.from_numpy(xd), cache,
+                                    **kw)
+            steps_.append(o.numpy())
+    res["dec"] = steps_
+    res["cache"] = {k: v.numpy() for k, v in cache.items()}
+    return res
 
 
 def trunk_cases(mesh, spec):

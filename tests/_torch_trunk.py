@@ -1,7 +1,9 @@
 """Shared helpers of the trunk-on-the-mesh tests
-(``test_torch_dist_trunk.py``, ``test_torch_dist_fsdp.py``): the
-reference's exact-head loss of a family with its gradients, and the
-comparison of each rank's gradient blocks with it.
+(``test_torch_dist_trunk.py``, ``test_torch_dist_fsdp.py``,
+``test_torch_dist_ring.py``, ``test_torch_dist_rep.py``): the reference's
+exact-head loss of a family with its gradients, the comparison of each
+rank's gradient blocks with it, and the reference's single-device serving
+trunk (a prefill, then decode steps).
 
 Tolerance: fp32, rtol = atol = 1e-4 (the per-family tests').
 """
@@ -33,10 +35,11 @@ def _batch(cfg, seed):
             "labels": r.integers(0, cfg.vocab, (B, L)).astype(np.int32)}
 
 
-def _reference(arch, seed):
+def _reference(arch, seed, **kw):
     """The reference's exact-head loss, its gradient with respect to the
-    embedded input, and the gradient of every leaf."""
-    jcfg = jget_smoke(arch).scaled(head_mode="exact")
+    embedded input, and the gradient of every leaf (the smoke config
+    scaled by ``kw``)."""
+    jcfg = jget_smoke(arch).scaled(**{"head_mode": "exact", **kw})
     jm = JModel(jcfg, precision_policy="f32")
     params = jm.init(jax.random.key(seed))
     batch = _batch(jcfg, seed)
@@ -58,6 +61,29 @@ def _reference(arch, seed):
              for p, g in jax.tree_util.tree_flatten_with_path(gp)[0]}
     return {"params": jax.device_get(params), "batch": batch,
             "loss": float(loss), "d_x": np.asarray(gx), "grads": grads}
+
+
+def jax_decode(jcfg, jp, spec):
+    """The reference's single-device trunk on ``spec``'s right-padded
+    prompts (``tokens``, ``lengths``) into a cache of ``max_seq``, then a
+    decode step for each row of ``next_ids`` -> (the hidden state of each
+    step, the final cache)."""
+    emb = jnp.asarray(jp["embed"])
+    lengths = jnp.asarray(spec["lengths"], jnp.int32)
+    tokens = jnp.asarray(spec["tokens"])
+    b, l = tokens.shape
+    pos = jnp.broadcast_to(jnp.arange(l), (b, l))
+    h, cache = jtr.apply_trunk_prefill(jp, jcfg, emb[tokens], pos,
+                                       max_seq=spec["max_seq"],
+                                       lengths=lengths)
+    hs = [np.asarray(h[jnp.arange(b), lengths - 1])]
+    p = lengths
+    for ids in spec["next_ids"]:
+        h, cache = jtr.apply_trunk_decode(jp, jcfg, emb[ids][:, None],
+                                          cache, p)
+        hs.append(np.asarray(h[:, 0]))
+        p = p + 1
+    return hs, jax.device_get(cache)
 
 
 def _block(full, dims, coords, shape):

@@ -109,6 +109,33 @@ def test_flash_decode_split_edges(gen, dtype, hq, hkv, hd):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,hd", [(16, 1, 256), (32, 4, 64), (4, 2, 24)])
+def test_flash_decode_return_lse(gen, dtype, hq, hkv, hd):
+    """``return_lse=True`` against its plain version: the output, and the
+    log-sum-exp where it is finite; a row of length 0 gives 0 and -inf.
+    The default call on the same inputs is unchanged by the option and
+    agrees with the lse call's output on every non-empty row."""
+    split = flash_decode.SPLIT_ROWS
+    s = 3 * split + 11
+    lengths = torch.tensor([0, 1, split, split + 1, s], device="cuda",
+                           dtype=torch.int32)
+    b = lengths.numel()
+    q = torch.randn((b, hq, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, s, hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, s, hkv, hd), generator=gen, device="cuda").to(dtype)
+    o, lse = flash_decode.flash_decode(q, k, v, lengths, return_lse=True)
+    wo, wl = ref.flash_decode_lse_ref(q, k, v, lengths)
+    torch.testing.assert_close(o, wo, rtol=0, atol=2e-3)
+    fin = torch.isfinite(wl)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert not fin[0].any() and fin[1:].all()
+    torch.testing.assert_close(lse[fin], wl[fin], rtol=1e-5, atol=1e-4)
+    assert (o[0] == 0).all()
+    plain = flash_decode.flash_decode(q, k, v, lengths)
+    assert torch.equal(plain[1:], o[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_unaligned_cache(gen, dtype):
     """A KV cache whose rows do not start on 16 bytes takes the scalar copy
     path; same results as the plain version."""

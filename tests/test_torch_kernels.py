@@ -198,6 +198,20 @@ def test_ops_dispatch_cpu_uses_plain_versions_and_counts_no_launch():
 
 
 def test_ops_rejects_devices_without_a_kernel_or_plain_version():
-    q = torch.empty(2, 4, 8, device="meta")
+    """A device with neither a kernel nor a plain version raises; the meta
+    device (the cost model's dry run) gets the kernel's output shapes and
+    runs nothing."""
+    import types
+
+    q = types.SimpleNamespace(is_cuda=False, is_meta=False,
+                              device=torch.device("xla"))
     with pytest.raises(ValueError, match="no kernel or plain version"):
         ops.flash_decode(q, q, q, q)
+    qm = torch.empty(2, 4, 8, device="meta")
+    kc = torch.empty(2, 16, 2, 8, device="meta")
+    lens = torch.empty(2, dtype=torch.int32, device="meta")
+    out = ops.flash_decode(qm, kc, kc, lens)
+    assert out.is_meta and out.shape == (2, 4, 8) and out.dtype == torch.float32
+    o, lse = ops.flash_decode(qm, kc, kc, lens, return_lse=True)
+    assert o.shape == (2, 4, 8) and lse.shape == (2, 4)
+    assert ops.launch_counts()["flash_decode"] == 0

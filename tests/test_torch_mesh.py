@@ -5,9 +5,8 @@ reference mesh's device layout (``devs[:dp*tp].reshape(dp, tp)``) on 4
 spawned CPU ranks under gloo; ``param_spec`` equals the reference's on
 every leaf of the ten configs' params at (dp, tp) in {(1, 2), (1, 4),
 (2, 2)}, both MoE placements; ``cache_shardings`` equals the reference's
-on the dense and paged caches of each family, apart from the one
-documented case (KV heads that do not divide ``tp``: the port keeps the
-ring replicated where the reference splits its positions);
+on the dense and paged caches of each family, entry for entry (a dense
+ring whose KV heads do not divide ``tp`` split over its positions);
 ``shard_params`` gives each rank ``1 / (dp · tp)`` of every trunk leaf
 split over both axes, the blocks tiling the whole; each data rank holds
 the global-batch rows the reference's ``data_shardings`` /
@@ -146,9 +145,8 @@ def _cache_cases():
 def test_cache_shardings_match_reference(arch, paged):
     """The serving cache's placement against the reference's
     ``cache_shardings`` on the reference's own cache shapes: equal leaf
-    for leaf, except a KV ring or pool whose heads do not divide ``tp``
-    (the reference splits a dense ring's positions; the port replicates
-    it)."""
+    for leaf, a dense KV ring whose heads do not divide ``tp`` split over
+    its positions as the reference splits it."""
     cfg, jcfg = get_smoke(arch), jget_smoke(arch)
     batch, max_seq = 4, 64
     layout = ttr.PagedLayout(block_len=16, n_blocks=8) if paged else None
@@ -166,11 +164,6 @@ def test_cache_shardings_match_reference(arch, paged):
         for path, spec in _leaves(ours, leaf=tuple):
             want = ref_flat[path]
             want = want + (None,) * (len(spec) - len(want))
-            if path[-1] in ("k", "v") and cfg.n_kv_heads % tp:
-                assert spec[3] is None and want[3] is None
-                assert spec[2] is None  # replicated, not position-split
-                assert spec[:2] + spec[4:] == want[:2] + want[4:]
-                continue
             assert spec == want, (arch, paged, (dp, tp), path, spec, want)
 
 
