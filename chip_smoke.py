@@ -265,7 +265,15 @@ KERNEL_SYMBOLS = {
                            "ivf_screen_plan_kernel",
                            "ivf_screen_score_kernel")),
     "tail_gather_argmax": (("tail_argmax_kernel",), ("tail_score_kernel",)),
-    "fused_estimator": (("fused_estimator_fwd_kernel",), ()),
+    "fused_estimator": (("fused_estimator_combine_kernel",),
+                        ("fused_estimator_stream_kernel",
+                         "fused_estimator_band_kernel",
+                         "fused_estimator_count_kernel",
+                         "fused_estimator_tile_kernel",
+                         "fused_estimator_compact_kernel",
+                         "fused_estimator_dense_score_kernel",
+                         "fused_estimator_dense_weights_kernel",
+                         "fused_estimator_dense_sum_kernel")),
     "fused_estimator_bwd": (("fused_estimator_bwd_spmm_kernel",), ()),
     "pq_lut_score": (("pq_lut_score_kernel",), ()),
     "pq_screen_select": (("pq_screen_topk_kernel",),
@@ -861,6 +869,13 @@ def train_kernel_checks(torch, g: Geometry, timer: Timer,
         None,
         *kcost().fused_estimator(*args, return_y=True, rows=rows_live,
                                  n_live=n_live)[:2], FP32_FLOPS))
+    # the kernel family's route at the chunk (shape rule), and the popular
+    # rows the plan found there
+    froute = kfe.route(*emb.shape, *ids.shape)
+    froute["popular_rows"] = int(kfe.popular_rows(
+        ids, log_w, g.n, cap=froute["cap"])[2].item()) if froute["popular"] else 0
+    records[-1].update(froute)
+    print(f"[kernel] fused_estimator route: {json.dumps(froute)}", flush=True)
     del want_y, again_y
 
     # an O(1) cotangent, so that p and d_emb are far above rounding
@@ -2180,6 +2195,7 @@ def paper_one(torch, seed: int, name: str, b: int, timer: Timer,
     from repro_torch.core import (default_kl, expectation_estimate,
                                   gumbel_max_dense, mips, partition_estimate,
                                   sample_adaptive_b, sample_fixed_b)
+    from repro_torch.kernels import fused_estimator as kfe
     from repro_torch.kernels import ivf_gather_score as kigs
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.steps import slot_keys
@@ -2298,13 +2314,23 @@ def paper_one(torch, seed: int, name: str, b: int, timer: Timer,
     check(close(torch, kz, pz) and close(torch, kexp, pexp),
           f"[paper] {cfg.name}: fused_estimator != its plain version")
     frec = records["fused_estimator"]
+    flive = torch.isfinite(log_w)
+    b_ms, b_by = bound_ms(*kcost().fused_estimator(
+        db, ids_all, theta, log_w,
+        rows=int(torch.unique(ids_all.clamp(0, n - 1)[flive]).numel()),
+        n_live=int(flive.sum().item()))[:2], FP32_FLOPS)
     frec.update({f"{tag}max_abs_err": max(max_err(kz, pz),
                                           max_err(kexp, pexp)),
                  f"{tag}ms": timer(lambda: ops.fused_estimator(
                      db, ids_all, theta, log_w), f"fused_estimator {tag}"),
                  f"{tag}plain_ms": timer(lambda: ref.fused_estimator_ref(
                      db, ids_all, theta, log_w),
-                     f"fused_estimator {tag}plain")})
+                     f"fused_estimator {tag}plain"),
+                 f"{tag}bound_ms": b_ms, f"{tag}bound_by": b_by,
+                 **{f"{tag}{k}": v for k, v in kfe.route(
+                     *db.shape, *ids_all.shape).items()}})
+    print(f"[paper] {cfg.name} kernel fused_estimator " + json.dumps(
+        {k: v for k, v in frec.items() if k.startswith(tag)}), flush=True)
 
     # ---- report
     # the gap c the IVF top-k really has: the best score outside it minus
@@ -2605,7 +2631,7 @@ def estimator_check(torch, gen, timer: Timer, rec: dict, tag: str, n: int,
                *kcost().fused_estimator(
                    *args, return_y=True, rows=rows_live,
                    n_live=int(live.sum().item()))[:2], FP32_FLOPS, label=label,
-               d=d, k=k, tokens=t)
+               d=d, k=k, tokens=t, **kfe.route(*emb.shape, *ids.shape))
     return emb, ids, h, log_w, got_y, want_z
 
 

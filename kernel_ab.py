@@ -48,13 +48,23 @@ no member row is read: what is left is the keys' fill and the select. Each
 shape prints ``digest`` and ``repeatable``.
 
 ``fused_estimator`` runs at one training head chunk (t 256 tokens x m =
-1,152 candidates, d 2,048, a 32,000-row fp32 table) on three input sets
+1,152 candidates, d 2,048, a 32,000-row fp32 table) on five input sets
 (``chip_smoke.estimator_inputs``): S from a popular head of 2,000 rows
-(``chip_smoke.py``'s inputs), S uniform over the table, and one S for
-every token (near-identical tokens). Each prints ``max_abs_err`` against
-the tree's plain version (over tokens with a live slot), ``digest`` of
-its outputs and ``repeatable``, whether two launches agree bit for bit:
-trees that sum in another order print other digests.
+(``chip_smoke.py``'s inputs), S uniform over the table, one S for every
+token (near-identical tokens), and the popular set with every S slot dead
+(``t_only``: the tail draws alone) or every T slot dead (``s_only``: the
+popular rows alone); then at the other paths' shapes: the paper's
+ImageNet table (``imagenet``: 64 x 6,912, d 256, 1,281,167 rows) and
+word embeddings (``word``: 32 x 8,704, d 300, 2,000,126 rows), S uniform
+over the table there, Algorithm 3's (``alg3``: 64 x 2,432, d 256,
+160,000 rows) and structured search's (``structured``: 4 x 128, d 2,048,
+32,000 rows), S from the popular head there. Each prints the route the
+tree's shape rule takes (``route``: popular-row plan or not, slot ranges a
+token; null in a tree without the rule), ``max_abs_err`` against the
+tree's plain version (over tokens with a live slot), ``digest`` of its
+outputs and ``repeatable``, whether two launches agree bit for bit: trees
+that sum in another order print other digests; ``y_ms`` is the call that
+also writes the scores y, as the training path's.
 
 ``fused_estimator_bwd`` runs on the same three input sets, the all-dead
 token left out, for an upstream gradient in [0.5, 1.5). A tree whose
@@ -84,6 +94,14 @@ equal to the tree's ``pq_lut_score`` + coarse + top-r, and at probe width
 queries, bitwise against the tree's plain version, with ``digest`` and
 ``repeatable``. These three kernels' shapes also print ``host_burst_us``,
 the host's issue cost per call over bursts of back-to-back calls.
+
+``--train-steps N`` then times N training steps of the tree at
+``chip_smoke.py``'s training configuration (tinyllama-1.1b at full width,
+random weights from ``--seed``, the IVF head on the kernels, 2 x 1,024
+tokens, bf16), each after two untimed ones: ``train_step`` prints each
+step's wall ms (host clock, the card synchronised after it), its
+CUDA-event ms, their medians and the kernels' launches a step — the host
+cost of a kernel's calls shows in the wall, not in its device time.
 
 Inputs come from ``--seed``, so every tree sees the same data. Exits
 non-zero without CUDA.
@@ -160,6 +178,8 @@ def main() -> int:
                     default=[4, 256],
                     help="rerank_select's query counts (uniform survivors; "
                     "256 also piled-up ones)")
+    ap.add_argument("--train-steps", type=int, default=0,
+                    help="training steps to time after the kernels")
     args = ap.parse_args()
 
     import torch
@@ -182,7 +202,8 @@ def main() -> int:
                "tail_gather_argmax": "decode_fused",
                "pq_screen_select": "decode_fused",
                "pq_lut_score": "pq_lut_score"}
-    build.build_all(tuple(sources[k] for k in args.kernels))
+    build.build_all(build.SOURCES if args.train_steps
+                    else tuple(sources[k] for k in args.kernels))
     timer = Timer(torch, args.iters)
     out = {"tree": str(tree), "card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -192,6 +213,8 @@ def main() -> int:
         gen.manual_seed(args.seed)
         CASES[name](torch, timer, gen, out, args)
         torch.cuda.empty_cache()
+    if args.train_steps:
+        out["train_step"] = train_steps(torch, args.seed, args.train_steps)
     out["uncovered"] = timer.uncovered
     print(json.dumps(out), flush=True)
     return 0
@@ -469,9 +492,26 @@ def fused_estimator_case(torch, timer, gen, out: dict, args) -> None:
     from repro_torch.kernels import fused_estimator as kfe
     from repro_torch.kernels import ref
 
-    n, d, t, k = 32000, 2048, 256, 576  # tinyllama's head chunk, k = l
-    for kind in ("popular", "uniform", "shared"):
+    # (name, n, d, t, k, S) — tinyllama's head chunk on five input sets,
+    # then the other paths' shapes: the paper's ImageNet and word-embedding
+    # tables (S distinct per query), Algorithm 3 on the ImageNet bench
+    # table and structured search's amortized log Z (S from a popular head)
+    shapes = [("popular", 32000, 2048, 256, 576, "popular"),
+              ("uniform", 32000, 2048, 256, 576, "uniform"),
+              ("shared", 32000, 2048, 256, 576, "shared"),
+              ("t_only", 32000, 2048, 256, 576, "popular"),
+              ("s_only", 32000, 2048, 256, 576, "popular"),
+              ("imagenet", 1281167, 256, 64, 3456, "uniform"),
+              ("word", 2000126, 300, 32, 4352, "uniform"),
+              ("alg3", 160000, 256, 64, 1216, "popular"),
+              ("structured", 32000, 2048, 4, 64, "popular")]
+    route = getattr(kfe, "route", None)  # absent in trees before the rule
+    for name, n, d, t, k, kind in shapes:
         emb, ids, h, log_w = estimator_inputs(torch, gen, n, d, t, k, kind)
+        if name == "t_only":  # every S slot dead: the tail draws alone
+            log_w[:, :k] = float("-inf")
+        elif name == "s_only":  # every T slot dead: the popular S alone
+            log_w[:, k:] = float("-inf")
         call = (emb, ids, h, log_w)
         got_z, got_v = kfe.fused_estimator(*call)
         again_z, again_v = kfe.fused_estimator(*call)
@@ -481,22 +521,29 @@ def fused_estimator_case(torch, timer, gen, out: dict, args) -> None:
         tok = live.any(1)
         err = max((got_z - want_z)[tok].abs().max().item(),
                   (got_v - want_v)[tok].abs().max().item())
+        del want_z, want_v
         rows = torch.unique(ids[live]).numel()
         ms, host = timer.both(lambda: kfe.fused_estimator(*call),
-                              f"fused_estimator {kind}")
+                              f"fused_estimator {name}")
         first = digest(got_z, got_v)
-        out[f"fused_estimator_{kind}"] = {
+        out[f"fused_estimator_{name}"] = {
             "ms": ms, "host_us": host, "distinct_rows": rows,
+            "shape": [t, 2 * k, d, n], "s_ids": kind,
+            "route": route(n, d, t, 2 * k) if route else None,
             "max_abs_err": err, "digest": first,
             "repeatable": first == digest(again_z, again_v),
             "kernels_us": kernel_breakdown(
                 torch, timer, lambda: kfe.fused_estimator(*call)),
+            "y_ms": timer(lambda: kfe.fused_estimator(*call, return_y=True),
+                          f"fused_estimator {name} y"),
             "plain_ms": timer(lambda: ref.fused_estimator_ref(*call),
-                              f"fused_estimator {kind} plain"),
+                              f"fused_estimator {name} plain"),
             "bound_ms": bound_ms(rows * d * 4 + nbytes(ids, log_w, h)
                                  + t * 4 + t * d * 4,
                                  4.0 * d * int(live.sum().item()),
                                  FP32_FLOPS)[0]}
+        del emb, ids, h, log_w, call
+        torch.cuda.empty_cache()
 
 
 def fused_estimator_bwd_case(torch, timer, gen, out: dict, args) -> None:
@@ -729,6 +776,53 @@ def pq_lut_score_case(torch, timer, gen, out: dict, args) -> None:
                                  + nbytes(probe, lut) + pool * 4,
                                  float(pool * g.m_sub), FP32_FLOPS)[0]}
         torch.cuda.empty_cache()
+
+
+def train_steps(torch, seed: int, steps_n: int) -> dict:
+    """``steps_n`` training steps at ``chip_smoke.py``'s training
+    configuration, each timed by the host clock and by CUDA events."""
+    import statistics
+
+    from chip_smoke import TRAIN_BATCH, TRAIN_OPT, TRAIN_SEQ
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    cfg = get("tinyllama-1.1b").scaled(head_mips="ivf")
+    model = Model(cfg, "bf16", device="cuda")
+    params = model.init(seed)
+    index = model.make_head_index(params)
+    opt = adamw.init(params)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    batch = {k: torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                              generator=gen, device="cuda",
+                              dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    step = steps.make_train_step(
+        model, steps.TrainConfig(opt=adamw.OptConfig(**TRAIN_OPT)))
+    for _ in range(2):  # first-use costs out of the figures
+        step(params, opt, batch, (seed, 0), index)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    wall, event = [], []
+    for _ in range(steps_n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        step(params, opt, batch, (seed, 0), index)
+        b.record()
+        b.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        event.append(a.elapsed_time(b))
+    return {"wall_ms": wall, "event_ms": event,
+            "wall_ms_median": statistics.median(wall),
+            "event_ms_median": statistics.median(event),
+            "launches_a_step": {k: n // steps_n for k, n
+                                in ops.launch_counts().items() if n}}
 
 
 CASES = {"flash_decode": flash_decode_case,

@@ -29,6 +29,7 @@ __all__ = [
     "tail_gather_argmax_ref",
     "fused_estimator_ref",
     "fused_estimator_bwd_ref",
+    "popular_rows_ref",
 ]
 
 
@@ -241,3 +242,22 @@ def fused_estimator_bwd_ref(emb, ids, h, log_w, log_z, g, y=None
     d_emb = torch.zeros(emb.shape, dtype=torch.float32, device=emb.device)
     d_emb.index_add_(0, ids.long().reshape(-1), contrib)
     return d_emb, p
+
+
+def popular_rows_ref(ids, log_w, n: int, uses: int, cap: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plan of the kernel forward: the rows of an (n, ·) table named by
+    at least ``uses`` live slots (log_w > -inf) of (t, m) ids (clamped to
+    [0, n), as the kernel's are), the first ``cap`` of them in row order ->
+    (colmap (n,) i32: each row's column, or -1; rows (n_u,) i32; n_u (1,)
+    i32)."""
+    live = log_w != float("-inf")
+    flat = ids.long().clamp(0, n - 1)[live]
+    counts = torch.bincount(flat, minlength=n)
+    popular = counts >= uses
+    col = torch.cumsum(popular.long(), 0) - 1
+    keep = popular & (col < cap)
+    colmap = torch.where(keep, col, torch.full_like(col, -1)).int()
+    rows = torch.nonzero(keep)[:, 0].int()
+    return colmap, rows, torch.tensor([rows.numel()], dtype=torch.int32,
+                                      device=ids.device)

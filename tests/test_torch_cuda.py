@@ -1108,6 +1108,158 @@ def test_fused_estimator_edge_cases(gen, case):
     assert torch.equal(expv.nan_to_num(7.0), again_v.nan_to_num(7.0))
 
 
+def _route_inputs(gen, case):
+    """Inputs of the forward's routes: (emb, ids, h, log_w, row, uses) —
+    ``row`` a table row named by exactly ``uses`` live slots (None where
+    the case has no such row). Random ids name each row ~2 times, far below
+    R; an all-dead token 7 wherever t > 7, but where |U| must reach the
+    cap."""
+    R = fused_estimator.POPULAR_USES
+    n, d, t, m, dtype = 3000, 64, 64, 100, torch.float32
+    row, uses = None, None
+    if case in ("d36", "d200", "d4096"):
+        d = int(case[1:])
+    elif case == "bf16":
+        dtype = torch.bfloat16
+    elif case in ("cap_at", "cap_past"):  # |U| at, and past, the cap
+        n, d, t, m = 12000, 36, 64, 4608 if case == "cap_at" else 6144
+    elif case == "bands":  # a table of five L2-sized bands of rows
+        n, d, t, m = 40000, 512, 64, 700
+    elif case.startswith("split"):
+        t, m = {"split_t1": (1, 1), "split_t1_m": (1, 1000),
+                "split_t4": (4, 131), "split_t64": (64, 70),
+                "split_m1": (64, 1)}[case]
+    emb = (torch.randn((n, d), generator=gen, device="cuda") * 0.3).to(dtype)
+    h = torch.randn((t, d), generator=gen, device="cuda") * (2.0 / d ** 0.5)
+    ids = torch.randint(0, n, (t, m), generator=gen, device="cuda")
+    log_w = torch.randn((t, m), generator=gen, device="cuda")
+    log_w[torch.rand((t, m), generator=gen, device="cuda") < 0.1] = \
+        float("-inf")
+    if case in ("cap_at", "cap_past"):  # rows 0 .. k-1, 36+ live uses each
+        k = 8192 if case == "cap_at" else 10000
+        perm = torch.randperm(t * m, generator=gen, device="cuda")
+        ids = (perm % k).reshape(t, m)
+        log_w = torch.randn((t, m), generator=gen, device="cuda")
+    if t > 7 and not case.startswith("cap_"):  # |U| at the cap: all live
+        log_w[7] = float("-inf")
+    if case.startswith("uses_"):  # row 5 named R-1, R or R+1 times
+        uses = R + {"uses_r_minus_1": -1, "uses_r": 0, "uses_r_plus_1": 1}[case]
+        row = 5
+        ids[ids == row] = row + 1
+        ids[3, :2] = row  # one token naming it twice, with other weights
+        log_w[3, :2] = torch.tensor([0.5, -1.5], device="cuda")
+        free = torch.isfinite(log_w)
+        free[3, :2] = False
+        cand = free.view(-1).nonzero()[:, 0]
+        pick = cand[torch.randperm(cand.numel(), generator=gen,
+                                   device="cuda")[:uses - 2]]
+        ids.view(-1)[pick] = row
+    elif case in ("repeats", "bf16", "d36", "d200", "d4096", "bands"):
+        # rows 0-19 popular, named twice by every token; token 9 names row
+        # 7 in every other slot
+        ids[:, :40] = torch.arange(40, device="cuda") % 20
+        if case == "repeats":
+            ids[9, 40:] = 7
+    elif case == "all_u":  # tokens 0-9: every slot a popular row
+        ids[:, :30] = torch.randint(0, 30, (t, 30), generator=gen,
+                                    device="cuda")
+        ids[:10] = torch.randint(0, 30, (10, m), generator=gen, device="cuda")
+        log_w[:7] = torch.randn((7, m), generator=gen, device="cuda")
+    return emb, ids.int(), h, log_w, row, uses
+
+
+@pytest.mark.parametrize("case", [
+    "uses_r_minus_1", "uses_r", "uses_r_plus_1", "cap_at", "cap_past",
+    "repeats", "all_u", "bands", "bf16", "d36", "d200", "d4096", "split_t1",
+    "split_t1_m", "split_t4", "split_t64", "split_m1"])
+def test_fused_estimator_routes(gen, case):
+    """The forward on the routes of its shape rule: the popular-row plan
+    with a row named R-1, R and R+1 times (and twice by one token, with
+    other weights), |U| at the cap and past it (slot ranges), tokens naming
+    popular rows many times or only popular rows, a walk over five row
+    bands, bf16 rows, d 36 / 200 / 4,096; the split stream alone at t 1, 4
+    and 64, m 1 and m not a multiple of the range. The plain version's values (the all-dead token -inf / NaN), y
+    -inf on exactly the dead slots, two launches bitwise equal, the backward
+    from the new y against the plain backward, and the plan against its
+    plain version."""
+    emb, ids, h, log_w, row, uses = _route_inputs(gen, case)
+    n, d = emb.shape
+    t, m = ids.shape
+    r = fused_estimator.route(n, d, t, m)
+    # t < 2R, or too few slots for a row to reach R: the split stream alone
+    assert r["popular"] == (case not in ("split_t1", "split_t1_m", "split_t4",
+                                         "split_m1"))
+    # the plan's slots walked by row band, but past 4,096 slots a token
+    assert (r["bands"] > 0) == (r["popular"] and not case.startswith("cap_"))
+    if case == "bands":
+        assert r["bands"] == 5
+    log_z, expv, y = fused_estimator.fused_estimator(emb, ids, h, log_w,
+                                                     return_y=True)
+    want_z, want_v, want_y = ref.fused_estimator_ref(emb, ids, h, log_w,
+                                                     return_y=True)
+    torch.testing.assert_close(log_z, want_z, equal_nan=True, **TOL)
+    torch.testing.assert_close(expv, want_v, equal_nan=True, **TOL)
+    dead = torch.isneginf(log_w)
+    assert torch.equal(torch.isneginf(y), dead)
+    torch.testing.assert_close(y[~dead], want_y[~dead], **TOL)
+    if t > 7 and dead[7].all():
+        assert torch.isneginf(log_z[7]) and torch.isnan(expv[7]).all()
+    again_z, again_v, again_y = fused_estimator.fused_estimator(
+        emb, ids, h, log_w, return_y=True)
+    assert torch.equal(log_z.nan_to_num(7.0), again_z.nan_to_num(7.0))
+    assert torch.equal(expv.nan_to_num(7.0), again_v.nan_to_num(7.0))
+    assert torch.equal(y, again_y)
+    if r["popular"]:
+        colmap, rows, n_u = fused_estimator.popular_rows(ids, log_w, n,
+                                                         cap=r["cap"])
+        w_colmap, w_rows, w_n_u = ref.popular_rows_ref(
+            ids, log_w, n, fused_estimator.POPULAR_USES, r["cap"])
+        assert torch.equal(colmap, w_colmap) and torch.equal(rows, w_rows)
+        assert torch.equal(n_u, w_n_u)
+        if row is not None:
+            assert (colmap[row] >= 0) == (uses >= fused_estimator.POPULAR_USES)
+        if case == "cap_at":
+            assert int(n_u.item()) == r["cap"] == 8192
+        if case == "cap_past":
+            assert int(n_u.item()) == r["cap"] and rows[-1] == r["cap"] - 1
+        if case == "split_t64":  # the plan runs, no row reaches R
+            assert int(n_u.item()) == 0
+    live_tok = ~dead.all(1)
+    if not live_tok.any():
+        return
+    bargs = (emb, ids[live_tok], h[live_tok], log_w[live_tok],
+             log_z[live_tok], 0.5 + torch.rand((int(live_tok.sum()),),
+                                               generator=gen, device="cuda"))
+    d_emb, p = fused_estimator.fused_estimator_bwd(*bargs, y=y[live_tok])
+    want_d, want_p = ref.fused_estimator_bwd_ref(*bargs)
+    torch.testing.assert_close(p, want_p, **TOL)
+    torch.testing.assert_close(d_emb, want_d, **TOL)
+
+
+@pytest.mark.parametrize("case", ["popular", "split"])
+def test_fused_estimator_in_a_cuda_graph(gen, case):
+    """The forward issues no host sync: one call captured in a CUDA graph
+    and replayed on new inputs equals an eager call on them, bit for bit."""
+    t = 64 if case == "popular" else 8
+    emb, ids, h, log_w, _, _ = _route_inputs(gen, "repeats")
+    ids, h, log_w = ids[:t].clone(), h[:t].clone(), log_w[:t].clone()
+    fused_estimator.fused_estimator(emb, ids, h, log_w, return_y=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_estimator.fused_estimator(emb, ids, h, log_w,
+                                              return_y=True)
+    h.copy_(torch.randn(h.shape, generator=gen, device="cuda") * 0.25)
+    log_w[1:] = torch.randn(log_w[1:].shape, generator=gen, device="cuda")
+    graph.replay()
+    want = fused_estimator.fused_estimator(emb, ids, h, log_w, return_y=True)
+    torch.cuda.synchronize()
+    for a, b in zip(out, want):
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+    torch.testing.assert_close(out[0], ref.fused_estimator_ref(
+        emb, ids, h, log_w)[0], equal_nan=True, **TOL)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,t,m", [(300, 64, 6, 40), (3, 2048, 8, 100),
                                      (1000, 36, 5, 17)])
