@@ -1,0 +1,9 @@
+"""device_idle_share: the share of the traced window in which no operation
+ran on the device (profiler), in %."""
+
+
+def read(rec):
+    tr = rec["trace"]
+    if tr is None or tr["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
