@@ -251,35 +251,6 @@ SOURCE = {
     "rerank_select": "src/repro_torch/csrc/decode_fused.cu",
 }
 MIPS = ("ivf", "ivfpq")  # the head indexes served and trained
-# each kernel's CUDA symbols, as the profiler names them: (those of which a
-# call launches exactly one, counted as the calls; the others it launches)
-KERNEL_SYMBOLS = {
-    "flash_decode": (("flash_decode_split_kernel",
-                      "flash_decode_split_mma_kernel"),
-                     ("flash_decode_combine_kernel",)),
-    "ivf_gather_score": (("ivf_gather_score_kernel",
-                          "ivf_gather_score_small_kernel"),
-                         ("ivf_gather_score_plan_kernel",)),
-    "ivf_screen_select": (("ivf_screen_topk_kernel",),
-                          ("ivf_screen_score_small_kernel",
-                           "ivf_screen_plan_kernel",
-                           "ivf_screen_score_kernel")),
-    "tail_gather_argmax": (("tail_argmax_kernel",), ("tail_score_kernel",)),
-    "fused_estimator": (("fused_estimator_combine_kernel",),
-                        ("fused_estimator_stream_kernel",
-                         "fused_estimator_band_kernel",
-                         "fused_estimator_count_kernel",
-                         "fused_estimator_tile_kernel",
-                         "fused_estimator_compact_kernel",
-                         "fused_estimator_dense_score_kernel",
-                         "fused_estimator_dense_weights_kernel",
-                         "fused_estimator_dense_sum_kernel")),
-    "fused_estimator_bwd": (("fused_estimator_bwd_spmm_kernel",), ()),
-    "pq_lut_score": (("pq_lut_score_kernel",), ()),
-    "pq_screen_select": (("pq_screen_topk_kernel",),
-                         ("pq_screen_score_kernel",)),
-    "rerank_select": (("rerank_score_kernel",), ("rerank_select_kernel",)),
-}
 
 
 class Failed(RuntimeError):
@@ -1485,6 +1456,9 @@ def profile(torch, label: str, fn) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    from repro_torch.kernels import ops
+
+    symbols = ops.kernel_symbols()
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1492,13 +1466,13 @@ def profile(torch, label: str, fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name: dict[str, list] = {}
-    calls_of = dict.fromkeys(KERNEL_SYMBOLS, 0)
-    spans: dict[str, list] = {name: [] for name in KERNEL_SYMBOLS}
+    calls_of = dict.fromkeys(symbols, 0)
+    spans: dict[str, list] = {name: [] for name in symbols}
     matches: dict[str, list] = {}  # event name -> [(kernel, is a call)]
 
     def match(event_name: str) -> list:
         return [(name, sym in calls)
-                for name, (calls, others) in KERNEL_SYMBOLS.items()
+                for name, (calls, others) in symbols.items()
                 for sym in calls + others
                 if re.search(rf"(^|[\s:]){sym}[<(]", event_name)]
 

@@ -31,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import collectives as coll
+from repro_torch import cost_hook
 from repro_torch.core import rng
 from repro_torch.core.complement import sample_complement
 from repro_torch.core.gumbel import (
@@ -143,38 +144,46 @@ def local_gumbel_max(emb: torch.Tensor, h: torch.Tensor, *, k: int, l: int,
     Algorithm-2 certificate stays the authority on exactness: the gap
     certificate only routes bandwidth. ``router``
     (:class:`repro_torch.models.router.ProbeRouter`) predicts each query's
-    starting stage."""
-    nv = emb.shape[0] if n_valid is None else n_valid
-    if m_cap is None:
-        m_cap = default_m_cap(l)
-    embf = emb.float()
-    hf = h.float()
-    width = None
-    screen = getattr(index, "screen_select", None) if fused else None
-    if adaptive and hasattr(index, "topk_adaptive"):
-        atk = index.topk_adaptive(hf, k, c=c, fused=fused, router=router)
-        topk = _mask_probe(TopK(atk.ids, atk.values), n_valid)
-        width = atk.width
-    elif screen is not None:
-        topk = _mask_probe(screen(hf, k), n_valid)
-    else:
-        topk = topk_probe(embf, hf, k, index=index, n_valid=n_valid)
-    ids_clean, k_valid = sanitize_topk(topk, nv)
-    if draws is None:
-        if keys is None:
-            raise ValueError("local_gumbel_max needs keys or draws")
-        draws = rng.tail_draws(keys, k=k, m_cap=m_cap,
-                               hi=torch.clamp(nv - k_valid, min=1), lam=l)
-    if fused:
-        res = _fused_tail_argmax(embf, hf, ids_clean, topk.values, k_valid,
-                                 nv, l=l, m_cap=m_cap, c=c, draws=draws)
-    else:
-        res = sample_fixed_b(None, TopK(ids_clean, topk.values), nv,
-                             _tail_score_fn(embf, hf), l=l, m_cap=m_cap, c=c,
-                             k_valid=k_valid, draws=draws)
-    if width is not None:
-        res = res._replace(width=width.long())
-    return res
+    starting stage.
+
+    The call is the span ``sampler`` (:func:`repro_torch.cost_hook.span`),
+    its probe nested in it; its stages are ``sampler.draws``,
+    ``sampler.plan``, ``sampler.tail_score`` and ``sampler.finish``."""
+    with cost_hook.span("sampler"):
+        nv = emb.shape[0] if n_valid is None else n_valid
+        if m_cap is None:
+            m_cap = default_m_cap(l)
+        embf = emb.float()
+        hf = h.float()
+        width = None
+        screen = getattr(index, "screen_select", None) if fused else None
+        if adaptive and hasattr(index, "topk_adaptive"):
+            atk = index.topk_adaptive(hf, k, c=c, fused=fused, router=router)
+            topk = _mask_probe(TopK(atk.ids, atk.values), n_valid)
+            width = atk.width
+        elif screen is not None:
+            topk = _mask_probe(screen(hf, k), n_valid)
+        else:
+            topk = topk_probe(embf, hf, k, index=index, n_valid=n_valid)
+        ids_clean, k_valid = sanitize_topk(topk, nv)
+        if draws is None:
+            if keys is None:
+                raise ValueError("local_gumbel_max needs keys or draws")
+            with cost_hook.span("sampler.draws"):
+                draws = rng.tail_draws(keys, k=k, m_cap=m_cap,
+                                       hi=torch.clamp(nv - k_valid, min=1),
+                                       lam=l)
+        if fused:
+            res = _fused_tail_argmax(embf, hf, ids_clean, topk.values,
+                                     k_valid, nv, l=l, m_cap=m_cap, c=c,
+                                     draws=draws)
+        else:
+            res = sample_fixed_b(None, TopK(ids_clean, topk.values), nv,
+                                 _tail_score_fn(embf, hf), l=l, m_cap=m_cap,
+                                 c=c, k_valid=k_valid, draws=draws)
+        if width is not None:
+            res = res._replace(width=width.long())
+        return res
 
 
 def _tail_score_fn(embf: torch.Tensor, hf: torch.Tensor):
@@ -231,19 +240,22 @@ def _fused_tail_argmax(embf: torch.Tensor, hf: torch.Tensor,
     """Algorithm-2 finish with the tail gather + perturbed argmax in one
     kernel. The tail plan (positions, heights, live count) is built from the
     same draws as :func:`sample_fixed_b` builds it; only the (t, m_cap, d)
-    row gather and the argmax move into ``tail_gather_argmax``."""
-    pert_s = values.float() + draws.g_s
-    b = cutoff(nv, k_valid, l)
-    plan = plan_tail(None, ids_clean, nv, b, l, m_cap, k_valid=k_valid,
-                     draws=draws)
-    # complement draws are < nv <= rows already; the clamp is defensive, as
-    # in the unfused score_fn
-    pos = torch.clamp(plan.pos, max=embf.shape[0] - 1)
-    idx, max_val = ops.tail_gather_argmax(embf, pos, plan.m_used, pert_s,
-                                          ids_clean, plan.heights, hf)
-    ok, bound = certificate(values, b, c, max_val, plan.overflow)
-    return SampleResult(idx.long(), ok, plan.m_used, max_val, bound,
-                        plan.overflow, torch.full_like(plan.m_used, -1))
+    row gather and the argmax move into ``tail_gather_argmax``, whose span
+    is ``sampler.finish``."""
+    with cost_hook.span("sampler.plan"):
+        pert_s = values.float() + draws.g_s
+        b = cutoff(nv, k_valid, l)
+        plan = plan_tail(None, ids_clean, nv, b, l, m_cap, k_valid=k_valid,
+                         draws=draws)
+        # complement draws are < nv <= rows already; the clamp is defensive,
+        # as in the unfused score_fn
+        pos = torch.clamp(plan.pos, max=embf.shape[0] - 1)
+    with cost_hook.span("sampler.finish"):
+        idx, max_val = ops.tail_gather_argmax(embf, pos, plan.m_used, pert_s,
+                                              ids_clean, plan.heights, hf)
+        ok, bound = certificate(values, b, c, max_val, plan.overflow)
+        return SampleResult(idx.long(), ok, plan.m_used, max_val, bound,
+                            plan.overflow, torch.full_like(plan.m_used, -1))
 
 
 def dense_gumbel_max(emb: torch.Tensor, h: torch.Tensor, n_valid=None, *,
@@ -274,22 +286,24 @@ def amortized_candidates(topk: TopK, n, l: int, *,
     weight use the per-token count of LIVE exclusions, so the estimator
     stays unbiased under partial probe fills. An empty tail weighs -inf.
     ``keys`` ((t, 3) int64) keys each token's tail draw; ``draws`` ((t, l)
-    integers in [0, n - live count)) injects it instead."""
-    t, k = topk.ids.shape
-    ids_clean, k_valid = sanitize_topk(topk, n)
-    s_sorted = torch.sort(ids_clean, dim=1).values
-    tail = sample_complement(keys, n, s_sorted, l, n_excluded=k_valid,
-                             u=draws)  # (t, l)
-    tail_n = float(n) - k_valid.float()
-    log_w_tail = torch.where(tail_n > 0,
-                             torch.log(torch.clamp(tail_n, min=1.0) / l),
-                             torch.full_like(tail_n, _NEG_INF))
-    ids = torch.cat([topk.ids.long(), tail], dim=1)
-    log_w_s = torch.where(torch.isneginf(topk.values),
-                          torch.full_like(topk.values, _NEG_INF),
-                          torch.zeros_like(topk.values))
-    log_w = torch.cat([log_w_s, log_w_tail[:, None].expand(t, l)], dim=1)
-    return ids, log_w
+    integers in [0, n - live count)) injects it instead. The call is the
+    span ``estimator.candidates``."""
+    with cost_hook.span("estimator.candidates"):
+        t, k = topk.ids.shape
+        ids_clean, k_valid = sanitize_topk(topk, n)
+        s_sorted = torch.sort(ids_clean, dim=1).values
+        tail = sample_complement(keys, n, s_sorted, l, n_excluded=k_valid,
+                                 u=draws)  # (t, l)
+        tail_n = float(n) - k_valid.float()
+        log_w_tail = torch.where(tail_n > 0,
+                                 torch.log(torch.clamp(tail_n, min=1.0) / l),
+                                 torch.full_like(tail_n, _NEG_INF))
+        ids = torch.cat([topk.ids.long(), tail], dim=1)
+        log_w_s = torch.where(torch.isneginf(topk.values),
+                              torch.full_like(topk.values, _NEG_INF),
+                              torch.zeros_like(topk.values))
+        log_w = torch.cat([log_w_s, log_w_tail[:, None].expand(t, l)], dim=1)
+        return ids, log_w
 
 
 def topk_only_candidates(topk: TopK, targets: torch.Tensor
@@ -337,20 +351,22 @@ def stratified_logz(emb: torch.Tensor, h: torch.Tensor, ids: torch.Tensor,
     backed by its backward kernel. On the CPU, ``use_kernel`` takes that
     route through the kernels' plain versions; without it the rows are
     gathered and differentiated through a logsumexp. All give the same
-    value and gradients."""
-    # -1 pads, and the tail ids past the table that an empty complement
-    # draws (S covering every row), carry weight -inf: clamp them into the
-    # table, as the reference's gather clamps
-    ids = torch.clamp(ids.detach(), 0, emb.shape[0] - 1)
-    log_w = log_w.float()  # stratum weights: fp32 always
-    if use_kernel or ops.kernel_route(h):
-        return _FusedLogZ.apply(emb, h, ids, log_w)
-    # an embedding lookup, not ``emb[ids]``: advanced indexing's backward
-    # on the CPU adds repeated rows with atomics across threads, in an order
-    # that changes from run to run; the embedding backward does not
-    rows = torch.nn.functional.embedding(ids, emb)  # (t, m, d)
-    y = torch.einsum("tmd,td->tm", rows, h).float()
-    return torch.logsumexp(y + log_w, dim=1)
+    value and gradients. The forward is the span ``estimator.logz``."""
+    with cost_hook.span("estimator.logz"):
+        # -1 pads, and the tail ids past the table that an empty complement
+        # draws (S covering every row), carry weight -inf: clamp them into
+        # the table, as the reference's gather clamps
+        ids = torch.clamp(ids.detach(), 0, emb.shape[0] - 1)
+        log_w = log_w.float()  # stratum weights: fp32 always
+        if use_kernel or ops.kernel_route(h):
+            return _FusedLogZ.apply(emb, h, ids, log_w)
+        # an embedding lookup, not ``emb[ids]``: advanced indexing's
+        # backward on the CPU adds repeated rows with atomics across
+        # threads, in an order that changes from run to run; the embedding
+        # backward does not
+        rows = torch.nn.functional.embedding(ids, emb)  # (t, m, d)
+        y = torch.einsum("tmd,td->tm", rows, h).float()
+        return torch.logsumexp(y + log_w, dim=1)
 
 
 # bytes of the (t, tables, cap) candidate ids and weights the LSH sampler

@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch import cost_hook
 from repro_torch.core import rng
 from repro_torch.core.complement import complement_map
 
@@ -161,20 +162,23 @@ def gumbel_max_dense(keys: torch.Tensor | None, y: torch.Tensor, *,
 def _finish(topk: TopK, score_fn: Callable[[torch.Tensor], torch.Tensor],
             b: torch.Tensor, m_cap: int, c: float, pert_s: torch.Tensor,
             plan: TailPlan) -> SampleResult:
-    """Tail scores + perturbed argmax over S ∪ tail given the plan."""
-    y_tail = score_fn(plan.pos).float()  # (t, m_cap)
-    live = (torch.arange(m_cap, device=y_tail.device)[None, :]
-            < plan.m_used[:, None])
-    pert_t = torch.where(live, y_tail + plan.heights,
-                         torch.full_like(y_tail, -math.inf))
-    pert = torch.cat([pert_s, pert_t], dim=1)
-    ids = torch.cat([topk.ids.long(), plan.pos], dim=1)
-    best = torch.argmax(pert, dim=1, keepdim=True)
-    max_val = torch.gather(pert, 1, best)[:, 0]
-    ok, bound = certificate(topk.values, b, c, max_val, plan.overflow)
-    return SampleResult(torch.gather(ids, 1, best)[:, 0], ok, plan.m_used,
-                        max_val, bound, plan.overflow,
-                        torch.full_like(plan.m_used, -1))
+    """Tail scores (span ``sampler.tail_score``) + perturbed argmax over S
+    ∪ tail given the plan (``sampler.finish``)."""
+    with cost_hook.span("sampler.tail_score"):
+        y_tail = score_fn(plan.pos).float()  # (t, m_cap)
+    with cost_hook.span("sampler.finish"):
+        live = (torch.arange(m_cap, device=y_tail.device)[None, :]
+                < plan.m_used[:, None])
+        pert_t = torch.where(live, y_tail + plan.heights,
+                             torch.full_like(y_tail, -math.inf))
+        pert = torch.cat([pert_s, pert_t], dim=1)
+        ids = torch.cat([topk.ids.long(), plan.pos], dim=1)
+        best = torch.argmax(pert, dim=1, keepdim=True)
+        max_val = torch.gather(pert, 1, best)[:, 0]
+        ok, bound = certificate(topk.values, b, c, max_val, plan.overflow)
+        return SampleResult(torch.gather(ids, 1, best)[:, 0], ok,
+                            plan.m_used, max_val, bound, plan.overflow,
+                            torch.full_like(plan.m_used, -1))
 
 
 def cutoff(n, k_valid: torch.Tensor, l: int) -> torch.Tensor:
@@ -228,17 +232,21 @@ def sample_fixed_b(keys, topk: TopK, n, score_fn, *, l: int,
     ``B = ln((n - k_valid)/l)`` so the tail atom count is Poisson(l).
     ``score_fn`` maps (t, m) ids to their (t, m) unnormalized log-probs.
     ``k_valid`` (t,) is the live slot count of an underfilled probe (dead
-    slots hold value -inf and sanitized virtual ids >= n)."""
+    slots hold value -inf and sanitized virtual ids >= n). Spans:
+    ``sampler.draws``, ``sampler.plan``, then :func:`_finish`'s."""
     k = topk.ids.shape[1]
     kv = _n_excluded(topk.ids, k_valid)
     if m_cap is None:
         m_cap = default_m_cap(l)
     if draws is None:
-        draws = rng.tail_draws(keys, k=k, m_cap=m_cap,
-                               hi=torch.clamp(n - kv, min=1), lam=l)
-    pert_s = topk.values.float() + draws.g_s
-    b = cutoff(n, kv, l)
-    plan = plan_tail(None, topk.ids, n, b, l, m_cap, k_valid=kv, draws=draws)
+        with cost_hook.span("sampler.draws"):
+            draws = rng.tail_draws(keys, k=k, m_cap=m_cap,
+                                   hi=torch.clamp(n - kv, min=1), lam=l)
+    with cost_hook.span("sampler.plan"):
+        pert_s = topk.values.float() + draws.g_s
+        b = cutoff(n, kv, l)
+        plan = plan_tail(None, topk.ids, n, b, l, m_cap, k_valid=kv,
+                         draws=draws)
     return _finish(topk, score_fn, b, m_cap, c, pert_s, plan)
 
 

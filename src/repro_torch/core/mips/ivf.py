@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import cost_hook
 from repro_torch.core.gumbel import TopK
 from repro_torch.core.mips import adaptive, base
 from repro_torch.core.quant.kmeans import assign_clusters, lloyd
@@ -237,13 +238,15 @@ class IVFIndex:
     def _probe(self, qf: torch.Tensor, n_probe: int | None) -> torch.Tensor:
         """(b, n_probe) ids of the best-scoring centroids."""
         n_probe = min(n_probe or self.config.n_probe, self.state.n_clusters)
-        _, probe = base.top_k(qf @ self.state.centroids.T, n_probe)
+        with cost_hook.span("index.centroids"):
+            _, probe = base.top_k(qf @ self.state.centroids.T, n_probe)
         return probe
 
     def _overflow_scores(self, qf: torch.Tensor) -> torch.Tensor:
         """(b, o_cap) exact scores of the overflow rows — one matmul outside
         the kernels, shared by both probe paths."""
-        return (self.state.overflow_vecs.float() @ qf.T).T
+        with cost_hook.span("index.overflow"):
+            return (self.state.overflow_vecs.float() @ qf.T).T
 
     def _pool_scores(self, qf: torch.Tensor, probe: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -253,15 +256,19 @@ class IVFIndex:
         fixed and adaptive probes share this pool exactly."""
         st = self.state
         b = qf.shape[0]
-        if self.config.use_kernel or ops.kernel_route(qf):
-            scores, ids = ops.ivf_gather_score(st.member_vecs, st.member_ids,
-                                               probe, qf)
-        else:
-            scores, ids = ref.ivf_gather_score_ref(st.member_vecs,
+        with cost_hook.span("index.gather_score"):
+            if self.config.use_kernel or ops.kernel_route(qf):
+                scores, ids = ops.ivf_gather_score(st.member_vecs,
                                                    st.member_ids, probe, qf)
-            scores, ids = scores.reshape(b, -1), ids.reshape(b, -1)
-        scores = torch.cat([scores, self._overflow_scores(qf)], dim=1)
-        ids = torch.cat([ids, st.overflow_ids[None].expand(b, -1)], dim=1)
+            else:
+                scores, ids = ref.ivf_gather_score_ref(st.member_vecs,
+                                                       st.member_ids, probe,
+                                                       qf)
+                scores, ids = scores.reshape(b, -1), ids.reshape(b, -1)
+        o_scores = self._overflow_scores(qf)
+        with cost_hook.span("index.pool"):
+            scores = torch.cat([scores, o_scores], dim=1)
+            ids = torch.cat([ids, st.overflow_ids[None].expand(b, -1)], dim=1)
         return scores, ids
 
     def topk(self, q: torch.Tensor, k: int, *, n_probe: int | None = None
@@ -272,14 +279,20 @@ class IVFIndex:
     def topk_batch(self, q: torch.Tensor, k: int, *,
                    n_probe: int | None = None) -> TopK:
         """Approximate top-k for a query batch (b, d) -> TopK[(b,k), (b,k)]:
-        the probed clusters' members ∪ overflow, dead slots at -inf."""
-        qf = q.float()
-        scores, ids = self._pool_scores(qf, self._probe(qf, n_probe))
-        scores = torch.where(ids >= 0, scores,
-                             torch.full_like(scores, -math.inf))
-        scores, ids = _pad_pool(scores, ids, k)
-        vals, pos = base.top_k(scores, k)
-        return TopK(torch.gather(ids, 1, pos), vals)
+        the probed clusters' members ∪ overflow, dead slots at -inf. The
+        call is the span ``index.topk_batch``; its stages ``index.centroids``,
+        ``index.gather_score``, ``index.overflow``, ``index.pool`` (twice)
+        and ``index.select`` (:func:`repro_torch.cost_hook.span`)."""
+        with cost_hook.span("index.topk_batch"):
+            qf = q.float()
+            scores, ids = self._pool_scores(qf, self._probe(qf, n_probe))
+            with cost_hook.span("index.pool"):
+                scores = torch.where(ids >= 0, scores,
+                                     torch.full_like(scores, -math.inf))
+                scores, ids = _pad_pool(scores, ids, k)
+            with cost_hook.span("index.select"):
+                vals, pos = base.top_k(scores, k)
+                return TopK(torch.gather(ids, 1, pos), vals)
 
     def topk_adaptive(self, q: torch.Tensor, k: int, *, c: float = 0.0,
                       n_probe_init: int | None = None,
@@ -305,9 +318,10 @@ class IVFIndex:
         w_max, widths = _schedule(self.config, st.n_clusters, n_probe_init,
                                   n_probe_max)
         qf = q.float()
-        c_scores = qf @ st.centroids.T  # (b, n_c)
+        with cost_hook.span("index.centroids"):
+            c_scores = qf @ st.centroids.T  # (b, n_c)
+            _, probe = base.top_k(c_scores, w_max)
         bound_table = adaptive.unprobed_bound_table(c_scores, st.radii, qf)
-        _, probe = base.top_k(c_scores, w_max)
         if router is not None and init_stage is None:
             init_stage = router.init_stage(c_scores, qf, widths)
         if fused:
@@ -321,9 +335,11 @@ class IVFIndex:
             scores, ids = self._pool_scores(qf, probe)
 
             def stage_fn(w):
-                sc, sids = _stage_pool(scores, ids, w, st.cap, w_max, k)
-                vals, pos = base.top_k(sc, k)
-                return vals, torch.gather(sids, 1, pos)
+                with cost_hook.span("index.pool"):
+                    sc, sids = _stage_pool(scores, ids, w, st.cap, w_max, k)
+                with cost_hook.span("index.select"):
+                    vals, pos = base.top_k(sc, k)
+                    return vals, torch.gather(sids, 1, pos)
 
         return adaptive.staged_widen(stage_fn, bound_table, widths, k, c=c,
                                      no_spill=st.spill_count == 0,

@@ -43,11 +43,23 @@ from repro_torch.kernels.ivf_gather_score import check_tables, workspace_ints
 from repro_torch.kernels.pq_lut_score import check_codes
 
 __all__ = ["ivf_screen_select", "pq_screen_select", "rerank_select",
-           "tail_gather_argmax", "launches", "rerank_workspace_ints",
+           "tail_gather_argmax", "launches", "symbols",
+           "rerank_workspace_ints",
            "screen_workspace_ints", "tail_workspace_ints"]
 
 launches = {"ivf_screen_select": 0, "pq_screen_select": 0,
             "rerank_select": 0, "tail_gather_argmax": 0}
+# CUDA symbols by kernel (ops.kernel_symbols): (one a call, the others)
+symbols = {
+    "ivf_screen_select": (("ivf_screen_topk_kernel",),
+                          ("ivf_screen_score_small_kernel",
+                           "ivf_screen_plan_kernel",
+                           "ivf_screen_score_kernel")),
+    "tail_gather_argmax": (("tail_argmax_kernel",), ("tail_score_kernel",)),
+    "pq_screen_select": (("pq_screen_topk_kernel",),
+                         ("pq_screen_score_kernel",)),
+    "rerank_select": (("rerank_score_kernel",), ("rerank_select_kernel",)),
+}
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
 RERANK_ROWS = 32  # survivors one rerank_select score block takes (the

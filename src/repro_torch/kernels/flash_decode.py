@@ -33,10 +33,16 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["flash_decode", "launches"]
+__all__ = ["flash_decode", "launches", "symbols"]
 
 # kernel launches (dense and paged layouts); reset by ops.reset_launch_counts
 launches = {"flash_decode": 0, "flash_decode_paged": 0}
+# CUDA symbols as the profiler names them, by kernel (ops.kernel_symbols):
+# (those of which a call launches exactly one, the others it launches); the
+# paged layout launches the same symbols
+symbols = {"flash_decode": (("flash_decode_split_kernel",
+                             "flash_decode_split_mma_kernel"),
+                            ("flash_decode_combine_kernel",))}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_ROWS = 64  # cache rows per split: the kernel's kSplit, which it checks

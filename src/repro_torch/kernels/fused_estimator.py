@@ -34,9 +34,22 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = ["fused_estimator", "fused_estimator_bwd", "popular_rows", "route",
-           "launches", "POPULAR_USES", "POPULAR_CAP"]
+           "launches", "symbols", "POPULAR_USES", "POPULAR_CAP"]
 
 launches = {"fused_estimator": 0, "fused_estimator_bwd": 0}
+# CUDA symbols by kernel (ops.kernel_symbols): (one a call, the others)
+symbols = {
+    "fused_estimator": (("fused_estimator_combine_kernel",),
+                        ("fused_estimator_stream_kernel",
+                         "fused_estimator_band_kernel",
+                         "fused_estimator_count_kernel",
+                         "fused_estimator_tile_kernel",
+                         "fused_estimator_compact_kernel",
+                         "fused_estimator_dense_score_kernel",
+                         "fused_estimator_dense_weights_kernel",
+                         "fused_estimator_dense_sum_kernel")),
+    "fused_estimator_bwd": (("fused_estimator_bwd_spmm_kernel",), ()),
+}
 
 _MAX_D = 4096  # 32 float4 groups per lane in the forward's registers
 _bound: dict = {}  # the forward's ctypes launchers, bound on first use

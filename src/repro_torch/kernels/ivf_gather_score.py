@@ -21,9 +21,14 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["ivf_gather_score", "launches", "check_tables", "workspace_ints"]
+__all__ = ["ivf_gather_score", "launches", "symbols", "check_tables",
+           "workspace_ints"]
 
 launches = {"ivf_gather_score": 0}  # kernel launches; reset by ops.reset_launch_counts
+# CUDA symbols by kernel (ops.kernel_symbols): (one a call, the others)
+symbols = {"ivf_gather_score": (("ivf_gather_score_kernel",
+                                 "ivf_gather_score_small_kernel"),
+                                ("ivf_gather_score_plan_kernel",))}
 
 
 def check_tables(member_vecs, member_ids, probe, q, name: str):

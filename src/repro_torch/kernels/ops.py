@@ -5,7 +5,8 @@ tensor goes to the kernel, which launches or raises. There is no fallback
 from one to the other: a build or launch failure on the card propagates.
 Each kernel wrapper keeps a plain integer count of its launches
 (:func:`launch_counts`), so a run can show that the serving and training
-paths went through the kernels.
+paths went through the kernels, and declares the CUDA symbols the profiler
+names its launches by (:func:`kernel_symbols`).
 
 A meta tensor (the cost model's dry run, :mod:`repro_torch.launch
 .cost_model`) gets outputs of the kernel's shapes and dtypes on the meta
@@ -41,6 +42,7 @@ __all__ = [
     "fused_estimator",
     "fused_estimator_bwd",
     "kernel_route",
+    "kernel_symbols",
     "launch_counts",
     "reset_launch_counts",
     "KERNELS",
@@ -49,11 +51,20 @@ __all__ = [
 _COUNTERS = (_fd.launches, _igs.launches, _pls.launches, _df.launches,
              _fe.launches)
 KERNELS = tuple(k for c in _COUNTERS for k in c)
+_SYMBOLS = (_fd.symbols, _igs.symbols, _pls.symbols, _df.symbols,
+            _fe.symbols)
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel name -> launches since the last :func:`reset_launch_counts`."""
     return {k: v for c in _COUNTERS for k, v in c.items()}
+
+
+def kernel_symbols() -> dict[str, tuple[tuple[str, ...], tuple[str, ...]]]:
+    """Kernel name -> (the CUDA symbols of which a call launches exactly
+    one, the others it launches), as the profiler names them. The paged
+    ``flash_decode`` launches ``flash_decode``'s."""
+    return {k: v for s in _SYMBOLS for k, v in s.items()}
 
 
 def reset_launch_counts() -> None:

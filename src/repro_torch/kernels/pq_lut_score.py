@@ -13,9 +13,11 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["pq_lut_score", "launches", "check_codes"]
+__all__ = ["pq_lut_score", "launches", "symbols", "check_codes"]
 
 launches = {"pq_lut_score": 0}  # kernel launches; reset by ops.reset_launch_counts
+# CUDA symbols by kernel (ops.kernel_symbols): (one a call, the others)
+symbols = {"pq_lut_score": (("pq_lut_score_kernel",), ())}
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
 
